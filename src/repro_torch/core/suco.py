@@ -1,0 +1,651 @@
+"""SuCo (paper Algorithms 2-4) on torch: the index, the single-pass fused
+query and the serving engine over it.
+
+The counterpart of the main path of ``repro.core.suco``:
+
+* **Index** (Alg. 2): per subspace, split the dims in two halves and train
+  ``sqrt(K)`` centroids per half with chunked Lloyd; the IMI is the
+  ``sqrt(K) x sqrt(K)`` grid.  Stored densely as ``cell_ids (Ns, n) int32``
+  and ``cell_counts (Ns, K) int32``.  :func:`build_index` builds it;
+  :func:`load_index_artifact` and :meth:`SuCoIndex.from_numpy` carry over
+  an index the JAX package built (its ``.npz`` artifact, v1-v3, with the
+  same magic, version and per-array CRC32 checks).
+* **Query** (Algs. 3-4) as :func:`suco_query_fused`: Dynamic Activation as
+  per-cell ranks and cutoffs, then one pass over the data in chunks.  Per
+  chunk one kernel scores, prunes (Pareto: only rows beating the carried
+  pool minimum can enter) and compacts the survivors; their exact distances
+  are computed in-pass (the gather-rerank kernel) and merged into a carried
+  ``(score, dist, id)`` pool in (score desc, id asc) order.  A chunk whose
+  survivors overflow the compaction width takes the exact fallback: the
+  chunk's own top ``min(pool, chunk)`` rows.  Either way the result equals
+  the JAX package's, id for id, up to ties of the fp distances.  The
+  overflow decision reads one flag back to the host per chunk; the engine
+  counts these synchronisations.
+* **Serving**: :class:`SuCoEngine` holds ``(x, index, EnginePolicy)`` on
+  one device, pads each batch to a bucket and always runs the fused query.
+
+Mutation (insert/delete), the dense and streaming query modes and the
+counting merge are not ported yet; an index loaded with a tombstone mask is
+served with it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zipfile
+import zlib
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import subspace as sub
+from repro_torch.core.distances import Metric, pairwise_dist_rowwise, rowwise_candidate_dist
+from repro_torch.core.kmeans import kmeans_batched
+from repro_torch.core.sc_linear import (
+    INT32_MAX,
+    QueryResult,
+    candidate_pool_size,
+    merge_topk_pool_with_dists,
+    score_id_key,
+)
+from repro_torch.core.tuning import (
+    TileConfig,
+    autotune_build_block_n,
+    autotune_tiles,
+    device_limits,
+)
+from repro_torch.kernels.gather_rerank.ops import gather_rerank_block
+from repro_torch.kernels.sc_score.ops import sc_scores_cells_prefilter_compact
+
+__all__ = [
+    "SuCoConfig",
+    "SuCoIndex",
+    "ArtifactError",
+    "build_index",
+    "load_index_artifact",
+    "suco_cell_ranks",
+    "suco_query_fused",
+    "batch_bucket",
+    "DEFAULT_BATCH_BUCKETS",
+    "EnginePolicy",
+    "EngineStats",
+    "SuCoEngine",
+]
+
+# The JAX package's artifact contract (repro.core.suco): a plain .npz,
+# tagged and version-stamped; v2 adds "tombstone", v3 per-array checksums.
+_ARTIFACT_MAGIC = "suco-index"
+_ARTIFACT_READABLE_VERSIONS = (1, 2, 3)
+_ARTIFACT_REQUIRED_KEYS = (
+    "artifact", "version", "centroids1", "centroids2", "cell_ids", "cell_counts",
+    "sqrt_k", "spec_d", "spec_n_subspaces", "spec_perm", "spec_bounds",
+)
+
+
+class ArtifactError(ValueError):
+    """An index artifact could not be loaded: a foreign file, an unsupported
+    version, missing keys, a checksum mismatch or a corrupt payload."""
+
+
+def _array_crc(a: np.ndarray) -> int:
+    """CRC32 over an array's dtype, shape and raw bytes — the ``crc_<key>``
+    content checksum of a version-3 artifact."""
+    a = np.ascontiguousarray(a)
+    h = zlib.crc32(str(a.dtype).encode())
+    h = zlib.crc32(repr(a.shape).encode(), h)
+    h = zlib.crc32(a.tobytes(), h)
+    return h & 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class SuCoConfig:
+    """Static SuCo hyper-parameters (paper defaults: K=50^2, Ns=8, t=20).
+
+    ``block_n`` is the build's chunk of points; 0 autotunes it from the
+    device's memory limits (:func:`repro_torch.core.tuning.
+    autotune_build_block_n`).
+    """
+
+    n_subspaces: int = 8
+    sqrt_k: int = 50
+    kmeans_iters: int = 20
+    seed: int = 0
+    block_n: int = 4096
+
+
+@dataclasses.dataclass
+class SuCoIndex:
+    """Centroid codebooks + dense IMI occupancy, all on one device.
+
+    ``tombstone`` (optional ``(n,) bool``, True = deleted) excludes points
+    from every candidate pool; ``cell_counts`` counts live points only.
+    """
+
+    centroids1: torch.Tensor  # (Ns, sqrtK, h_max) float32
+    centroids2: torch.Tensor  # (Ns, sqrtK, h_max) float32
+    cell_ids: torch.Tensor  # (Ns, n) int32
+    cell_counts: torch.Tensor  # (Ns, K) int32
+    spec: sub.SubspaceSpec
+    sqrt_k: int
+    tombstone: torch.Tensor | None = None
+
+    @property
+    def n_cells(self) -> int:
+        return self.sqrt_k * self.sqrt_k
+
+    @property
+    def n_points(self) -> int:
+        return self.cell_ids.shape[1]
+
+    @property
+    def n_live(self) -> int:
+        """Live (non-tombstoned) point count."""
+        if self.tombstone is None:
+            return self.n_points
+        return self.n_points - int(self.tombstone.sum())
+
+    def to(self, device: torch.device | str) -> "SuCoIndex":
+        """This index with every tensor on ``device``."""
+        move = lambda t: None if t is None else t.to(device)
+        return dataclasses.replace(
+            self,
+            centroids1=move(self.centroids1),
+            centroids2=move(self.centroids2),
+            cell_ids=move(self.cell_ids),
+            cell_counts=move(self.cell_counts),
+            tombstone=move(self.tombstone),
+        )
+
+    @classmethod
+    def from_numpy(
+        cls,
+        centroids1: np.ndarray,
+        centroids2: np.ndarray,
+        cell_ids: np.ndarray,
+        cell_counts: np.ndarray,
+        *,
+        spec: sub.SubspaceSpec,
+        sqrt_k: int,
+        tombstone: np.ndarray | None = None,
+        device: torch.device | str = "cuda",
+    ) -> "SuCoIndex":
+        """An index from numpy arrays in the JAX package's layouts (the
+        weights of an index built there), checked and moved to ``device``."""
+        ns, k = spec.n_subspaces, int(sqrt_k)
+        h = spec.max_half_size
+        for name, a in (("centroids1", centroids1), ("centroids2", centroids2)):
+            if np.shape(a) != (ns, k, h):
+                raise ValueError(f"{name} must be {(ns, k, h)}, got {np.shape(a)}")
+        if np.ndim(cell_ids) != 2 or np.shape(cell_ids)[0] != ns:
+            raise ValueError(f"cell_ids must be ({ns}, n), got {np.shape(cell_ids)}")
+        if np.shape(cell_counts) != (ns, k * k):
+            raise ValueError(f"cell_counts must be {(ns, k * k)}, got {np.shape(cell_counts)}")
+        n = np.shape(cell_ids)[1]
+        if tombstone is not None and np.shape(tombstone) != (n,):
+            raise ValueError(f"tombstone must be ({n},), got {np.shape(tombstone)}")
+
+        def t(a, dtype):
+            return torch.tensor(np.asarray(a, dtype=dtype), device=device)
+
+        return cls(
+            centroids1=t(centroids1, np.float32),
+            centroids2=t(centroids2, np.float32),
+            cell_ids=t(cell_ids, np.int32),
+            cell_counts=t(cell_counts, np.int32),
+            spec=spec,
+            sqrt_k=k,
+            tombstone=None if tombstone is None else t(tombstone, np.bool_),
+        )
+
+
+@torch.inference_mode()
+def build_index(
+    x: torch.Tensor,
+    config: SuCoConfig = SuCoConfig(),
+    *,
+    spec: sub.SubspaceSpec | None = None,
+    init_centroids: torch.Tensor | None = None,
+) -> SuCoIndex:
+    """Algorithm 2 on ``x: (n, d)``, on the device ``x`` lies on.
+
+    Chunked Lloyd over the ``2*Ns`` half-subspace codebooks, then the paired
+    final assignment with the IMI histogram.  Deterministic given
+    ``config.seed``; ``init_centroids: (2*Ns, sqrtK, h_max)`` (first halves,
+    then second halves) replaces the random init.
+    """
+    if spec is None:
+        spec = sub.contiguous_spec(x.shape[-1], config.n_subspaces)
+    if config.block_n < 0:
+        raise ValueError(f"block_n must be >= 0 (0 = autotune), got {config.block_n}")
+    x = x.float()
+    n, d = x.shape
+    block_n = config.block_n or autotune_build_block_n(
+        n, d, sqrt_k=config.sqrt_k, n_subspaces=spec.n_subspaces,
+        limits=device_limits(x.device),
+    )
+    h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, x))
+    both = torch.cat([h1, h2], dim=0).contiguous()  # (2Ns, n, h_max)
+    del h1, h2
+    res = kmeans_batched(
+        both, config.sqrt_k, config.kmeans_iters, block_n=block_n,
+        generator=torch.Generator().manual_seed(config.seed),
+        init_centroids=init_centroids,
+    )
+    ns = spec.n_subspaces
+    a = res.assignments
+    cell_ids = (a[:ns] * config.sqrt_k + a[ns:]).to(torch.int32)
+    return SuCoIndex(
+        res.centroids[:ns].contiguous(), res.centroids[ns:].contiguous(),
+        cell_ids, res.cell_counts, spec=spec, sqrt_k=config.sqrt_k,
+    )
+
+
+def load_index_artifact(
+    path, *, device: torch.device | str = "cuda"
+) -> tuple[SuCoIndex, SuCoConfig | None]:
+    """Load an index artifact written by the JAX package's ``SuCoIndex.save``
+    -> ``(index on device, build config | None)``.
+
+    Checks the tag, the key inventory and the version (1-3) before touching
+    any payload, and every ``crc_<key>`` content checksum of a version-3
+    artifact before building anything; each failure raises
+    :class:`ArtifactError` naming the path and what failed.
+    """
+    try:
+        z = np.load(path, allow_pickle=False)
+    except (ValueError, OSError, EOFError, zipfile.BadZipFile) as e:
+        raise ArtifactError(f"{path!s}: not a readable npz ({type(e).__name__}: {e})") from e
+    with z:
+        names = set(z.files)
+        if "artifact" not in names or str(z["artifact"][()]) != _ARTIFACT_MAGIC:
+            raise ArtifactError(f"{path!s} is not a {_ARTIFACT_MAGIC} artifact")
+        missing = [k for k in _ARTIFACT_REQUIRED_KEYS if k not in names]
+        if missing:
+            raise ArtifactError(
+                f"{path!s}: {_ARTIFACT_MAGIC} artifact is missing keys {missing} "
+                f"(found {sorted(names)})"
+            )
+        try:
+            version = int(z["version"][()])
+            if version not in _ARTIFACT_READABLE_VERSIONS:
+                raise ArtifactError(
+                    f"{path!s}: unsupported {_ARTIFACT_MAGIC} artifact version {version} "
+                    f"(readable: {_ARTIFACT_READABLE_VERSIONS})"
+                )
+            arrays = {k: z[k] for k in names}
+        except ArtifactError:
+            raise
+        except (ValueError, OSError, EOFError, zipfile.BadZipFile, zlib.error) as e:
+            # a member listed in the directory but truncated mid-payload
+            raise ArtifactError(
+                f"{path!s}: {_ARTIFACT_MAGIC} artifact payload is corrupt "
+                f"({type(e).__name__}: {e})"
+            ) from e
+    for key in sorted(names):
+        if key.startswith("crc_") or f"crc_{key}" not in names:
+            continue
+        stored = int(arrays[f"crc_{key}"][()])
+        computed = _array_crc(arrays[key])
+        if computed != stored:
+            raise ArtifactError(
+                f"{path!s}: content checksum mismatch on key {key!r} "
+                f"(stored 0x{stored:08x}, computed 0x{computed:08x})"
+            )
+    spec = sub.SubspaceSpec(
+        d=int(arrays["spec_d"][()]),
+        n_subspaces=int(arrays["spec_n_subspaces"][()]),
+        perm=tuple(int(p) for p in arrays["spec_perm"]),
+        bounds=tuple(int(b) for b in arrays["spec_bounds"]),
+    )
+    index = SuCoIndex.from_numpy(
+        arrays["centroids1"], arrays["centroids2"], arrays["cell_ids"],
+        arrays["cell_counts"], spec=spec, sqrt_k=int(arrays["sqrt_k"][()]),
+        tombstone=arrays["tombstone"].astype(bool) if "tombstone" in names else None,
+        device=device,
+    )
+    config = None
+    if "config_n_subspaces" in names:
+        config = SuCoConfig(
+            n_subspaces=int(arrays["config_n_subspaces"][()]),
+            sqrt_k=int(arrays["config_sqrt_k"][()]),
+            kmeans_iters=int(arrays["config_kmeans_iters"][()]),
+            seed=int(arrays["config_seed"][()]),
+            block_n=int(arrays["config_block_n"][()]),
+        )
+    return index, config
+
+
+# --------------------------------------------------------------------------
+# Dynamic Activation
+# --------------------------------------------------------------------------
+
+
+def _cell_ranks_and_cut(
+    dists1: torch.Tensor, dists2: torch.Tensor, cell_counts: torch.Tensor, target: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic Activation as (per-cell rank, cutoff rank), batched.
+
+    ``dists1/dists2: (..., sqrtK)``, ``cell_counts: (..., K)`` (broadcast
+    against the leading dims) -> ``(rank (..., K) int32, cut (...) int32)``.
+    ``rank[c]`` is cell c's position in ascending ``dists1 + dists2`` order,
+    ties by cell id (a stable sort, as ``jnp.argsort``); ``cut`` is the last
+    rank of the minimal prefix whose cumulative count reaches ``target``
+    (everything when none does).  The activation mask is ``rank <= cut``.
+    """
+    cell_dist = (dists1[..., :, None] + dists2[..., None, :]).flatten(-2)  # (..., K)
+    order = torch.argsort(cell_dist, dim=-1, stable=True)
+    counts = cell_counts.expand(order.shape)
+    csum = torch.cumsum(torch.gather(counts, -1, order), dim=-1)
+    reached = csum >= target
+    n_cells = order.shape[-1]
+    first = torch.argmax(reached.to(torch.int32), dim=-1)
+    cut = torch.where(reached.any(dim=-1), first, n_cells - 1)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(n_cells, device=order.device).expand(order.shape)
+    )
+    return rank.to(torch.int32), cut.to(torch.int32)
+
+
+def _centroid_dists(
+    index: SuCoIndex, q: torch.Tensor, metric: Metric
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``q: (m, d)`` -> query-to-centroid distances ``(Ns, m, sqrtK)`` per
+    half, rowwise (the same bits whatever the batch padding or device)."""
+    qh1, qh2 = sub.split_halves_padded(index.spec, sub.permute(index.spec, q))
+    d1 = pairwise_dist_rowwise(qh1, index.centroids1, metric)
+    d2 = pairwise_dist_rowwise(qh2, index.centroids2, metric)
+    return d1, d2
+
+
+def suco_cell_ranks(
+    index: SuCoIndex, q: torch.Tensor, count: int, metric: Metric = "l2"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(subspace, query) Dynamic-Activation state for chunked scoring:
+    ``q: (m, d) -> (ranks (Ns, m, K) int32, cuts (Ns, m) int32)``."""
+    d1, d2 = _centroid_dists(index, q, metric)
+    return _cell_ranks_and_cut(d1, d2, index.cell_counts[:, None, :], count)
+
+
+# --------------------------------------------------------------------------
+# Query (Algorithm 4), single-pass fused
+# --------------------------------------------------------------------------
+
+
+def _rerank(ids: torch.Tensor, x: torch.Tensor, q: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """Exact distances of candidate ``ids: (m, c)``: the gather-rerank
+    kernel for L2; L1 stays on plain torch."""
+    if metric == "l2":
+        return gather_rerank_block(ids, x, q)
+    return rowwise_candidate_dist(q, x[ids.clamp(0, x.shape[0] - 1).long()], metric)
+
+
+def _fused_query(
+    x: torch.Tensor,
+    index: SuCoIndex,
+    q: torch.Tensor,
+    *,
+    k: int,
+    alpha: float,
+    beta: float,
+    metric: Metric,
+    tiles: TileConfig | None,
+) -> tuple[QueryResult, int]:
+    """:func:`suco_query_fused` plus the number of host synchronisations it
+    made (one per chunk: the overflow decision)."""
+    n, d = x.shape
+    if k > n:
+        raise ValueError(f"k={k} must be <= n={n}")
+    if metric not in ("l2", "l1"):
+        raise ValueError(f"unknown metric {metric!r}")
+    m = q.shape[0]
+    ns = index.spec.n_subspaces
+    pool = candidate_pool_size(n, k, beta)
+    if tiles is None:
+        tiles = autotune_tiles(
+            n, d, m, pool, limits=device_limits(x.device), n_subspaces=ns,
+            itemsize=x.element_size(),
+        )
+    ranks, cuts = suco_cell_ranks(index, q, sub.collision_count(n, alpha), metric)
+    bn = min(tiles.block_n, n)
+    cap = min(tiles.survivor_cap, bn)
+    dev = x.device
+    dist_dtype = torch.float32 if metric == "l2" else torch.promote_types(x.dtype, q.dtype)
+    pool_s = torch.full((m, pool), -1, dtype=torch.int32, device=dev)
+    pool_d = torch.full((m, pool), float("inf"), dtype=dist_dtype, device=dev)
+    pool_i = torch.full((m, pool), INT32_MAX, dtype=torch.int32, device=dev)
+    keep = None if index.tombstone is None else ~index.tombstone
+    slot = torch.arange(cap, dtype=torch.int32, device=dev)
+    syncs = 0
+    for lo in range(0, n, bn):
+        bc = min(bn, n - lo)
+        keep_b = None if keep is None else keep[lo : lo + bc]
+        thr = pool_s[:, -1].contiguous()  # pool sorted desc: its minimum
+        s, surv_c, surv_s, total = sc_scores_cells_prefilter_compact(
+            ranks, cuts, index.cell_ids[:, lo : lo + bc], thr, bc, keep_b, cap=cap
+        )
+        syncs += 1
+        if bool((total > cap).any()):
+            # Exact overflow fallback: the merged pool can absorb at most
+            # `pool` rows of this chunk, so its own top min(pool, bc) rows
+            # by (score desc, id asc) merge to the same pool as all of it.
+            cols = torch.arange(bc, dtype=torch.int32, device=dev)
+            top = torch.sort(score_id_key(s, cols, ns), dim=1).indices[:, : min(pool, bc)]
+            blk_s = s.gather(1, top)
+            ids_b = cols + lo if keep_b is None else torch.where(keep_b, cols + lo, INT32_MAX)
+            blk_i = ids_b[top]
+            blk_d = torch.where(blk_i == INT32_MAX, float("inf"), _rerank(blk_i, x, q, metric))
+        else:
+            live = slot[None, :] < total[:, None]  # survivors score > thr >= -1
+            blk_i = torch.where(live, surv_c + lo, INT32_MAX)
+            blk_s = torch.where(live, surv_s, -1)
+            blk_d = torch.where(live, _rerank(blk_i, x, q, metric), float("inf"))
+        pool_s, pool_d, pool_i = merge_topk_pool_with_dists(
+            pool_s, pool_d, pool_i, blk_s, blk_d, blk_i, smax=ns
+        )
+    # ascending distance, ties to the earlier (score desc, id asc) slot
+    pos = torch.sort(pool_d, dim=1, stable=True).indices[:, :k]
+    res = QueryResult(pool_i.gather(1, pos), pool_d.gather(1, pos), pool_s.gather(1, pos))
+    return res, syncs
+
+
+@torch.inference_mode()
+def suco_query_fused(
+    x: torch.Tensor,
+    index: SuCoIndex,
+    q: torch.Tensor,
+    *,
+    k: int,
+    alpha: float,
+    beta: float,
+    metric: Metric = "l2",
+    tiles: TileConfig | None = None,
+) -> QueryResult:
+    """Algorithm 4 as the single-pass fused query: score -> prune -> rerank
+    -> merge per chunk, on the device ``x`` lies on.
+
+    ``x: (n, d)`` float32, ``q: (m, d)``; returns ``QueryResult`` of
+    ``(m, k)`` ids (int32), distances and SC-scores (int32).  ``tiles=None``
+    autotunes ``(block_n, survivor_cap)`` from the device's memory limits
+    (:func:`repro_torch.core.tuning.autotune_tiles`).
+    """
+    return _fused_query(
+        x, index, q, k=k, alpha=alpha, beta=beta, metric=metric, tiles=tiles
+    )[0]
+
+
+# --------------------------------------------------------------------------
+# SuCoEngine: batched serving over one (x, index)
+# --------------------------------------------------------------------------
+
+DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def batch_bucket(m: int, buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS) -> int:
+    """The padded batch size serving ``m`` queries: the smallest bucket
+    ``>= m``, doubling above the largest bucket."""
+    if m < 1:
+        raise ValueError(f"batch size must be >= 1, got {m}")
+    if not buckets:
+        raise ValueError("buckets must be non-empty")
+    for b in sorted(buckets):
+        if m <= b:
+            return int(b)
+    b = int(max(buckets))
+    while b < m:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePolicy:
+    """Query-serving policy of a :class:`SuCoEngine`: the Alg. 4 knobs, the
+    fused query's tiling (``None`` autotunes per padded bucket and ``k``)
+    and the batch buckets."""
+
+    alpha: float = 0.05
+    beta: float = 0.02
+    metric: Metric = "l2"
+    tiles: TileConfig | None = None
+    batch_buckets: tuple[int, ...] = DEFAULT_BATCH_BUCKETS
+
+
+class EngineStats(NamedTuple):
+    batches: int  # query() calls served
+    queries: int  # individual queries served (before padding)
+    padded_queries: int  # padding rows across all batches
+    buckets: tuple[tuple[int, int], ...]  # (bucket, k) pairs seen
+    host_syncs: int  # host synchronisations inside the fused queries
+
+
+class SuCoEngine:
+    """Serves ``query(q, k)`` over ``(x, index, policy)`` on one device.
+
+    Each batch is zero-padded to a policy bucket (:func:`batch_bucket`) and
+    answered by the fused query; padding never changes a row's answer, since
+    every step of the query is per row.  ``device`` defaults to the card;
+    pass ``"cpu"`` to run the plain versions of the kernels.
+    """
+
+    def __init__(
+        self,
+        x,
+        index: SuCoIndex,
+        policy: EnginePolicy | None = None,
+        *,
+        device: torch.device | str = "cuda",
+    ):
+        self.device = torch.device(device)
+        self.x = torch.as_tensor(x, dtype=torch.float32).to(self.device).contiguous()
+        self.index = index.to(self.device)
+        self.policy = EnginePolicy() if policy is None else policy
+        if self.x.dim() != 2 or self.x.shape[1] != index.spec.d:
+            raise ValueError(f"data must be (n, {index.spec.d}), got {tuple(self.x.shape)}")
+        if self.x.shape[0] != index.n_points:
+            raise ValueError(f"data rows {self.x.shape[0]} != index points {index.n_points}")
+        self._n_live = self.index.n_live
+        self._batches = 0
+        self._queries = 0
+        self._padded = 0
+        self._syncs = 0
+        self._buckets_seen: set[tuple[int, int]] = set()
+
+    @classmethod
+    def build(
+        cls,
+        x,
+        config: SuCoConfig = SuCoConfig(),
+        *,
+        spec: sub.SubspaceSpec | None = None,
+        policy: EnginePolicy | None = None,
+        device: torch.device | str = "cuda",
+        init_centroids: torch.Tensor | None = None,
+    ) -> "SuCoEngine":
+        """Build the index (Algorithm 2) on ``device`` and serve it."""
+        xt = torch.as_tensor(x, dtype=torch.float32).to(device).contiguous()
+        index = build_index(xt, config, spec=spec, init_centroids=init_centroids)
+        return cls(xt, index, policy, device=device)
+
+    @classmethod
+    def from_artifact(
+        cls,
+        path,
+        x,
+        policy: EnginePolicy | None = None,
+        *,
+        device: torch.device | str = "cuda",
+    ) -> "SuCoEngine":
+        """Serve an index artifact of the JAX package over ``x``."""
+        index, _ = load_index_artifact(path, device=device)
+        return cls(x, index, policy, device=device)
+
+    @property
+    def n_live(self) -> int:
+        return self._n_live
+
+    def tiles_for(self, m: int, k: int) -> TileConfig:
+        """The tiling an ``(m, k)`` request runs with: the policy's, or the
+        autotune result for its padded bucket."""
+        if self.policy.tiles is not None:
+            return self.policy.tiles
+        n, d = self.x.shape
+        return autotune_tiles(
+            n, d, batch_bucket(m, self.policy.batch_buckets),
+            candidate_pool_size(n, k, self.policy.beta),
+            limits=device_limits(self.device), n_subspaces=self.index.spec.n_subspaces,
+        )
+
+    @torch.inference_mode()
+    def query(self, q, k: int) -> QueryResult:
+        """Serve a batch ``q: (m, d)`` (or one ``(d,)`` query) -> top-k, on
+        the engine's device."""
+        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
+        single = q.dim() == 1
+        if single:
+            q = q[None]
+        d = self.index.spec.d
+        if q.dim() != 2 or q.shape[1] != d:
+            raise ValueError(f"queries must be (m, {d}) or ({d},), got {tuple(q.shape)}")
+        if not 1 <= k <= self._n_live:
+            raise ValueError(f"k={k} must be in [1, n={self._n_live}]")
+        m = q.shape[0]
+        b = batch_bucket(m, self.policy.batch_buckets)
+        if b != m:
+            q = F.pad(q, (0, 0, 0, b - m))
+        p = self.policy
+        res, syncs = _fused_query(
+            self.x, self.index, q.contiguous(), k=k, alpha=p.alpha, beta=p.beta,
+            metric=p.metric, tiles=self.tiles_for(m, k),
+        )
+        self._batches += 1
+        self._queries += m
+        self._padded += b - m
+        self._syncs += syncs
+        self._buckets_seen.add((b, k))
+        if single:
+            return QueryResult(res.ids[0], res.dists[0], res.scores[0])
+        if b != m:
+            res = QueryResult(res.ids[:m], res.dists[:m], res.scores[:m])
+        return res
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,), ks: Sequence[int] = (10,)) -> int:
+        """Answer one zero batch per (bucket, k) of the traffic mix: builds
+        the kernels on first use and touches every path the mix will take.
+        Returns the number of (bucket, k) pairs not seen before."""
+        before = len(self._buckets_seen)
+        for b in sorted({batch_bucket(m, self.policy.batch_buckets) for m in batch_sizes}):
+            for k in sorted(set(ks)):
+                self.query(torch.zeros((b, self.index.spec.d)), k)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return len(self._buckets_seen) - before
+
+    def stats(self) -> EngineStats:
+        return EngineStats(
+            batches=self._batches,
+            queries=self._queries,
+            padded_queries=self._padded,
+            buckets=tuple(sorted(self._buckets_seen)),
+            host_syncs=self._syncs,
+        )
