@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
-the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version at the shapes of the main path,
-then builds a SuCo index over SIFT1M's shape (n = 1,000,000, d = 128, data
-from ``gaussian_mixture``) with the default ``SuCoConfig`` and serves batches
-of 1, 8 and 64 queries through ``SuCoEngine``, counting each kernel's
-launches.  It checks recall@10 against an exact k-NN, and answers 8 queries
-again on the CPU with the plain versions over the same index.
+the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
+drives three paths over SIFT1M's shape (n = 1,000,000, d = 128, data from
+``gaussian_mixture``), each with every kernel's launch count set to 0 just
+before it and read just after:
+
+* ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
+  batches of 1, 8 and 64 queries through ``SuCoEngine`` (fused mode);
+* ``query_modes``: the same batches through ``suco_query``'s dense and
+  streaming modes (engines over the same index), each answer held against
+  the fused one;
+* ``sc_linear``: SC-Linear (Algorithm 1, ``sc_linear_query``) at Ns = 8 on
+  batches of 8 and 64.
+
+It checks recall@10 against an exact k-NN, answers 8 queries of the fused
+and SC-Linear paths again on the CPU with the plain versions, and holds each
+kernel against its plain PyTorch version at the shapes of its path.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
-kernel: its launches on the main path, its error against the plain version,
-its time, the plain version's time, the card's bound for the same work, and a
+kernel: its launches on its path, its error against the plain version, its
+time, the plain version's time, the card's bound for the same work, and a
 library call's time where one PyTorch call computes the same function); then
 ``nvidia-smi``'s name and power limit; last, ``{"ok": true, "device": ...}``.
 Any failure raises, exits non-zero and prints no last line.  Without a CUDA
@@ -26,6 +35,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,7 +52,29 @@ SOURCES = {
         "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:252"),
     "kmeans_pair_assign_hist": (
         "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:154"),
+    "sc_score_cells": (
+        "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:263"),
+    "sc_score_cells_prefilter": (
+        "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:218"),
+    "sc_score": (
+        "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/sc_score/kernel.py:303"),
+    "pairwise_sqdist": (
+        "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/pairwise_l2/kernel.py:49"),
 }
+#: the path whose launches each kernel reports (the prefilter kernel is on no
+#: path: only its public op and the kernel checks call it)
+PATH_OF = {
+    "sc_score_cells_prefilter_compact": "main_path", "gather_rerank": "main_path",
+    "kmeans_stats": "main_path", "kmeans_pair_assign_hist": "main_path",
+    "sc_score_cells": "query_modes", "sc_score": "sc_linear", "pairwise_sqdist": "sc_linear",
+}
+
+
+def check_launched(path: str, counts: dict) -> None:
+    """Fail unless every kernel of ``path`` launched in its run."""
+    missing = [name for name, p in PATH_OF.items() if p == path and counts[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: {missing}")
 
 
 def emit(obj: dict) -> None:
@@ -191,20 +223,139 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     return out
 
 
-def profile_batch(engine, q, k: int) -> dict:
-    """One served batch under ``torch.profiler``: wall time, the device's
-    busy time (the device events' own time summed; operator events, whose
-    device time repeats their kernels', are left out) and idle share, and
-    the kernels taking the most device time."""
+def dist_ops(m: int, n: int, s: int) -> float:
+    """fp32 operations of the (m, n) pairwise distances at width s: per
+    output s multiplies and s adds for the cross term, then add, double,
+    subtract and clamp; per row 2s for its norm."""
+    return m * n * (2.0 * s + 4) + (m + n) * 2.0 * s
+
+
+def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
+    """The kernels of the query modes and SC-Linear against their plain
+    versions at their paths' shapes: the scores-only kernel at m = 64 over
+    one streaming chunk of 4096 points, the keep-mask kernel over one fused
+    chunk, and the pairwise and fused-score kernels at m = 64 over all n
+    points of one subspace (of all Ns).  Every output must be equal."""
+    import torch
+
+    from repro_torch.core import subspace as sub
+    from repro_torch.core.collision import kth_smallest
+    from repro_torch.core.suco import suco_cell_ranks
+    from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
+    from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
+    from repro_torch.kernels.sc_score import ops as score_ops
+    from repro_torch.kernels.sc_score.ref import (
+        sc_score_cells_prefilter_ref,
+        sc_score_cells_ref,
+        sc_score_ref,
+    )
+
+    out = {}
+    n = data.shape[0]
+    m, ns = q64.shape[0], cfg.n_subspaces
+    ranks, cuts = suco_cell_ranks(index, q64, sub.collision_count(n, 0.05))
+
+    # scores only: one streaming chunk
+    cells = index.cell_ids[:, :4096]
+    got = score_ops.sc_scores_cells(ranks, cuts, cells)
+    if not torch.equal(got, sc_score_cells_ref(ranks, cuts, cells)):
+        raise AssertionError("sc_score_cells differs from the plain version")
+    bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ns * m * cells.shape[1])
+    out["sc_score_cells"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 100),
+        plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, cells), 20),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(m=m, chunk=cells.shape[1], ns=ns, cells=index.n_cells),
+    )
+
+    # scores + keep mask: one fused chunk, the threshold of a warm pool
+    cells = index.cell_ids[:, : tiles.block_n]
+    thr = torch.full((m,), ns // 2, dtype=torch.int32, device=dev)
+    got_s, got_k = score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr)
+    want_s, want_k = sc_score_cells_prefilter_ref(ranks, cuts, cells, thr)
+    if not (torch.equal(got_s, want_s) and torch.equal(got_k, want_k)):
+        raise AssertionError("sc_score_cells_prefilter differs from the plain version")
+    if not (torch.equal(got_s, score_ops.sc_scores_cells(ranks, cuts, cells))
+            and torch.equal(got_k, got_s > thr[:, None])):
+        raise AssertionError("sc_score_cells_prefilter: scores or keep disagree with sc_score_cells")
+    bms, by = bound(nbytes(ranks, cuts, cells, thr, got_s, got_k),
+                    (2.0 * ns + 1) * m * cells.shape[1])
+    out["sc_score_cells_prefilter"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr), 100),
+        plain_ms=time_ms(lambda: sc_score_cells_prefilter_ref(ranks, cuts, cells, thr), 20),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(m=m, chunk=cells.shape[1], ns=ns, kept=float(got_k.float().mean())),
+    )
+
+    # pairwise distances: one subspace of SC-Linear (strided views, no copy)
+    spec = sub.contiguous_spec(data.shape[1], ns)
+    xs, qs = sub.split_padded(spec, data), sub.split_padded(spec, q64)
+    s = xs.shape[2]
+    got = pairwise_ops.pairwise_sqdist(qs[0], xs[0])
+    want = pairwise_sqdist_ref(qs[0], xs[0])
+    if not torch.equal(got, want):
+        raise AssertionError("pairwise_sqdist differs from the plain version")
+    del want
+    q0, x0 = qs[0].contiguous(), xs[0].contiguous()  # cdist wants dense operands
+    bms, by = bound(nbytes(qs[0], xs[0], got), dist_ops(m, n, s))
+    out["pairwise_sqdist"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: pairwise_ops.pairwise_sqdist(qs[0], xs[0]), 20),
+        plain_ms=time_ms(lambda: pairwise_sqdist_ref(qs[0], xs[0]), 3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        # torch.cdist through its matmul form, squared: one PyTorch call (and
+        # a square) for the same function, with TF32 off
+        library_ms=time_ms(
+            lambda: torch.cdist(q0, x0, compute_mode="use_mm_for_euclid_dist") ** 2, 20),
+        detail=dict(m=m, n=n, s=s, library="torch.cdist(use_mm_for_euclid_dist) ** 2",
+                    library_max_abs_err=float(
+                        (torch.cdist(q0, x0, compute_mode="use_mm_for_euclid_dist") ** 2
+                         - got).abs().max())),
+    )
+    del q0, x0
+
+    # fused scores: SC-Linear's own thresholds, from the pairwise kernel's
+    # distances; the counts must be those distances' collisions exactly
+    count = sub.collision_count(n, 0.05)
+    tau = torch.stack([kth_smallest(pairwise_ops.pairwise_sqdist(qs[i], xs[i]), count)
+                       for i in range(ns)])
+    got = score_ops.sc_scores_fused(qs, xs, tau)
+    if not torch.equal(got, sc_score_ref(qs, xs, tau)):
+        raise AssertionError("sc_score differs from the plain version")
+    on_path = torch.zeros_like(got)
+    for i in range(ns):
+        on_path += pairwise_ops.pairwise_sqdist(qs[i], xs[i]) <= tau[i][:, None]
+    if not torch.equal(got, on_path):
+        raise AssertionError("sc_score disagrees with the collisions of pairwise_sqdist")
+    del on_path
+    bms, by = bound(nbytes(qs, xs, tau, got), ns * (dist_ops(m, n, s) + 2.0 * m * n))
+    out["sc_score"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: score_ops.sc_scores_fused(qs, xs, tau), 10),
+        plain_ms=time_ms(lambda: sc_score_ref(qs, xs, tau), 2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(ns=ns, m=m, n=n, s=s, collision_count=count,
+                    mean_score=float(got.float().mean())),
+    )
+    return out
+
+
+def profile_batch(fn) -> dict:
+    """One call of ``fn`` (a served batch) under ``torch.profiler``: wall
+    time, the device's busy time (the device events' own time summed;
+    operator events, whose device time repeats their kernels', are left out)
+    and idle share, and the kernels taking the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.query(q, k)  # the same batch once untraced
+    fn()  # the same batch once untraced
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.query(q, k)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels_ = [
@@ -243,6 +394,129 @@ def same_answers(card, cpu, rtol=2e-5) -> dict:
             if i in p_scores and p_scores[i] != s:
                 raise AssertionError(f"card and CPU scores differ for id {i}")
     return dict(ids_equal=int((ci == pi).sum()), ids_total=int(ci.size), tie_swaps=swaps)
+
+
+def serve_times(fn, reps: int = 5) -> tuple[list[float], object]:
+    """Host-clock latencies (ms) of ``reps`` calls of ``fn``, each ending in
+    a synchronise, and the last call's result."""
+    import torch
+
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat, res
+
+
+def query_modes_phase(data, index, q64, answers: dict, k: int) -> dict:
+    """The dense and streaming modes (``block_n`` = 4096) through engines
+    over the main path's index, batches of 1, 8 and 64, each answer held
+    against the fused answer ``answers[m]``; then one streaming batch under
+    the profiler.  Returns the path's launches (both modes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import EnginePolicy, SuCoEngine, kernels, suco_query
+
+    modes, total = {}, None
+    for mode in ("dense", "streaming"):
+        eng = SuCoEngine(data, index, EnginePolicy(alpha=0.05, beta=0.02, mode=mode,
+                                                   block_n=4096), device=data.device)
+        eng.query(q64[:1], k)  # first use: allocator and sort workspaces
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rows = {}
+        for m in (1, 8, 64):
+            syncs0 = eng.stats().host_syncs
+            lat, res = serve_times(lambda m=m: eng.query(q64[:m], k))
+            rows[m] = dict(latency_ms=lat, median_ms=float(np.median(lat)),
+                           host_syncs_per_batch=(eng.stats().host_syncs - syncs0) / len(lat),
+                           bitwise_equal_fused=all(torch.equal(a, b)
+                                                   for a, b in zip(res, answers[m])),
+                           **same_answers(res, [t.cpu() for t in answers[m]]))
+            if rows[m]["host_syncs_per_batch"] != 0:
+                raise AssertionError(f"the {mode} mode synchronised with the host")
+        counts = kernels.launch_counts()
+        total = counts if total is None else {n_: total[n_] + c for n_, c in counts.items()}
+        # torch's own record of synchronising calls, over one more batch
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            eng.query(q64, k)
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+        modes[mode] = dict(serve=rows, launches=counts, sync_debug_warnings=len(syncs),
+                           sync_debug_sites=sorted({f"{Path(w.filename).name}:{w.lineno}"
+                                                    for w in syncs}))
+    n = data.shape[0]
+    emit(dict(phase="query_modes", block_n=4096, chunks=-(-n // 4096), **modes))
+    check_launched("query_modes", total)
+    emit(dict(phase="profile_streaming", **{"64": profile_batch(
+        lambda: suco_query(data, index, q64, k=k, alpha=0.05, beta=0.02, mode="streaming",
+                           block_n=4096))}))
+    return total
+
+
+def sc_linear_phase(data, x_np, q_np, q64, gt, ns: int, k: int) -> dict:
+    """SC-Linear at ``Ns`` contiguous subspaces, alpha = 0.05, beta = 0.02,
+    batches of 8 and 64 (recall@10 against ``gt``, peak memory, launches
+    per batch); the SC-scores of 8 queries again on the CPU, which must be
+    equal; then one batch under the profiler.  Returns the path's
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels, sc_linear_query
+    from repro_torch.core import subspace as sub
+    from repro_torch.core.sc_linear import sc_scores_from_subspaces
+    from repro_torch.data import recall
+
+    n, d = data.shape
+    spec = sub.contiguous_spec(d, ns)
+    kw = dict(spec=spec, k=k, alpha=0.05, beta=0.02)
+    sc_linear_query(data, q64[:8], **kw)  # first use
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    serve, results = {}, {}
+    for m in (8, 64):
+        lat, results[m] = serve_times(lambda m=m: sc_linear_query(data, q64[:m], **kw))
+        serve[m] = dict(latency_ms=lat, median_ms=float(np.median(lat)),
+                        recall_at_10=recall(results[m].ids.cpu().numpy(), gt[:m]))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launched("sc_linear", launches)
+    batches = 2 * len(lat)
+    per_batch = {name: c / batches for name, c in launches.items() if c}
+    if per_batch.get("pairwise_sqdist") != ns or per_batch.get("sc_score") != 1:
+        raise AssertionError(f"SC-Linear launches per batch: {per_batch}")
+
+    # the CPU re-check: the same fixed-order distances give the same SC-scores
+    t0 = time.perf_counter()
+    x_c, q_c = torch.from_numpy(x_np), torch.from_numpy(q_np[:8])
+    cpu_res = sc_linear_query(x_c, q_c, **kw)
+    count = sub.collision_count(n, 0.05)
+    card_scores = sc_scores_from_subspaces(sub.split_padded(spec, data),
+                                           sub.split_padded(spec, q64[:8]), count)
+    cpu_scores = sc_scores_from_subspaces(sub.split_padded(spec, x_c),
+                                          sub.split_padded(spec, q_c), count)
+    scores_equal = torch.equal(card_scores.cpu(), cpu_scores)
+    recheck = dict(seconds=time.perf_counter() - t0, scores_equal=scores_equal,
+                   **same_answers(results[8], cpu_res))
+    emit(dict(phase="sc_linear", ns=ns, alpha=0.05, beta=0.02, serve=serve, launches=launches,
+              launches_per_batch=per_batch, max_memory_allocated=peak, cpu_recheck=recheck))
+    if not scores_equal:
+        raise AssertionError("SC-Linear's SC-scores differ between the card and the CPU")
+    for m, row in serve.items():
+        if row["recall_at_10"] < 0.95:
+            raise AssertionError(f"SC-Linear recall@10 {row['recall_at_10']} below 0.95 at m={m}")
+    del results, card_scores
+    emit(dict(phase="profile_sc_linear", **{"64": profile_batch(
+        lambda: sc_linear_query(data, q64, **kw))}))
+    return launches
 
 
 def main() -> int:
@@ -309,16 +583,10 @@ def main() -> int:
     serve = {}
     answers = {}
     for m in (1, 8, 64):
-        lat = []
         syncs0 = engine.stats().host_syncs
-        for _ in range(5):
-            t0 = time.perf_counter()
-            res = engine.query(q64[:m], k)
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        answers[m] = res
+        lat, answers[m] = serve_times(lambda m=m: engine.query(q64[:m], k))
         serve[m] = dict(latency_ms=lat, median_ms=float(np.median(lat)),
-                        host_syncs_per_batch=(engine.stats().host_syncs - syncs0) / 5,
+                        host_syncs_per_batch=(engine.stats().host_syncs - syncs0) / len(lat),
                         tiles=engine.tiles_for(m, k).__dict__)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -334,14 +602,20 @@ def main() -> int:
               stats=engine.stats()._asdict()))
     if rec < 0.95:
         raise AssertionError(f"recall@10 {rec} below the 0.95 floor")
-    missing = [name for name, c in launches.items() if c < 1]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    check_launched("main_path", launches)
 
     # where a served batch's time goes: device busy share and the top kernels
-    emit(dict(phase="profile", **{str(m): profile_batch(engine, q64[:m], k) for m in (1, 64)}))
+    emit(dict(phase="profile", **{str(m): profile_batch(lambda m=m: engine.query(q64[:m], k))
+                                  for m in (1, 64)}))
 
-    # 4. each kernel against its plain version at the main path's shapes
+    # 4. the dense and streaming query modes over the same index
+    launches_by_path = dict(main_path=launches)
+    launches_by_path["query_modes"] = query_modes_phase(data, engine.index, q64, answers, k)
+
+    # 5. SC-Linear (Algorithm 1) over the same data
+    launches_by_path["sc_linear"] = sc_linear_phase(data, x_np, q_np, q64, gt, cfg.n_subspaces, k)
+
+    # 6. each kernel against its plain version at its path's shapes
     spec = engine.index.spec
     h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, data))
     both = torch.cat([h1, h2]).contiguous()
@@ -349,9 +623,10 @@ def main() -> int:
     c0 = init_random(both, cfg.sqrt_k, torch.Generator().manual_seed(cfg.seed))
     checks = check_kernels(dev, data, both, c0, engine.index, q64, cfg, engine.tiles_for(64, k))
     del both
+    checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
-    # 5. the same 8 queries on the CPU: plain versions over the same index
+    # 7. the same 8 queries on the CPU: plain versions over the same index
     t0 = time.perf_counter()
     cpu_policy = EnginePolicy(alpha=0.05, beta=0.02, tiles=engine.tiles_for(8, k))
     cpu_engine = SuCoEngine(x_np, engine.index.to("cpu"), cpu_policy, device="cpu")
@@ -363,8 +638,12 @@ def main() -> int:
     rows = []
     for name, (src, replaces) in SOURCES.items():
         rec_ = checks[name]
+        path = PATH_OF.get(name)
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         launches=launches[name], max_abs_err=rec_["max_abs_err"],
+                         launches=launches_by_path[path][name] if path else 0,
+                         path=path,
+                         launches_by_path={p_: c[name] for p_, c in launches_by_path.items()},
+                         max_abs_err=rec_["max_abs_err"],
                          ms=rec_["ms"], plain_ms=rec_["plain_ms"], bound_ms=rec_["bound_ms"],
                          bound_by=rec_["bound_by"], library_ms=rec_["library_ms"]))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))

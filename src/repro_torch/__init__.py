@@ -1,15 +1,19 @@
 """SuCo (Subspace Collision ANN search) ported to PyTorch and CUDA.
 
 The counterpart of the JAX package ``repro``, module for module
-(``core/``, ``kernels/<name>/{kernel,ops,ref}.py``, ``data/``), for the main
-path: build an index and serve fused queries on one NVIDIA H100.  Every TPU
-kernel of that path is a hand-written CUDA kernel for ``sm_90a`` in
-``csrc/``, built at first use; a tensor on the CPU takes each kernel's
-plain PyTorch version instead.  The package imports neither JAX nor
-anything of ``repro``.
+(``core/``, ``kernels/<name>/{kernel,ops,ref}.py``, ``data/``), for these
+paths on one NVIDIA H100: build an index and serve queries in the fused,
+dense and streaming modes (``SuCoEngine``, ``suco_query``), and the
+index-free SC-Linear (``sc_linear_query``).  Every TPU kernel of those
+paths is a hand-written CUDA kernel for ``sm_90a`` in ``csrc/``, built at
+first use; a tensor on the CPU takes each kernel's plain PyTorch version
+instead.  The package imports neither JAX nor anything of ``repro``.
 """
 
+from repro_torch.core.sc_linear import sc_linear_query
+from repro_torch.core.subspace import SubspaceSpec, contiguous_spec, sampled_spec
 from repro_torch.core.suco import (
+    STREAMING_MIN_N,
     ArtifactError,
     EnginePolicy,
     EngineStats,
@@ -18,6 +22,8 @@ from repro_torch.core.suco import (
     SuCoIndex,
     build_index,
     load_index_artifact,
+    suco_query,
     suco_query_fused,
 )
 from repro_torch.core.tuning import TileConfig
+from repro_torch.kernels import sc_scores_cells, sc_scores_fused

@@ -22,6 +22,8 @@ __all__ = [
     "contiguous_spec",
     "sampled_spec",
     "permute",
+    "split_padded",
+    "split_query_padded",
     "split_halves_padded",
     "collision_count",
 ]
@@ -52,6 +54,10 @@ class SubspaceSpec:
     @property
     def sizes(self) -> tuple[int, ...]:
         return tuple(b - a for a, b in zip(self.bounds, self.bounds[1:]))
+
+    @property
+    def max_size(self) -> int:
+        return max(self.sizes)
 
     @property
     def half_sizes(self) -> tuple[tuple[int, int], ...]:
@@ -92,6 +98,25 @@ def permute(spec: SubspaceSpec, x: torch.Tensor) -> torch.Tensor:
         return x
     perm = torch.tensor(spec.perm, dtype=torch.int64, device=x.device)
     return x.index_select(-1, perm)
+
+
+def split_padded(spec: SubspaceSpec, x: torch.Tensor) -> torch.Tensor:
+    """``(..., d) -> (Ns, ..., s_max)`` zero-padded dense subspace view.
+
+    ``x`` must already be permuted (see :func:`permute`).  When every
+    subspace has ``s_max`` dims (``d`` divisible by ``Ns``) this is a view of
+    ``x``, no copy: subspace ``i`` is ``x[..., i*s:(i+1)*s]``.
+    """
+    s_max = spec.max_size
+    if all(s == s_max for s in spec.sizes):
+        return x.unflatten(-1, (spec.n_subspaces, s_max)).movedim(-2, 0)
+    parts = [F.pad(x[..., a:b], (0, s_max - (b - a))) for a, b in zip(spec.bounds, spec.bounds[1:])]
+    return torch.stack(parts, dim=0)
+
+
+def split_query_padded(spec: SubspaceSpec, q: torch.Tensor) -> torch.Tensor:
+    """Alias of :func:`split_padded`, kept for call-site readability."""
+    return split_padded(spec, q)
 
 
 def split_halves_padded(

@@ -21,12 +21,19 @@ The counterpart of the main path of ``repro.core.suco``:
   the JAX package's, id for id, up to ties of the fp distances.  The
   overflow decision reads one flag back to the host per chunk; the engine
   counts these synchronisations.
+* **The other query modes** of :func:`suco_query`: ``"dense"`` scores all
+  ``n`` points at once (:func:`suco_scores`, one ``(m, n)`` matrix) and
+  re-ranks the top pool; ``"streaming"`` (:func:`suco_query_streaming`)
+  scores ``block_n``-point chunks and merges each into a carried
+  ``(score, id)`` pool, reading nothing back to the host.  ``"auto"`` is
+  dense below :data:`STREAMING_MIN_N` points and fused from it on.  All
+  modes return the same answers.
 * **Serving**: :class:`SuCoEngine` holds ``(x, index, EnginePolicy)`` on
-  one device, pads each batch to a bucket and always runs the fused query.
+  one device, pads each batch to a bucket and answers it in the mode the
+  policy resolved to at construction.
 
-Mutation (insert/delete), the dense and streaming query modes and the
-counting merge are not ported yet; an index loaded with a tombstone mask is
-served with it.
+Mutation (insert/delete) is not ported yet; an index loaded with a
+tombstone mask is served with it.
 """
 
 from __future__ import annotations
@@ -41,13 +48,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import subspace as sub
-from repro_torch.core.distances import Metric, pairwise_dist_rowwise, rowwise_candidate_dist
+from repro_torch.core.distances import Metric, pairwise_dist_rowwise
 from repro_torch.core.kmeans import kmeans_batched
 from repro_torch.core.sc_linear import (
     INT32_MAX,
     QueryResult,
+    candidate_dists,
     candidate_pool_size,
+    merge_topk_pool,
     merge_topk_pool_with_dists,
+    rerank,
+    rerank_candidates,
     score_id_key,
 )
 from repro_torch.core.tuning import (
@@ -56,8 +67,7 @@ from repro_torch.core.tuning import (
     autotune_tiles,
     device_limits,
 )
-from repro_torch.kernels.gather_rerank.ops import gather_rerank_block
-from repro_torch.kernels.sc_score.ops import sc_scores_cells_prefilter_compact
+from repro_torch.kernels.sc_score.ops import sc_scores_cells, sc_scores_cells_prefilter_compact
 
 __all__ = [
     "SuCoConfig",
@@ -65,7 +75,13 @@ __all__ = [
     "ArtifactError",
     "build_index",
     "load_index_artifact",
+    "STREAMING_MIN_N",
+    "activate_cells_sorted",
+    "dynamic_activation_lax",
     "suco_cell_ranks",
+    "suco_scores",
+    "suco_query",
+    "suco_query_streaming",
     "suco_query_fused",
     "batch_bucket",
     "DEFAULT_BATCH_BUCKETS",
@@ -73,6 +89,11 @@ __all__ = [
     "EngineStats",
     "SuCoEngine",
 ]
+
+# mode="auto" answers from the dense (m, n) score matrix below this many
+# points and with the single-pass fused query from it on (the JAX package's
+# cutover).
+STREAMING_MIN_N = 32_768
 
 # The JAX package's artifact contract (repro.core.suco): a plain .npz,
 # tagged and version-stamped; v2 adds "tombstone", v3 per-array checksums.
@@ -348,6 +369,63 @@ def _cell_ranks_and_cut(
     return rank.to(torch.int32), cut.to(torch.int32)
 
 
+def activate_cells_sorted(
+    dists1: torch.Tensor, dists2: torch.Tensor, cell_counts: torch.Tensor, target: int
+) -> torch.Tensor:
+    """Dynamic Activation as a sort prefix (the exact equivalent of Alg. 3).
+
+    ``dists1/dists2: (sqrtK,)``, ``cell_counts: (K,)`` (row-major over
+    ``(c1, c2)``) -> ``(K,)`` bool: the minimal ascending-distance prefix of
+    cells whose cumulative count reaches ``target``.
+    """
+    rank, cut = _cell_ranks_and_cut(dists1, dists2, cell_counts, target)
+    return rank <= cut
+
+
+def dynamic_activation_lax(
+    dists1: torch.Tensor, dists2: torch.Tensor, cell_counts: torch.Tensor, target: int
+) -> torch.Tensor:
+    """Paper Algorithm 3 as written: a loop that pops the nearest active
+    cell of the ``sqrtK`` sorted rows until ``target`` points are retrieved.
+
+    Kept for fidelity and tests (it runs on the host, one step per cell);
+    the query paths use :func:`activate_cells_sorted`.  Returns the same
+    ``(K,)`` bool mask.
+    """
+    d1, d2 = dists1.cpu(), dists2.cpu()
+    k1, k2 = d1.shape[0], d2.shape[0]
+    idx1 = torch.argsort(d1, stable=True)
+    idx2 = torch.argsort(d2, stable=True)
+    s1, s2 = d1[idx1], d2[idx2]
+    idx1, idx2 = idx1.tolist(), idx2.tolist()
+    counts = cell_counts.cpu().reshape(k1, k2).tolist()
+
+    def cell_dist(r: int, c: int) -> float:  # summed in the inputs' dtype
+        return float(s1[r] + s2[c])
+
+    inf = float("inf")
+    active_col = [0] * k1
+    active_dist = [inf] * k1
+    active_dist[0] = cell_dist(0, 0)
+    mask = torch.zeros(k1 * k2, dtype=torch.bool)
+    got = 0
+    while got < target and any(v != inf for v in active_dist):
+        pos = min(range(k1), key=lambda r: (active_dist[r], r))  # first minimum, as argmin
+        col = active_col[pos]
+        c1, c2 = idx1[pos], idx2[col]
+        mask[c1 * k2 + c2] = True
+        got += counts[c1][c2]
+        if col == 0 and pos < k1 - 1:  # popped at column 0: activate the next row (l. 12)
+            active_dist[pos + 1] = cell_dist(pos + 1, 0)
+            active_col[pos + 1] = 0
+        if col < k2 - 1:  # advance this row (l. 15-17) or retire it
+            active_col[pos] = col + 1
+            active_dist[pos] = cell_dist(pos, col + 1)
+        else:
+            active_dist[pos] = inf
+    return mask.to(dists1.device)
+
+
 def _centroid_dists(
     index: SuCoIndex, q: torch.Tensor, metric: Metric
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -368,17 +446,92 @@ def suco_cell_ranks(
     return _cell_ranks_and_cut(d1, d2, index.cell_counts[:, None, :], count)
 
 
+def suco_scores(
+    index: SuCoIndex, q: torch.Tensor, count: int, metric: Metric = "l2"
+) -> torch.Tensor:
+    """``q: (m, d) -> (m, n)`` int32 SC-scores via the IMI (Alg. 4 l.3-12):
+    point j collides with query q in subspace i iff its cell lies inside
+    the activated prefix.  One chunked-score launch over all ``n`` columns
+    (the SC-score kernel on the card)."""
+    ranks, cuts = suco_cell_ranks(index, q, count, metric)
+    return sc_scores_cells(ranks, cuts, index.cell_ids)
+
+
 # --------------------------------------------------------------------------
-# Query (Algorithm 4), single-pass fused
+# Query (Algorithm 4): dense, streaming and single-pass fused
 # --------------------------------------------------------------------------
 
 
-def _rerank(ids: torch.Tensor, x: torch.Tensor, q: torch.Tensor, metric: Metric) -> torch.Tensor:
-    """Exact distances of candidate ``ids: (m, c)``: the gather-rerank
-    kernel for L2; L1 stays on plain torch."""
-    if metric == "l2":
-        return gather_rerank_block(ids, x, q)
-    return rowwise_candidate_dist(q, x[ids.clamp(0, x.shape[0] - 1).long()], metric)
+def _check_query(n: int, k: int, metric: Metric) -> None:
+    if k > n:
+        raise ValueError(f"k={k} must be <= n={n}")
+    if metric not in ("l2", "l1"):
+        raise ValueError(f"unknown metric {metric!r}")
+
+
+def _dense_query(
+    x: torch.Tensor, index: SuCoIndex, q: torch.Tensor, *, k: int, alpha: float, beta: float,
+    metric: Metric,
+) -> QueryResult:
+    """The dense mode: the ``(m, n)`` score matrix, deleted points at -1,
+    then the exact re-rank of its top pool."""
+    n = x.shape[0]
+    _check_query(n, k, metric)
+    scores = suco_scores(index, q, sub.collision_count(n, alpha), metric)
+    if index.tombstone is not None:
+        # a deleted point scores -1: below every live point, and the rerank
+        # gives negative-score slots an infinite distance
+        scores = torch.where(index.tombstone[None, :], -1, scores)
+    return rerank(x, q, scores, k, candidate_pool_size(n, k, beta), metric)
+
+
+@torch.inference_mode()
+def suco_query_streaming(
+    x: torch.Tensor,
+    index: SuCoIndex,
+    q: torch.Tensor,
+    *,
+    k: int,
+    alpha: float,
+    beta: float,
+    metric: Metric = "l2",
+    block_n: int = 4096,
+) -> QueryResult:
+    """Algorithm 4 as a streaming query over ``block_n``-point chunks, with
+    the same answers as the dense mode and peak memory
+    ``O(m * (block_n + n_candidates))``.
+
+    A Python loop over the chunks: per chunk the chunked-score kernel gives
+    the ``(m, bc)`` scores (the last chunk is a shorter column slice of the
+    cell ids, so nothing is padded), deleted points drop to the sentinel
+    ``(-1, INT32_MAX)``, and the chunk merges into a carried top pool in
+    (score desc, id asc) order.  After the loop the pool equals the dense
+    top pool exactly, and the exact re-rank returns the dense answers.
+    Nothing is read back to the host.
+    """
+    if block_n < 1:
+        raise ValueError(f"block_n must be >= 1, got {block_n}")
+    n = x.shape[0]
+    _check_query(n, k, metric)
+    m = q.shape[0]
+    ns = index.spec.n_subspaces
+    ranks, cuts = suco_cell_ranks(index, q, sub.collision_count(n, alpha), metric)
+    pool = candidate_pool_size(n, k, beta)
+    dev = x.device
+    pool_s = torch.full((m, pool), -1, dtype=torch.int32, device=dev)
+    pool_i = torch.full((m, pool), INT32_MAX, dtype=torch.int32, device=dev)
+    for lo in range(0, n, block_n):
+        hi = min(lo + block_n, n)
+        s = sc_scores_cells(ranks, cuts, index.cell_ids[:, lo:hi])
+        ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        if index.tombstone is not None:
+            live = ~index.tombstone[lo:hi]
+            s = torch.where(live[None, :], s, -1)
+            ids = torch.where(live, ids, INT32_MAX)
+        pool_s, pool_i = merge_topk_pool(
+            pool_s, pool_i, s, ids.expand(m, hi - lo), smax=ns
+        )
+    return rerank_candidates(x, q, pool_i, pool_s, k, metric)
 
 
 def _fused_query(
@@ -395,10 +548,7 @@ def _fused_query(
     """:func:`suco_query_fused` plus the number of host synchronisations it
     made (one per chunk: the overflow decision)."""
     n, d = x.shape
-    if k > n:
-        raise ValueError(f"k={k} must be <= n={n}")
-    if metric not in ("l2", "l1"):
-        raise ValueError(f"unknown metric {metric!r}")
+    _check_query(n, k, metric)
     m = q.shape[0]
     ns = index.spec.n_subspaces
     pool = candidate_pool_size(n, k, beta)
@@ -435,12 +585,12 @@ def _fused_query(
             blk_s = s.gather(1, top)
             ids_b = cols + lo if keep_b is None else torch.where(keep_b, cols + lo, INT32_MAX)
             blk_i = ids_b[top]
-            blk_d = torch.where(blk_i == INT32_MAX, float("inf"), _rerank(blk_i, x, q, metric))
+            blk_d = torch.where(blk_i == INT32_MAX, float("inf"), candidate_dists(x, q, blk_i, metric))
         else:
             live = slot[None, :] < total[:, None]  # survivors score > thr >= -1
             blk_i = torch.where(live, surv_c + lo, INT32_MAX)
             blk_s = torch.where(live, surv_s, -1)
-            blk_d = torch.where(live, _rerank(blk_i, x, q, metric), float("inf"))
+            blk_d = torch.where(live, candidate_dists(x, q, blk_i, metric), float("inf"))
         pool_s, pool_d, pool_i = merge_topk_pool_with_dists(
             pool_s, pool_d, pool_i, blk_s, blk_d, blk_i, smax=ns
         )
@@ -475,6 +625,69 @@ def suco_query_fused(
     )[0]
 
 
+_MODES = ("auto", "dense", "streaming", "fused")
+
+
+def _resolve_mode(mode: str, n: int) -> str:
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "auto":
+        return "fused" if n >= STREAMING_MIN_N else "dense"
+    return mode
+
+
+def _query(
+    x: torch.Tensor,
+    index: SuCoIndex,
+    q: torch.Tensor,
+    *,
+    k: int,
+    alpha: float,
+    beta: float,
+    metric: Metric,
+    mode: str,
+    block_n: int,
+    tiles: TileConfig | None,
+) -> tuple[QueryResult, int]:
+    """:func:`suco_query` plus the number of host synchronisations it made
+    (the fused mode's, one per chunk; the other modes make none)."""
+    mode = _resolve_mode(mode, x.shape[0])
+    kw = dict(k=k, alpha=alpha, beta=beta, metric=metric)
+    if mode == "fused":
+        return _fused_query(x, index, q, tiles=tiles, **kw)
+    if mode == "streaming":
+        return suco_query_streaming(x, index, q, block_n=block_n, **kw), 0
+    return _dense_query(x, index, q, **kw), 0
+
+
+@torch.inference_mode()
+def suco_query(
+    x: torch.Tensor,
+    index: SuCoIndex,
+    q: torch.Tensor,
+    *,
+    k: int,
+    alpha: float,
+    beta: float,
+    metric: Metric = "l2",
+    mode: str = "auto",
+    block_n: int = 4096,
+    tiles: TileConfig | None = None,
+) -> QueryResult:
+    """Algorithm 4: k-ANN for a batch ``q: (m, d)`` with the SuCo index, on
+    the device ``x`` lies on.
+
+    ``mode``: ``"dense"`` | ``"streaming"`` | ``"fused"`` | ``"auto"``
+    (fused iff ``n >= STREAMING_MIN_N``, else dense).  Every mode returns
+    the same answers.  ``block_n`` sizes the streaming mode's chunks; the
+    fused mode tiles itself from ``tiles`` (``None`` autotunes).
+    """
+    return _query(
+        x, index, q, k=k, alpha=alpha, beta=beta, metric=metric, mode=mode,
+        block_n=block_n, tiles=tiles,
+    )[0]
+
+
 # --------------------------------------------------------------------------
 # SuCoEngine: batched serving over one (x, index)
 # --------------------------------------------------------------------------
@@ -501,12 +714,17 @@ def batch_bucket(m: int, buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS) -> int:
 @dataclasses.dataclass(frozen=True)
 class EnginePolicy:
     """Query-serving policy of a :class:`SuCoEngine`: the Alg. 4 knobs, the
-    fused query's tiling (``None`` autotunes per padded bucket and ``k``)
-    and the batch buckets."""
+    query mode (``"auto"`` | ``"dense"`` | ``"streaming"`` | ``"fused"``;
+    ``"auto"`` resolves once, at engine construction: fused iff the data
+    has at least :data:`STREAMING_MIN_N` points, else dense), the streaming
+    mode's chunk ``block_n``, the fused query's tiling (``None`` autotunes
+    per padded bucket and ``k``) and the batch buckets."""
 
     alpha: float = 0.05
     beta: float = 0.02
     metric: Metric = "l2"
+    mode: str = "auto"
+    block_n: int = 4096
     tiles: TileConfig | None = None
     batch_buckets: tuple[int, ...] = DEFAULT_BATCH_BUCKETS
 
@@ -516,16 +734,17 @@ class EngineStats(NamedTuple):
     queries: int  # individual queries served (before padding)
     padded_queries: int  # padding rows across all batches
     buckets: tuple[tuple[int, int], ...]  # (bucket, k) pairs seen
-    host_syncs: int  # host synchronisations inside the fused queries
+    host_syncs: int  # host synchronisations inside the queries (fused mode only)
 
 
 class SuCoEngine:
     """Serves ``query(q, k)`` over ``(x, index, policy)`` on one device.
 
     Each batch is zero-padded to a policy bucket (:func:`batch_bucket`) and
-    answered by the fused query; padding never changes a row's answer, since
-    every step of the query is per row.  ``device`` defaults to the card;
-    pass ``"cpu"`` to run the plain versions of the kernels.
+    answered by :func:`suco_query` in the policy's mode, resolved once here
+    (:attr:`mode`); padding never changes a row's answer, since every step
+    of the query is per row.  ``device`` defaults to the card; pass
+    ``"cpu"`` to run the plain versions of the kernels.
     """
 
     def __init__(
@@ -545,6 +764,9 @@ class SuCoEngine:
         if self.x.shape[0] != index.n_points:
             raise ValueError(f"data rows {self.x.shape[0]} != index points {index.n_points}")
         self._n_live = self.index.n_live
+        self._mode = _resolve_mode(self.policy.mode, self.x.shape[0])
+        if self.policy.block_n < 1:
+            raise ValueError(f"block_n must be >= 1, got {self.policy.block_n}")
         self._batches = 0
         self._queries = 0
         self._padded = 0
@@ -584,6 +806,12 @@ class SuCoEngine:
     def n_live(self) -> int:
         return self._n_live
 
+    @property
+    def mode(self) -> str:
+        """The query mode every batch runs: ``"dense"``, ``"streaming"`` or
+        ``"fused"`` (the policy's, with ``"auto"`` resolved)."""
+        return self._mode
+
     def tiles_for(self, m: int, k: int) -> TileConfig:
         """The tiling an ``(m, k)`` request runs with: the policy's, or the
         autotune result for its padded bucket."""
@@ -614,9 +842,10 @@ class SuCoEngine:
         if b != m:
             q = F.pad(q, (0, 0, 0, b - m))
         p = self.policy
-        res, syncs = _fused_query(
+        res, syncs = _query(
             self.x, self.index, q.contiguous(), k=k, alpha=p.alpha, beta=p.beta,
-            metric=p.metric, tiles=self.tiles_for(m, k),
+            metric=p.metric, mode=self._mode, block_n=p.block_n,
+            tiles=self.tiles_for(m, k) if self._mode == "fused" else None,
         )
         self._batches += 1
         self._queries += m

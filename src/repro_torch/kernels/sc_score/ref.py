@@ -1,13 +1,16 @@
-"""Plain PyTorch version of the fused SC-score chunk stage.
+"""Plain PyTorch versions of the SC-score kernels.
 
-The port's counterpart of ``repro.kernels.sc_score.ref`` for the chunked
-IMI scores and the score + prefilter + compaction stage.  It is what a CPU
-tensor runs, and what the CUDA kernel is held against on the card.
+The port's counterpart of ``repro.kernels.sc_score.ref``: the chunked IMI
+scores, with the keep mask, with the prefilter and compaction, and the
+SC-scores of raw subspace vectors against their thresholds.  They are what
+a CPU tensor runs, and what the CUDA kernels are held against on the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
 
 
 def sc_score_cells_ref(
@@ -20,6 +23,15 @@ def sc_score_cells_ref(
     idx = cells.long()[:, None, :].expand(ns, m, cells.shape[1])
     g = torch.gather(ranks, 2, idx)  # (Ns, m, bc)
     return (g <= cuts[:, :, None]).sum(dim=0, dtype=torch.int32)
+
+
+def sc_score_cells_prefilter_ref(
+    ranks: torch.Tensor, cuts: torch.Tensor, cells: torch.Tensor, thr: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk scores plus ``keep = scores > thr[:, None]``: the rows that
+    could enter a top pool whose minimum score is ``thr``."""
+    s = sc_score_cells_ref(ranks, cuts, cells)
+    return s, s > thr[:, None]
 
 
 def sc_score_cells_prefilter_compact_ref(
@@ -59,3 +71,14 @@ def sc_score_cells_prefilter_compact_ref(
     surv_cols = torch.where(live, surv.to(torch.int32), 0)
     surv_scores = torch.where(live, s.gather(1, surv), -1)
     return s, surv_cols, surv_scores, total
+
+
+def sc_score_ref(qs: torch.Tensor, xs: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """``qs: (Ns,m,s), xs: (Ns,n,s), tau: (Ns,m) -> (m,n)`` int32: the number
+    of subspaces in which each point lies within the query's threshold.
+    Each subspace's distances are :func:`pairwise_sqdist_ref`'s, the
+    arithmetic of the kernel."""
+    out = torch.zeros((qs.shape[1], xs.shape[1]), dtype=torch.int32, device=qs.device)
+    for i in range(qs.shape[0]):
+        out += pairwise_sqdist_ref(qs[i], xs[i]) <= tau[i][:, None]
+    return out

@@ -19,12 +19,17 @@ from repro.kernels.kmeans_assign.ops import (
     kmeans_assign_stats as j_stats,
     kmeans_pair_assign_hist as j_pair,
 )
+from repro.kernels.pairwise_l2.ops import pairwise_sqdist as j_pairwise
+from repro.kernels.sc_score.ops import sc_scores_cells as j_cells
+from repro.kernels.sc_score.ops import sc_scores_cells_prefilter as j_prefilter
 from repro.kernels.sc_score.ops import sc_scores_cells_prefilter_compact as j_compact
+from repro.kernels.sc_score.ops import sc_scores_fused as j_fused
 
 from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_rerank import ops as gather_ops
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
 from repro_torch.kernels.sc_score import ops as score_ops
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -77,6 +82,55 @@ def test_sc_score_compact_takes_a_column_slice_of_the_cell_ids():
     )
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("pallas", [False, True])
+def test_sc_scores_cells_and_prefilter_match_jax_exactly(seed, pallas):
+    """The chunk scores and keep mask against the JAX package's oracle and
+    its Pallas kernels (interpret mode), on a column slice of the cells."""
+    ranks, cuts, cells, thr, _ = _score_inputs(seed)
+    sl = cells[:, 37:560]
+    impl = dict(impl="pallas", interpret=True) if pallas else dict(impl="jnp")
+    j_args = tuple(map(jnp.asarray, (ranks, cuts, sl)))
+    want = np.asarray(j_cells(*j_args, **impl))
+    got = score_ops.sc_scores_cells(T(ranks), T(cuts), T(cells)[:, 37:560])
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_s, want_k = j_prefilter(*j_args, jnp.asarray(thr), **impl)
+    got_s, got_k = score_ops.sc_scores_cells_prefilter(T(ranks), T(cuts), T(cells)[:, 37:560], T(thr))
+    assert got_k.dtype == torch.bool
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    assert torch.equal(got_s, got)
+
+
+def test_sc_scores_fused_matches_the_jax_kernel_on_integer_data():
+    """Integer coordinates make every distance exact in both arithmetics,
+    so the counts must agree exactly, ties at the thresholds included."""
+    rng = np.random.default_rng(4)
+    ns, m, n, s = 3, 5, 700, 3
+    qs = rng.integers(-4, 5, size=(ns, m, s)).astype(np.float32)
+    xs = rng.integers(-4, 5, size=(ns, n, s)).astype(np.float32)
+    tau = rng.integers(0, 30, size=(ns, m)).astype(np.float32)
+    want = np.asarray(j_fused(*map(jnp.asarray, (qs, xs, tau)), interpret=True))
+    got = score_ops.sc_scores_fused(T(qs), T(xs), T(tau))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 5, 3), (9, 300, 16), (17, 200, 130)])
+def test_pairwise_sqdist_matches_the_jax_kernel(m, n, d):
+    """Within 1e-5 * (|q|^2 + |x|^2): the JAX kernel sums the cross term on
+    the MXU's tiling, the port one dim at a time."""
+    rng = np.random.default_rng(d)
+    q = (rng.normal(size=(m, d)) * 2).astype(np.float32)
+    x = (rng.normal(size=(n, d)) * 2).astype(np.float32)
+    want = np.asarray(j_pairwise(jnp.asarray(q), jnp.asarray(x), interpret=True))
+    got = pairwise_ops.pairwise_sqdist(T(q), T(x))
+    scale = (q**2).sum(1)[:, None] + (x**2).sum(1)[None, :]
+    assert got.dtype == torch.float32
+    assert (np.abs(got.numpy() - want) <= 1e-5 * scale).all()
 
 
 @pytest.mark.parametrize("d", [32, 30])
@@ -161,14 +215,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(monkeypatch):
 
     from repro_torch.kernels.gather_rerank import kernel as gk
     from repro_torch.kernels.kmeans_assign import kernel as kk
+    from repro_torch.kernels.pairwise_l2 import kernel as pk
     from repro_torch.kernels.sc_score import kernel as sk
 
     for mod, fn in ((sk, "sc_score_compact"), (gk, "gather_rerank_l2"),
-                    (kk, "kmeans_stats"), (kk, "kmeans_pair_assign_hist")):
+                    (kk, "kmeans_stats"), (kk, "kmeans_pair_assign_hist"),
+                    (sk, "sc_score_cells"), (sk, "sc_score_cells_prefilter"),
+                    (sk, "sc_score_fused"), (pk, "pairwise_sqdist")):
         monkeypatch.setattr(mod, fn, no_kernel)
     kernels.reset_launch_counts()
     ranks, cuts, cells, thr, keep = _score_inputs(0)
     score_ops.sc_scores_cells_prefilter_compact(T(ranks), T(cuts), T(cells), T(thr), 10, T(keep), cap=4)
+    score_ops.sc_scores_cells(T(ranks), T(cuts), T(cells))
+    score_ops.sc_scores_cells_prefilter(T(ranks), T(cuts), T(cells), T(thr))
+    qs = torch.zeros((2, 3, 4))
+    score_ops.sc_scores_fused(qs, torch.zeros((2, 7, 4)), torch.zeros((2, 3)))
+    pairwise_ops.pairwise_sqdist(qs[0], qs[1])
     x, c = _separated(0, 4, 100, 3, 2)
     kmeans_ops.kmeans_stats(T(x), T(c), block_n=64)
     kmeans_ops.kmeans_pair_assign_hist(T(x), T(c), block_n=64)
@@ -201,23 +263,32 @@ def _bad_calls():
             torch.zeros((2, 10, 65)), torch.zeros((2, 3, 65)), block_n=64)),
         (ValueError, lambda: kmeans_ops.kmeans_pair_assign_hist(
             torch.zeros((2, 10, 4)), torch.zeros((2, 300, 4)), block_n=64)),
+        (TypeError, lambda: score_ops.sc_scores_cells(ranks, cuts.float(), cells)),
+        (ValueError, lambda: score_ops.sc_scores_cells(ranks, cuts, cells[:2])),
+        (ValueError, lambda: score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr[:2])),
+        (ValueError, lambda: score_ops.sc_scores_fused(x[:2], x[:2].transpose(1, 2), c[:2, :, 0])),
+        (ValueError, lambda: score_ops.sc_scores_fused(x[:2], x[:2], c[:3, :, 0].contiguous())),
+        (TypeError, lambda: pairwise_ops.pairwise_sqdist(x[0].half(), x[0])),
+        (ValueError, lambda: pairwise_ops.pairwise_sqdist(x[0], x[0, :, :1])),
     ]
 
 
-@pytest.mark.parametrize("case", range(17))
+@pytest.mark.parametrize("case", range(24))
 def test_wrapper_checks_raise_before_dispatch(case, monkeypatch):
     def reached(*a, **k):
         raise AssertionError("a bad argument reached a kernel or its plain version")
 
     for mod, names in (
-        (score_ops, ("sc_score_cells_prefilter_compact_ref",)),
+        (score_ops, ("sc_score_cells_prefilter_compact_ref", "sc_score_cells_ref",
+                     "sc_score_cells_prefilter_ref", "sc_score_ref")),
         (gather_ops, ("gather_rerank_block_ref",)),
         (kmeans_ops, ("kmeans_stats_ref", "kmeans_pair_assign_hist_ref")),
+        (pairwise_ops, ("pairwise_sqdist_ref",)),
     ):
         for name in names:
             monkeypatch.setattr(mod, name, reached)
     calls = _bad_calls()
-    assert len(calls) == 17
+    assert len(calls) == 24
     exc, call = calls[case]
     with pytest.raises(exc):
         call()

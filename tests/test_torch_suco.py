@@ -246,7 +246,8 @@ def test_engine_matches_jax_engine(shared, tomb):
     jeng = jsuco.SuCoEngine(jnp.asarray(x), shared["jtomb"] if tomb else shared["jidx"], jpol)
     path = shared["paths"]["tomb" if tomb else "plain"]
     peng = repro_torch.SuCoEngine.from_artifact(
-        path, x, repro_torch.EnginePolicy(alpha=ALPHA, beta=BETA, tiles=PTiles(4096, 256)),
+        path, x,
+        repro_torch.EnginePolicy(alpha=ALPHA, beta=BETA, mode="fused", tiles=PTiles(4096, 256)),
         device="cpu",
     )
     assert peng.warmup(batch_sizes=(1, 3, 8), ks=(K,)) == 3
