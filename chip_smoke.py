@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives three paths over SIFT1M's shape (n = 1,000,000, d = 128, data from
+drives five paths over SIFT1M's shape (n = 1,000,000, d = 128, data from
 ``gaussian_mixture``), each with every kernel's launch count set to 0 just
 before it and read just after:
 
@@ -13,11 +13,23 @@ before it and read just after:
   streaming modes (engines over the same index), each answer held against
   the fused one;
 * ``sc_linear``: SC-Linear (Algorithm 1, ``sc_linear_query``) at Ns = 8 on
-  batches of 8 and 64.
+  batches of 8 and 64;
+* ``kmeans_library``: the K-means library at its users' shapes: PQ8x8
+  codebook training (``kmeans_batched`` on the (8, 1M, 16) sub-vectors,
+  k = 256, 20 chunked Lloyd steps, unpaired) and IVF1024 coarse assignment
+  at full width (``init_centroids_pp`` of 1,024 centroids from 32,768 rows,
+  then ``assign`` of all 1M rows);
+* ``lifecycle``: a minibatch build at 1M and the fused engine over it; the
+  main path's index in a mutable engine (``capacity`` 1.1M): 25 inserts of
+  4,000 points, one delete of 50,000 ids, batches of 1, 8 and 64 in the
+  fused and dense modes before and after, with checks (a)-(f) of the
+  answers, the counts and the warm state; then ``SuCoIndex.save`` / ``load``
+  on the card.
 
 It checks recall@10 against an exact k-NN, answers 8 queries of the fused
-and SC-Linear paths again on the CPU with the plain versions, and holds each
-kernel against its plain PyTorch version at the shapes of its path.
+(before and after mutation) and SC-Linear paths again on the CPU with the
+plain versions, and holds each kernel against its plain PyTorch version at
+the shapes of its path.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
 kernel: its launches on its path, its error against the plain version, its
@@ -60,6 +72,10 @@ SOURCES = {
         "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/sc_score/kernel.py:303"),
     "pairwise_sqdist": (
         "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/pairwise_l2/kernel.py:49"),
+    "kmeans_assign_batched": (
+        "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:93"),
+    "kmeans_assign": (
+        "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:52"),
 }
 #: the path whose launches each kernel reports (the prefilter kernel is on no
 #: path: only its public op and the kernel checks call it)
@@ -67,6 +83,20 @@ PATH_OF = {
     "sc_score_cells_prefilter_compact": "main_path", "gather_rerank": "main_path",
     "kmeans_stats": "main_path", "kmeans_pair_assign_hist": "main_path",
     "sc_score_cells": "query_modes", "sc_score": "sc_linear", "pairwise_sqdist": "sc_linear",
+    "kmeans_assign_batched": "kmeans_library", "kmeans_assign": "kmeans_library",
+}
+#: the kernels the lifecycle path runs (each reports its launches on its
+#: first path above): Lloyd statistics for the minibatch build and every
+#: insert, the compact and gather kernels for fused queries, the chunk
+#: scores for dense ones
+LIFECYCLE_KERNELS = ("kmeans_stats", "sc_score_cells_prefilter_compact", "gather_rerank",
+                     "sc_score_cells")
+#: the library call each kernel is timed beside, where one PyTorch call
+#: computes the same function (TF32 off)
+LIBRARY = {
+    "pairwise_sqdist": "torch.cdist(use_mm_for_euclid_dist) ** 2",
+    "kmeans_assign_batched": "torch.cdist(use_mm_for_euclid_dist).argmin(-1), batched",
+    "kmeans_assign": "torch.cdist(use_mm_for_euclid_dist).argmin(-1)",
 }
 
 
@@ -519,6 +549,249 @@ def sc_linear_phase(data, x_np, q_np, q64, gt, ns: int, k: int) -> dict:
     return launches
 
 
+def assign_ops(n: int, k: int, s: int, b: int = 1) -> float:
+    """fp32 operations of nearest-centroid assignment: a difference, a
+    square and a sum per (point, centroid, dim), as rows 3-4 count them."""
+    return 3.0 * b * n * k * s
+
+
+def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
+    """PQ8x8 codebook training and IVF1024 coarse assignment over the 1M
+    rows (the K-means library's entry points, as its users call them), then
+    rows 5 and 6 against their plain versions on the same inputs.  Returns
+    the path's launches and the two kernels' records."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import kmeans as km
+    from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_batched_ref, kmeans_assign_ref
+
+    n, d = data.shape
+    m_pq, k_pq, k_ivf, iters, bn = 8, 256, 1024, 20, 4096
+    xs = data.reshape(n, m_pq, d // m_pq).transpose(0, 1).contiguous()  # (8, n, 16)
+    c0 = km.init_random(xs, k_pq, torch.Generator().manual_seed(seed))
+    init_inertia = kmeans_ops.kmeans_stats(xs, c0, block_n=bn)[3]  # before the counted run
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pq = km.kmeans_batched(xs, k_pq, iters, block_n=bn, init_centroids=c0)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cents = km.init_centroids_pp(data, k_ivf, sample_n=32 * k_ivf,
+                                 generator=torch.Generator().manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lists = km.assign(data, cents)
+    torch.cuda.synchronize()
+    assign_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_launched("kmeans_library", launches)
+    if launches["kmeans_stats"] != iters or launches["kmeans_assign_batched"] != 1 \
+            or launches["kmeans_assign"] != 1:
+        raise AssertionError(f"kmeans_library launches: {launches}")
+    occupancy = torch.bincount(lists.long(), minlength=k_ivf)
+    if not (pq.inertia < init_inertia).all() or pq.cell_counts is not None:
+        raise AssertionError("PQ training did not lower every codebook's inertia")
+
+    # rows 5 and 6 against their plain versions on the same inputs
+    want5 = kmeans_assign_batched_ref(xs, pq.centroids, block_n=bn)
+    want6 = kmeans_assign_ref(data, cents)
+    if not (torch.equal(pq.assignments, want5) and torch.equal(lists, want6)):
+        raise AssertionError("kmeans_assign(_batched) differs from its plain version")
+    emit(dict(phase="kmeans_library",
+              pq=dict(codebooks=m_pq, k=k_pq, sub_dim=d // m_pq, iters=iters, block_n=bn,
+                      seconds=pq_s, init_inertia=init_inertia.tolist(),
+                      final_inertia=pq.inertia.tolist()),
+              ivf=dict(lists=k_ivf, d=d, pp_sample=32 * k_ivf, pp_seconds=pp_s,
+                       assign_ms=assign_s * 1e3, largest_list=int(occupancy.max()),
+                       smallest_list=int(occupancy.min()),
+                       empty_lists=int((occupancy == 0).sum())),
+              launches=launches, plain_equal=True))
+
+    def cdist_argmin(a, b):
+        return torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist").argmin(-1)
+
+    recs = {}
+    cases = (
+        ("kmeans_assign_batched", (xs, pq.centroids),
+         lambda: kmeans_ops.kmeans_assign_batched(xs, pq.centroids, block_n=bn),
+         lambda: kmeans_assign_batched_ref(xs, pq.centroids, block_n=bn),
+         assign_ops(n, k_pq, d // m_pq, m_pq)),
+        ("kmeans_assign", (data, cents), lambda: kmeans_ops.kmeans_assign(data, cents),
+         lambda: kmeans_assign_ref(data, cents), assign_ops(n, k_ivf, d)),
+    )
+    for name, args, fn, plain, ops in cases:
+        out = fn()
+        lib = cdist_argmin(*args)
+        bms, by = bound(nbytes(*args, out), ops)
+        recs[name] = dict(
+            max_abs_err=0.0, ms=time_ms(fn, 10), plain_ms=time_ms(plain, 1, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: cdist_argmin(*args), 3),
+            detail=dict(shape=list(args[0].shape), k=args[1].shape[-2], library=LIBRARY[name],
+                        library_disagrees=int((lib != out).sum())),
+        )
+        del lib
+    return launches, recs
+
+
+def lifecycle_phase(data, q64, gt, index, policy, seed: int, k: int) -> dict:
+    """The index lifecycle at 1M: a minibatch build served by the fused
+    engine; the main path's index in a mutable engine taking 25 inserts of
+    4,000 points and one delete of 50,000 ids between batches of 1, 8 and
+    64 in the fused and dense modes, with checks (a)-(f); then a save and a
+    load of the mutated index on the card.  Returns the path's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import EnginePolicy, SuCoConfig, SuCoEngine, SuCoIndex, build_index, kernels
+    from repro_torch.data import gaussian_mixture, recall
+    from repro_torch.kernels import _build
+
+    dev = data.device
+    n, d = data.shape
+    kernels.reset_launch_counts()
+
+    # 1. minibatch build (kmeans++ seeds, sampled steps, full-data final pass)
+    t0 = time.perf_counter()
+    mb_index = build_index(data, SuCoConfig(build_mode="minibatch"))
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    mb_launches = kernels.launch_counts()
+    mb_engine = SuCoEngine(data, mb_index, policy, device=dev)
+    mb_recall = recall(mb_engine.query(q64, k).ids.cpu().numpy(), gt)
+    del mb_engine, mb_index
+
+    # 2. mutation: the main path's index in a mutable engine, a dense sibling
+    # at n = 1M: capacity 1.1M, 25 inserts of 4,000, 25,000 + 25,000 deletes
+    cap, n_new = n + n // 10, n // 10
+    per_insert = n_new // 25
+    eng = SuCoEngine(data, index, policy, capacity=cap, device=dev)
+    dense = SuCoEngine(eng.x, eng.index, EnginePolicy(alpha=policy.alpha, beta=policy.beta,
+                                                      mode="dense"), device=dev)
+    sizes = (1, 8, 64)
+    warm = {"fused": eng.warmup(batch_sizes=sizes, ks=(k,)),
+            "dense": dense.warmup(batch_sizes=sizes, ks=(k,))}
+    buckets = {"fused": eng.stats().buckets, "dense": dense.stats().buckets}
+    loaded = _build.loaded()
+
+    def serve():
+        rows = {}
+        for mode, e in (("fused", eng), ("dense", dense)):
+            for m in sizes:
+                syncs0 = e.stats().host_syncs
+                lat, res = serve_times(lambda m=m: e.query(q64[:m], k))
+                if e.index.tombstone[res.ids.long()].any():
+                    raise AssertionError(f"(a) a deleted or empty slot in a {mode} answer")
+                rows[f"{mode}_{m}"] = dict(median_ms=float(np.median(lat)), latency_ms=lat,
+                                           host_syncs_per_batch=(e.stats().host_syncs - syncs0)
+                                           / len(lat))
+        return rows
+
+    before = serve()
+    new = torch.from_numpy(gaussian_mixture(n_new, d, seed + 2)).to(dev)
+    insert_ms = []
+    for lo in range(0, n_new, per_insert):
+        t0 = time.perf_counter()
+        eng.insert(new[lo:lo + per_insert])
+        torch.cuda.synchronize()
+        insert_ms.append((time.perf_counter() - t0) * 1e3)
+    rng = np.random.default_rng(seed + 3)
+    half = n_new // 4  # deleted of the original points, and of the inserted ones
+    dead = np.concatenate([rng.choice(n, half, replace=False),
+                           n + rng.choice(n_new, half, replace=False)])
+    t0 = time.perf_counter()
+    newly = eng.delete(dead)
+    torch.cuda.synchronize()
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = eng.delete(dead)  # idempotent: the same work, nothing newly dead
+    torch.cuda.synchronize()
+    redelete_ms = (time.perf_counter() - t0) * 1e3
+    if newly != 2 * half or again != 0 or eng.n_live != n + n_new - 2 * half:
+        raise AssertionError(f"delete: {newly} then {again} newly dead, {eng.n_live} live")
+    dense._rebind(eng.x, eng.index, n_live=eng.n_live, next_slot=eng.n_points - eng.free_slots)
+    after = serve()
+
+    idx = eng.index
+    live = ~idx.tombstone
+    # (b) inserted live points find their own slot first, at distance 0
+    alive_new = np.setdiff1d(np.arange(n, n + n_new), dead)[:64]
+    own = eng.query(eng.x[torch.from_numpy(alive_new).to(dev)], k)
+    own_ok = bool((own.ids[:, 0].cpu().numpy() == alive_new).all()
+                  and (own.dists[:, 0] == 0).all())
+    # (c) cell_counts is the per-subspace bincount of the live cell ids
+    counts_ok = all(torch.equal(idx.cell_counts[i], torch.bincount(
+        idx.cell_ids[i][live].long(), minlength=idx.n_cells).to(torch.int32))
+        for i in range(idx.spec.n_subspaces))
+    # (d) a CPU engine over the same mutated (x, index) gives the same answers
+    t0 = time.perf_counter()
+    cpu_eng = SuCoEngine(eng.x.cpu(), idx.to("cpu"), EnginePolicy(
+        alpha=policy.alpha, beta=policy.beta, tiles=eng.tiles_for(8, k)), device="cpu")
+    cpu_check = same_answers(eng.query(q64[:8], k), cpu_eng.query(q64[:8].cpu(), k))
+    cpu_check["seconds"] = time.perf_counter() - t0
+    del cpu_eng
+    # (e) recall@10 at m = 64 against an exact k-NN over the live points
+    xd = eng.x.double()
+    dist = ((q64.double() ** 2).sum(1)[:, None] + (xd ** 2).sum(1)[None, :]
+            - 2 * q64.double() @ xd.T)
+    dist[:, ~live] = float("inf")
+    gt_live = torch.sort(dist, dim=1, stable=True).indices[:, :k].cpu().numpy()
+    del xd, dist
+    rec_after = recall(eng.query(q64, k).ids.cpu().numpy(), gt_live)
+    # (f) warm state: no (bucket, k) pair new, no kernel library built or loaded again
+    rewarm = {"fused": eng.warmup(batch_sizes=sizes, ks=(k,)),
+              "dense": dense.warmup(batch_sizes=sizes, ks=(k,))}
+    warm_ok = (rewarm == {"fused": 0, "dense": 0}
+               and buckets == {"fused": eng.stats().buckets, "dense": dense.stats().buckets}
+               and _build.build_all() == [] and _build.loaded() == loaded)
+    launches = kernels.launch_counts()
+    missing = [name for name in LIFECYCLE_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the lifecycle path: {missing}")
+
+    # 3. save and load on the card
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / "index.npz"
+        t0 = time.perf_counter()
+        idx.save(path, SuCoConfig(), extras={"next_slot": np.asarray(cap - eng.free_slots)})
+        save_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        back = SuCoIndex.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    roundtrip_ok = all(torch.equal(getattr(back, f), getattr(idx, f)) for f in (
+        "centroids1", "centroids2", "cell_ids", "cell_counts", "tombstone"))
+
+    checks = dict(a_no_dead_slot_answered=True, b_own_slot_first=own_ok,
+                  c_counts_equal_live_bincount=counts_ok,
+                  d_cpu_same_answers=True, e_recall_at_10=rec_after, f_warm_state=warm_ok)
+    emit(dict(phase="lifecycle",
+              minibatch=dict(build_seconds=mb_s, recall_at_10=mb_recall, launches=mb_launches),
+              mutation=dict(capacity=cap, inserted=n_new, insert_batches=len(insert_ms),
+                            insert_ms=insert_ms, insert_median_ms=float(np.median(insert_ms)),
+                            delete_ms=delete_ms, redelete_ms=redelete_ms, deleted=newly,
+                            n_live=eng.n_live,
+                            free_slots=eng.free_slots,
+                            insert_inertia_per_point=eng.insert_inertia_per_point,
+                            warmup_new_pairs=warm, serve_before=before, serve_after=after,
+                            cpu_recheck=cpu_check),
+              save_load=dict(seconds_save=save_s, seconds_load=load_s, bytes=size,
+                             bit_identical=roundtrip_ok),
+              checks=checks, launches=launches))
+    if mb_recall < 0.90:
+        raise AssertionError(f"minibatch-built index recall@10 {mb_recall} below 0.90")
+    if not (own_ok and counts_ok and warm_ok and roundtrip_ok) or rec_after < 0.95:
+        raise AssertionError(f"lifecycle checks failed: {checks}, round trip {roundtrip_ok}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the data and queries")
@@ -615,7 +888,14 @@ def main() -> int:
     # 5. SC-Linear (Algorithm 1) over the same data
     launches_by_path["sc_linear"] = sc_linear_phase(data, x_np, q_np, q64, gt, cfg.n_subspaces, k)
 
-    # 6. each kernel against its plain version at its path's shapes
+    # 6. the K-means library: PQ codebooks and IVF coarse assignment
+    launches_by_path["kmeans_library"], library_checks = kmeans_library_phase(data, args.seed)
+
+    # 7. the index lifecycle: minibatch build, live mutation, save and load
+    launches_by_path["lifecycle"] = lifecycle_phase(data, q64, gt, engine.index, policy,
+                                                    args.seed, k)
+
+    # 8. each kernel against its plain version at its path's shapes
     spec = engine.index.spec
     h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, data))
     both = torch.cat([h1, h2]).contiguous()
@@ -624,9 +904,10 @@ def main() -> int:
     checks = check_kernels(dev, data, both, c0, engine.index, q64, cfg, engine.tiles_for(64, k))
     del both
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
+    checks.update(library_checks)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
-    # 7. the same 8 queries on the CPU: plain versions over the same index
+    # 9. the same 8 queries on the CPU: plain versions over the same index
     t0 = time.perf_counter()
     cpu_policy = EnginePolicy(alpha=0.05, beta=0.02, tiles=engine.tiles_for(8, k))
     cpu_engine = SuCoEngine(x_np, engine.index.to("cpu"), cpu_policy, device="cpu")

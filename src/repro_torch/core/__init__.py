@@ -1,5 +1,6 @@
 """SuCo on torch: subspaces, distances, collisions, SC-Linear and pools,
-tiling, K-means and the index and queries of :mod:`repro_torch.core.suco`.
+tiling, the K-means library (:mod:`repro_torch.core.kmeans`) and the
+index, its lifecycle and the queries of :mod:`repro_torch.core.suco`.
 
 Public API, as the JAX package's ``repro.core`` names it:
   sc_scores_from_subspaces, sc_linear_query       (Algorithm 1, SC-Linear)

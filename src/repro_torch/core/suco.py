@@ -1,15 +1,23 @@
-"""SuCo (paper Algorithms 2-4) on torch: the index, the single-pass fused
-query and the serving engine over it.
+"""SuCo (paper Algorithms 2-4) on torch: the index and its lifecycle, the
+queries and the serving engine over it.
 
-The counterpart of the main path of ``repro.core.suco``:
+The counterpart of ``repro.core.suco``'s index and engine:
 
 * **Index** (Alg. 2): per subspace, split the dims in two halves and train
-  ``sqrt(K)`` centroids per half with chunked Lloyd; the IMI is the
-  ``sqrt(K) x sqrt(K)`` grid.  Stored densely as ``cell_ids (Ns, n) int32``
-  and ``cell_counts (Ns, K) int32``.  :func:`build_index` builds it;
-  :func:`load_index_artifact` and :meth:`SuCoIndex.from_numpy` carry over
-  an index the JAX package built (its ``.npz`` artifact, v1-v3, with the
-  same magic, version and per-array CRC32 checks).
+  ``sqrt(K)`` centroids per half; the IMI is the ``sqrt(K) x sqrt(K)``
+  grid.  Stored densely as ``cell_ids (Ns, n) int32`` and ``cell_counts
+  (Ns, K) int32``.  :func:`build_index` builds it in one of the JAX
+  package's four modes (``SuCoConfig.build_mode``: dense Lloyd, chunked
+  Lloyd, minibatch with kmeans++ seeding, or "auto": dense below
+  :data:`STREAMING_MIN_N` points and chunked from it on).
+* **Lifecycle**: :meth:`SuCoIndex.insert` assigns new points to the
+  existing centroids (:func:`assign_points`, the build's final assignment
+  over the new points only) and :meth:`SuCoIndex.delete` tombstones ids,
+  both keeping ``cell_counts`` equal to the live occupancy.
+  :meth:`SuCoIndex.save` writes the JAX package's version-3 ``.npz``
+  artifact (per-array CRC32, the build config, ``extra_<name>`` sidecar
+  arrays, an atomic replace); :func:`load_index_artifact` reads versions
+  1-3, from either package, with the same checks.
 * **Query** (Algs. 3-4) as :func:`suco_query_fused`: Dynamic Activation as
   per-cell ranks and cutoffs, then one pass over the data in chunks.  Per
   chunk one kernel scores, prunes (Pareto: only rows beating the carried
@@ -30,18 +38,20 @@ The counterpart of the main path of ``repro.core.suco``:
   modes return the same answers.
 * **Serving**: :class:`SuCoEngine` holds ``(x, index, EnginePolicy)`` on
   one device, pads each batch to a bucket and answers it in the mode the
-  policy resolved to at construction.
-
-Mutation (insert/delete) is not ported yet; an index loaded with a
-tombstone mask is served with it.
+  policy resolved to at construction.  Built with ``capacity=``, it takes
+  live inserts into pre-allocated slots and deletes, without changing a
+  tensor's shape, and hands over to a warmed successor with
+  :meth:`SuCoEngine.swap`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import zipfile
 import zlib
-from typing import NamedTuple, Sequence
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -49,7 +59,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import subspace as sub
 from repro_torch.core.distances import Metric, pairwise_dist_rowwise
-from repro_torch.core.kmeans import kmeans_batched
+from repro_torch.core.kmeans import kmeans_batched, pair_cell_counts
+from repro_torch.kernels.kmeans_assign.ops import kmeans_stats
 from repro_torch.core.sc_linear import (
     INT32_MAX,
     QueryResult,
@@ -73,7 +84,10 @@ __all__ = [
     "SuCoConfig",
     "SuCoIndex",
     "ArtifactError",
+    "CapacityError",
+    "INDEX_ARTIFACT_VERSION",
     "build_index",
+    "assign_points",
     "load_index_artifact",
     "STREAMING_MIN_N",
     "activate_cells_sorted",
@@ -92,13 +106,20 @@ __all__ = [
 
 # mode="auto" answers from the dense (m, n) score matrix below this many
 # points and with the single-pass fused query from it on (the JAX package's
-# cutover).
+# cutover); the build's "auto" switches dense -> chunked Lloyd at the same n.
 STREAMING_MIN_N = 32_768
 
+_BUILD_MODES = ("auto", "dense", "chunked", "minibatch")
+
 # The JAX package's artifact contract (repro.core.suco): a plain .npz,
-# tagged and version-stamped; v2 adds "tombstone", v3 per-array checksums.
+# tagged and version-stamped; v2 adds "tombstone", v3 per-array checksums
+# ("crc_<key>", all but the two keys below, which are checked by value) and
+# the "extra_<name>" sidecar arrays.
 _ARTIFACT_MAGIC = "suco-index"
+INDEX_ARTIFACT_VERSION = 3
 _ARTIFACT_READABLE_VERSIONS = (1, 2, 3)
+_ARTIFACT_UNCHECKSUMMED = ("artifact", "version")
+_ARTIFACT_EXTRA_PREFIX = "extra_"
 _ARTIFACT_REQUIRED_KEYS = (
     "artifact", "version", "centroids1", "centroids2", "cell_ids", "cell_counts",
     "sqrt_k", "spec_d", "spec_n_subspaces", "spec_perm", "spec_bounds",
@@ -108,6 +129,11 @@ _ARTIFACT_REQUIRED_KEYS = (
 class ArtifactError(ValueError):
     """An index artifact could not be loaded: a foreign file, an unsupported
     version, missing keys, a checksum mismatch or a corrupt payload."""
+
+
+class CapacityError(ValueError):
+    """A mutable :class:`SuCoEngine` has too few free slots for an insert:
+    the signal to re-index onto a larger successor."""
 
 
 def _array_crc(a: np.ndarray) -> int:
@@ -124,16 +150,22 @@ def _array_crc(a: np.ndarray) -> int:
 class SuCoConfig:
     """Static SuCo hyper-parameters (paper defaults: K=50^2, Ns=8, t=20).
 
-    ``block_n`` is the build's chunk of points; 0 autotunes it from the
-    device's memory limits (:func:`repro_torch.core.tuning.
-    autotune_build_block_n`).
+    ``build_mode``: "auto" | "dense" | "chunked" | "minibatch" (see
+    :func:`build_index`).  ``block_n`` is the build's chunk of points (the
+    minibatch sample size); 0 autotunes it from the device's memory limits
+    (:func:`repro_torch.core.tuning.autotune_build_block_n`).
     """
 
     n_subspaces: int = 8
     sqrt_k: int = 50
     kmeans_iters: int = 20
     seed: int = 0
+    build_mode: str = "auto"
     block_n: int = 4096
+
+    @property
+    def n_cells(self) -> int:
+        return self.sqrt_k * self.sqrt_k
 
 
 @dataclasses.dataclass
@@ -179,6 +211,106 @@ class SuCoIndex:
             tombstone=move(self.tombstone),
         )
 
+    def memory_bytes(self) -> int:
+        """Index footprint (the paper's ``O(sqrt(K) d + n Ns)`` claim)."""
+        arrays = (self.centroids1, self.centroids2, self.cell_ids, self.cell_counts, self.tombstone)
+        return sum(t.numel() * t.element_size() for t in arrays if t is not None)
+
+    # ---- live mutation ---------------------------------------------------
+
+    def insert(self, x_new, *, block_n: int = 4096) -> "SuCoIndex":
+        """Append ``x_new: (b, d)`` points, assigned to the existing
+        centroids (Alg. 2's assignment step only, no re-cluster):
+        a new index with ``b`` more live columns, ids ``n_points ..
+        n_points + b - 1``, and ``cell_counts`` grown by their occupancy.
+        Shapes change, so a serving engine inserts into pre-allocated slots
+        instead (:meth:`SuCoEngine.insert`)."""
+        x_new = _points(x_new, self.spec.d, self.cell_ids.device)
+        cells, counts_delta, _ = assign_points(
+            x_new, self.centroids1, self.centroids2, spec=self.spec, sqrt_k=self.sqrt_k,
+            block_n=block_n,
+        )
+        tomb = self.tombstone
+        if tomb is not None:
+            tomb = torch.cat([tomb, tomb.new_zeros(x_new.shape[0])])
+        return dataclasses.replace(
+            self,
+            cell_ids=torch.cat([self.cell_ids, cells], dim=1),
+            cell_counts=self.cell_counts + counts_delta,
+            tombstone=tomb,
+        )
+
+    def delete(self, ids) -> "SuCoIndex":
+        """Tombstone the given point ids (idempotent; duplicates fine): a new
+        index whose ``cell_counts`` drops the *newly* deleted points only.
+        Shapes are kept.  Ids outside ``[0, n_points)`` raise."""
+        ids = _checked_ids(ids, self.n_points)
+        if ids.size == 0:
+            return self
+        dev = self.cell_ids.device
+        tomb = (torch.zeros(self.n_points, dtype=torch.bool, device=dev)
+                if self.tombstone is None else self.tombstone.clone())
+        counts = self.cell_counts.clone()
+        _tombstone_(tomb, counts, self.cell_ids, torch.as_tensor(ids, device=dev))
+        return dataclasses.replace(self, cell_counts=counts, tombstone=tomb)
+
+    # ---- persistence -----------------------------------------------------
+
+    def save(
+        self,
+        path,
+        config: SuCoConfig | None = None,
+        *,
+        extras: Mapping[str, np.ndarray] | None = None,
+    ) -> None:
+        """Write the index as a version-3 ``.npz`` artifact, the JAX
+        package's format: the four index arrays byte for byte, the subspace
+        spec, the tombstone (as uint8) when there is one, the build
+        ``config`` when given, and ``extras`` as ``extra_<name>`` arrays;
+        each array with its ``crc_<key>`` CRC32.
+
+        The write is atomic: the payload goes to a temp file in the same
+        directory, is fsynced and replaces ``path``; a failed write removes
+        the temp file and leaves ``path`` as it was."""
+        cpu = lambda t: t.detach().cpu().numpy()
+        payload: dict[str, np.ndarray] = {
+            "artifact": np.asarray(_ARTIFACT_MAGIC),
+            "version": np.asarray(INDEX_ARTIFACT_VERSION, np.int32),
+            "centroids1": cpu(self.centroids1),
+            "centroids2": cpu(self.centroids2),
+            "cell_ids": cpu(self.cell_ids),
+            "cell_counts": cpu(self.cell_counts),
+            "sqrt_k": np.asarray(self.sqrt_k, np.int32),
+            "spec_d": np.asarray(self.spec.d, np.int32),
+            "spec_n_subspaces": np.asarray(self.spec.n_subspaces, np.int32),
+            "spec_perm": np.asarray(self.spec.perm, np.int32),
+            "spec_bounds": np.asarray(self.spec.bounds, np.int32),
+        }
+        if self.tombstone is not None:
+            payload["tombstone"] = cpu(self.tombstone).astype(np.uint8)
+        if config is not None:
+            payload.update(
+                config_n_subspaces=np.asarray(config.n_subspaces, np.int32),
+                config_sqrt_k=np.asarray(config.sqrt_k, np.int32),
+                config_kmeans_iters=np.asarray(config.kmeans_iters, np.int32),
+                config_seed=np.asarray(config.seed, np.int32),
+                config_build_mode=np.asarray(config.build_mode),
+                config_block_n=np.asarray(config.block_n, np.int32),
+            )
+        for name, value in (extras or {}).items():
+            payload[_ARTIFACT_EXTRA_PREFIX + name] = np.asarray(value)
+        payload.update({
+            f"crc_{k}": np.asarray(_array_crc(v), np.uint32)
+            for k, v in list(payload.items()) if k not in _ARTIFACT_UNCHECKSUMMED
+        })
+        _write_atomic(path, payload)
+
+    @classmethod
+    def load(cls, path, *, device: torch.device | str = "cuda") -> "SuCoIndex":
+        """Load an artifact written by :meth:`save` (or the JAX package's)
+        onto ``device``, bit-identical."""
+        return load_index_artifact(path, device=device)[0]
+
     @classmethod
     def from_numpy(
         cls,
@@ -221,6 +353,61 @@ class SuCoIndex:
         )
 
 
+def _points(x_new, d: int, device: torch.device) -> torch.Tensor:
+    """New points as a ``(b, d)`` float32 tensor on ``device``."""
+    x_new = torch.as_tensor(x_new, dtype=torch.float32).to(device)
+    if x_new.dim() == 1:
+        x_new = x_new[None]
+    if x_new.dim() != 2 or x_new.shape[1] != d:
+        raise ValueError(f"points must be (b, {d}), got {tuple(x_new.shape)}")
+    return x_new
+
+
+def _checked_ids(ids, n: int) -> np.ndarray:
+    """Sorted unique int64 ids, each in ``[0, n)``."""
+    if isinstance(ids, torch.Tensor):
+        ids = ids.cpu().numpy()
+    ids = np.unique(np.asarray(ids, dtype=np.int64))
+    if ids.size and (ids[0] < 0 or ids[-1] >= n):
+        raise ValueError(f"ids must be in [0, {n}), got range [{ids[0]}, {ids[-1]}]")
+    return ids
+
+
+def _tombstone_(
+    tomb: torch.Tensor, counts: torch.Tensor, cell_ids: torch.Tensor, ids: torch.Tensor
+) -> torch.Tensor:
+    """In place: mark ``ids`` (unique, in range) deleted in ``tomb`` and
+    drop the newly dead ones from ``counts``; returns the newly dead mask."""
+    newly = ~tomb[ids]
+    tomb[ids] = True
+    ns, n_cells = counts.shape
+    cells = cell_ids[:, ids].long() + (torch.arange(ns, device=ids.device) * n_cells)[:, None]
+    dead = newly.to(torch.int32).expand(ns, -1)
+    counts.view(-1).index_add_(0, cells.reshape(-1), -dead.reshape(-1))
+    return newly
+
+
+def _write_atomic(path, payload: Mapping[str, np.ndarray]) -> None:
+    """``np.savez`` of ``payload`` to ``path`` by a same-directory temp file,
+    fsync and ``os.replace``; the temp file is removed on any failure."""
+    path = os.fspath(path)
+    fd, tmp = tempfile.mkstemp(
+        dir=os.path.dirname(path) or ".", prefix=os.path.basename(path) + ".", suffix=".tmp"
+    )
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **payload)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except FileNotFoundError:
+            pass
+        raise
+
+
 @torch.inference_mode()
 def build_index(
     x: torch.Tensor,
@@ -228,31 +415,49 @@ def build_index(
     *,
     spec: sub.SubspaceSpec | None = None,
     init_centroids: torch.Tensor | None = None,
+    sample_idx: torch.Tensor | None = None,
 ) -> SuCoIndex:
     """Algorithm 2 on ``x: (n, d)``, on the device ``x`` lies on.
 
-    Chunked Lloyd over the ``2*Ns`` half-subspace codebooks, then the paired
-    final assignment with the IMI histogram.  Deterministic given
-    ``config.seed``; ``init_centroids: (2*Ns, sqrtK, h_max)`` (first halves,
-    then second halves) replaces the random init.
+    K-means over the ``2*Ns`` half-subspace codebooks in ``config.
+    build_mode``: "dense" (full-batch Lloyd), "chunked" (Lloyd over
+    ``block_n``-point chunks), "minibatch" (``kmeans_iters`` sampled steps
+    of ``block_n`` points, kmeans++ seeding), or "auto" (dense below
+    :data:`STREAMING_MIN_N` points, chunked from it on); then the paired
+    final assignment with the IMI histogram.  Dense and chunked run the same
+    update rule and differ only in fp summation order.  Deterministic given
+    ``config.seed``.  Test hooks: ``init_centroids: (2*Ns, sqrtK, h_max)``
+    (first halves, then second halves) replaces the initial centroids, and
+    ``sample_idx: (kmeans_iters, block_n)`` the minibatch samples.
     """
     if spec is None:
         spec = sub.contiguous_spec(x.shape[-1], config.n_subspaces)
-    if config.block_n < 0:
-        raise ValueError(f"block_n must be >= 0 (0 = autotune), got {config.block_n}")
+    mode = config.build_mode
+    if mode not in _BUILD_MODES:
+        raise ValueError(f"unknown build_mode {mode!r}, expected one of {_BUILD_MODES}")
     x = x.float()
     n, d = x.shape
-    block_n = config.block_n or autotune_build_block_n(
-        n, d, sqrt_k=config.sqrt_k, n_subspaces=spec.n_subspaces,
-        limits=device_limits(x.device),
-    )
+    if mode == "auto":
+        mode = "chunked" if n >= STREAMING_MIN_N else "dense"
+    if mode != "dense" and config.block_n < 0:
+        raise ValueError(
+            f"build_mode={mode!r} requires block_n >= 0 (0 = autotune), got {config.block_n}"
+        )
+    if mode == "dense":
+        block_n = 0
+    else:
+        block_n = config.block_n or autotune_build_block_n(
+            n, d, sqrt_k=config.sqrt_k, n_subspaces=spec.n_subspaces,
+            limits=device_limits(x.device),
+        )
     h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, x))
     both = torch.cat([h1, h2], dim=0).contiguous()  # (2Ns, n, h_max)
     del h1, h2
     res = kmeans_batched(
-        both, config.sqrt_k, config.kmeans_iters, block_n=block_n,
-        generator=torch.Generator().manual_seed(config.seed),
-        init_centroids=init_centroids,
+        both, config.sqrt_k, config.kmeans_iters,
+        algo="minibatch" if mode == "minibatch" else "lloyd", block_n=block_n,
+        pair_sqrt_k=config.sqrt_k, generator=torch.Generator().manual_seed(config.seed),
+        init_centroids=init_centroids, sample_idx=sample_idx,
     )
     ns = spec.n_subspaces
     a = res.assignments
@@ -263,11 +468,39 @@ def build_index(
     )
 
 
+@torch.inference_mode()
+def assign_points(
+    x_new: torch.Tensor,
+    centroids1: torch.Tensor,
+    centroids2: torch.Tensor,
+    *,
+    spec: sub.SubspaceSpec,
+    sqrt_k: int,
+    block_n: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Assign ``x_new: (b, d)`` to existing centroids, in ``block_n``-point
+    chunks: the incremental-insert core.  Returns ``(cell_ids (Ns, b)
+    int32, counts_delta (Ns, K) int32, inertia () f32)``: the occupancy to
+    add to ``cell_counts`` and the new points' assignment inertia (the
+    drift statistic).  One Lloyd-statistics pass with its assignments (the
+    kernel on the card), then an integer bincount of the cells."""
+    ns = spec.n_subspaces
+    h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, x_new.float()))
+    both = torch.cat([h1, h2], dim=0).contiguous()
+    cents = torch.cat([centroids1, centroids2], dim=0).contiguous()
+    a, _, _, inertia = kmeans_stats(both, cents, block_n=block_n, with_assign=True)
+    cells = (a[:ns] * sqrt_k + a[ns:]).to(torch.int32)
+    return cells, pair_cell_counts(a, sqrt_k), inertia.sum()
+
+
 def load_index_artifact(
-    path, *, device: torch.device | str = "cuda"
-) -> tuple[SuCoIndex, SuCoConfig | None]:
-    """Load an index artifact written by the JAX package's ``SuCoIndex.save``
-    -> ``(index on device, build config | None)``.
+    path, *, device: torch.device | str = "cuda", return_extras: bool = False
+) -> (tuple[SuCoIndex, SuCoConfig | None]
+      | tuple[SuCoIndex, SuCoConfig | None, dict[str, np.ndarray]]):
+    """Load an index artifact written by :meth:`SuCoIndex.save` of either
+    package -> ``(index on device, build config | None)``; with
+    ``return_extras`` also the ``extra_<name>`` sidecar arrays as
+    ``{name: array}``.
 
     Checks the tag, the key inventory and the version (1-3) before touching
     any payload, and every ``crc_<key>`` content checksum of a version-3
@@ -328,14 +561,22 @@ def load_index_artifact(
     )
     config = None
     if "config_n_subspaces" in names:
-        config = SuCoConfig(
-            n_subspaces=int(arrays["config_n_subspaces"][()]),
-            sqrt_k=int(arrays["config_sqrt_k"][()]),
-            kmeans_iters=int(arrays["config_kmeans_iters"][()]),
-            seed=int(arrays["config_seed"][()]),
-            block_n=int(arrays["config_block_n"][()]),
-        )
-    return index, config
+        try:
+            config = SuCoConfig(
+                n_subspaces=int(arrays["config_n_subspaces"][()]),
+                sqrt_k=int(arrays["config_sqrt_k"][()]),
+                kmeans_iters=int(arrays["config_kmeans_iters"][()]),
+                seed=int(arrays["config_seed"][()]),
+                build_mode=str(arrays["config_build_mode"][()]),
+                block_n=int(arrays["config_block_n"][()]),
+            )
+        except KeyError as e:
+            raise ArtifactError(f"{path!s}: incomplete build config, no {e}") from e
+    if not return_extras:
+        return index, config
+    extras = {k[len(_ARTIFACT_EXTRA_PREFIX):]: arrays[k]
+              for k in names if k.startswith(_ARTIFACT_EXTRA_PREFIX)}
+    return index, config, extras
 
 
 # --------------------------------------------------------------------------
@@ -745,6 +986,13 @@ class SuCoEngine:
     (:attr:`mode`); padding never changes a row's answer, since every step
     of the query is per row.  ``device`` defaults to the card; pass
     ``"cpu"`` to run the plain versions of the kernels.
+
+    ``capacity`` makes the engine mutable: ``x`` and the index are padded
+    to ``capacity`` slots, the empty ones tombstoned and uncounted, and
+    :meth:`insert` / :meth:`delete` write into them in place, so no tensor
+    changes shape.  A mutable engine owns its copies of ``x``,
+    ``cell_ids``, ``cell_counts`` and the tombstone; the caller's tensors
+    are never written.
     """
 
     def __init__(
@@ -753,6 +1001,7 @@ class SuCoEngine:
         index: SuCoIndex,
         policy: EnginePolicy | None = None,
         *,
+        capacity: int | None = None,
         device: torch.device | str = "cuda",
     ):
         self.device = torch.device(device)
@@ -761,9 +1010,28 @@ class SuCoEngine:
         self.policy = EnginePolicy() if policy is None else policy
         if self.x.dim() != 2 or self.x.shape[1] != index.spec.d:
             raise ValueError(f"data must be (n, {index.spec.d}), got {tuple(self.x.shape)}")
-        if self.x.shape[0] != index.n_points:
-            raise ValueError(f"data rows {self.x.shape[0]} != index points {index.n_points}")
+        n0 = self.x.shape[0]
+        if n0 != index.n_points:
+            raise ValueError(f"data rows {n0} != index points {index.n_points}")
+        if capacity is not None:
+            if capacity < n0:
+                raise ValueError(f"capacity={capacity} must be >= current n={n0}")
+            pad = capacity - n0
+            cells, tomb = self.index.cell_ids, self.index.tombstone
+            if tomb is None:
+                tomb = torch.zeros(n0, dtype=torch.bool, device=self.device)
+            self.x = torch.cat([self.x, self.x.new_zeros((pad, self.x.shape[1]))])
+            self.index = dataclasses.replace(
+                self.index,
+                cell_ids=torch.cat([cells, cells.new_zeros((cells.shape[0], pad))], dim=1),
+                cell_counts=self.index.cell_counts.clone(),
+                tombstone=torch.cat([tomb, tomb.new_ones(pad)]),
+            )
+        self._capacity = capacity
+        self._next_slot = n0
         self._n_live = self.index.n_live
+        self._insert_inertia = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._inserted = 0
         self._mode = _resolve_mode(self.policy.mode, self.x.shape[0])
         if self.policy.block_n < 1:
             raise ValueError(f"block_n must be >= 1, got {self.policy.block_n}")
@@ -772,6 +1040,9 @@ class SuCoEngine:
         self._padded = 0
         self._syncs = 0
         self._buckets_seen: set[tuple[int, int]] = set()
+        self._retired: tuple[torch.Tensor, SuCoIndex] | None = None
+
+    # ---- lifecycle -------------------------------------------------------
 
     @classmethod
     def build(
@@ -798,13 +1069,146 @@ class SuCoEngine:
         *,
         device: torch.device | str = "cuda",
     ) -> "SuCoEngine":
-        """Serve an index artifact of the JAX package over ``x``."""
+        """Serve an index artifact (:meth:`SuCoIndex.save`) over ``x``."""
         index, _ = load_index_artifact(path, device=device)
         return cls(x, index, policy, device=device)
 
+    def save(
+        self,
+        path,
+        config: SuCoConfig | None = None,
+        *,
+        extras: Mapping[str, np.ndarray] | None = None,
+    ) -> None:
+        """Persist this engine's index artifact (:meth:`SuCoIndex.save`)."""
+        self.index.save(path, config, extras=extras)
+
+    # ---- live mutation ---------------------------------------------------
+
+    def _require_mutable(self, op: str) -> None:
+        if self._capacity is None:
+            raise ValueError(
+                f"{op} needs a mutable engine: construct it with capacity=<max points> "
+                "(pre-allocated slots keep every tensor's shape); this engine is immutable"
+            )
+
+    @torch.inference_mode()
+    def insert(self, x_new) -> np.ndarray:
+        """Insert ``x_new: (b, d)`` (or one ``(d,)`` point) into the next
+        free slots and return their ids (slots are never reused before a
+        re-index).  Assignment to the existing centroids is
+        :func:`assign_points`; ``x``, ``cell_ids``, ``cell_counts`` and the
+        tombstone are written in place.  Raises :class:`CapacityError` when
+        the batch does not fit in the free slots."""
+        self._require_mutable("insert")
+        x_new = _points(x_new, self.index.spec.d, self.device)
+        b = x_new.shape[0]
+        if self._next_slot + b > self._capacity:
+            raise CapacityError(
+                f"insert of {b} points exceeds capacity {self._capacity} (next free slot "
+                f"{self._next_slot}): re-index onto a larger successor engine"
+            )
+        idx = self.index
+        cells, counts_delta, inertia = assign_points(
+            x_new, idx.centroids1, idx.centroids2, spec=idx.spec, sqrt_k=idx.sqrt_k,
+            block_n=self.policy.block_n,
+        )
+        lo, hi = self._next_slot, self._next_slot + b
+        idx.cell_ids[:, lo:hi] = cells
+        idx.cell_counts += counts_delta
+        idx.tombstone[lo:hi] = False
+        self.x[lo:hi] = x_new
+        self._next_slot = hi
+        self._n_live += b
+        self._insert_inertia += inertia  # on the device: no host sync
+        self._inserted += b
+        return np.arange(lo, hi)
+
+    @torch.inference_mode()
+    def delete(self, ids) -> int:
+        """Tombstone the given slot ids in place (idempotent; duplicates
+        fine); returns how many were newly dead, whose occupancy leaves
+        ``cell_counts``.  Ids outside ``[0, capacity)`` raise."""
+        self._require_mutable("delete")
+        ids = _checked_ids(ids, self.x.shape[0])
+        if ids.size == 0:
+            return 0
+        idx = self.index
+        newly = _tombstone_(idx.tombstone, idx.cell_counts, idx.cell_ids,
+                            torch.as_tensor(ids, device=self.device))
+        dead = int(newly.sum())
+        self._n_live -= dead
+        return dead
+
+    def swap(self, successor: "SuCoEngine") -> None:
+        """Become ``successor`` (the warm re-index handoff): every serving
+        field is rebound in place, so callers holding this engine cut over
+        at once.  The successor must already have served or warmed every
+        ``(bucket, k)`` pair this engine has seen.  The predecessor's
+        tensors stay referenced until :meth:`release_retired`, so the
+        handoff itself frees nothing."""
+        if successor is self:
+            return
+        missing = self._buckets_seen - successor._buckets_seen
+        if missing:
+            raise ValueError(
+                "swap target is not warmed over the live traffic mix: missing (bucket, k) "
+                f"pairs {sorted(missing)}; run successor.warmup(...) over the seen mix first"
+            )
+        self._retired = (self.x, self.index)
+        self.device = successor.device
+        self.x = successor.x
+        self.index = successor.index
+        self.policy = successor.policy
+        self._mode = successor._mode
+        self._capacity = successor._capacity
+        self._next_slot = successor._next_slot
+        self._n_live = successor._n_live
+        self._insert_inertia = successor._insert_inertia
+        self._inserted = successor._inserted
+        self._buckets_seen = self._buckets_seen | successor._buckets_seen
+
+    def release_retired(self) -> None:
+        """Drop the predecessor's tensors a :meth:`swap` kept, at a point of
+        the caller's choosing off the serving path."""
+        self._retired = None
+
+    def _rebind(self, x: torch.Tensor, index: SuCoIndex, *, n_live: int, next_slot: int) -> None:
+        """Adopt mutated ``(x, index)`` of the same shapes: the hook for
+        sibling engines that share this engine's data."""
+        self.x = x
+        self.index = index
+        self._n_live = n_live
+        self._next_slot = next_slot
+
+    # ---- query -----------------------------------------------------------
+
+    @property
+    def n_points(self) -> int:
+        """Slots, live or not (``capacity`` for a mutable engine)."""
+        return self.x.shape[0]
+
     @property
     def n_live(self) -> int:
+        """Live points: neither deleted nor empty slots."""
         return self._n_live
+
+    @property
+    def capacity(self) -> int | None:
+        """Total slots of a mutable engine (``None``: immutable)."""
+        return self._capacity
+
+    @property
+    def free_slots(self) -> int:
+        """Insert slots left (0 for an immutable engine)."""
+        return 0 if self._capacity is None else self._capacity - self._next_slot
+
+    @property
+    def insert_inertia_per_point(self) -> float:
+        """Mean assignment inertia of every point inserted so far: the drift
+        statistic (rising against the build's means the centroids no
+        longer describe the incoming data)."""
+        return float(self._insert_inertia) / self._inserted if self._inserted else 0.0
 
     @property
     def mode(self) -> str:

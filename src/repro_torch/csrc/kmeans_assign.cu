@@ -1,7 +1,7 @@
-// Batched K-means passes of the SuCo build: Lloyd statistics and the final
-// paired assignment with the IMI occupancy histogram.
+// K-means passes: Lloyd statistics, the SuCo build's paired final assignment
+// with the IMI occupancy histogram, and nearest-centroid assignment.
 //
-// Replaces two TPU kernels of src/repro/kernels/kmeans_assign/kernel.py:
+// Replaces the four TPU kernels of src/repro/kernels/kmeans_assign/kernel.py:
 //
 // * kmeans_stats_kernel (_accumulate_stats, _stats_kernel,
 //   _stats_only_kernel): per codebook b and point p, the nearest centroid
@@ -11,18 +11,39 @@
 // * kmeans_pair_assign_hist_kernel (_pair_assign_hist_kernel): argmins of
 //   both halves of each subspace (codebooks i and Ns+i) and the IMI
 //   occupancy counts[i, a1*k + a2].
+// * kmeans_assign_batched_kernel (_batched_kernel): the argmin of every
+//   point against its own codebook, nothing else.
+// * kmeans_assign_kernel (_kernel): the argmin of one problem, (n, s)
+//   against (k, s), at any width s and any k.
 //
-// What bounds them on an H100: operations.  Each point does 3*k*s fp32
-// operations (difference, square, sum) against 4*s bytes of input, about
-// 0.75*k operations per byte: ~37 at k=50, above the card's ~20 fp32
-// operations per byte.  Design: grid (points / block_n, codebooks); one
-// codebook's centroids (both halves' for the pair kernel) sit in shared
-// memory, where every thread reads the same centroid at once (a broadcast);
-// each thread takes one point, holds it in registers and scans the
-// centroids in index order with a strict <, so ties go to the lowest index
-// as with jnp.argmin / torch.argmin.  The distance is summed one dim at a
-// time with __fsub_rn/__fmul_rn/__fadd_rn (no FMA contraction): exactly the
-// arithmetic of the plain PyTorch version, so assignments agree bit for bit.
+// What bounds them on an H100: operations.  Each (point, centroid) pair
+// costs 3*s fp32 operations (difference, square, sum) against 4*s bytes of
+// the point, about 0.75*k operations per byte: ~37 at k=50 and ~190 at
+// k=256, above the card's ~20 fp32 operations per byte.
+//
+// The first three take one codebook per grid row (grid: points / block_n x
+// codebooks); the codebook's centroids (both halves' for the pair kernel)
+// sit in shared memory, where every thread reads the same centroid at once
+// (a broadcast); each thread takes one point, holds it in registers (at
+// most 64 dims, which the op wrapper checks) and scans the centroids in
+// index order with a strict <, so ties go to the lowest index as with
+// jnp.argmin / torch.argmin.
+//
+// kmeans_assign_kernel takes a point of any width and a codebook of any
+// size, which need not fit in shared memory (k=1024, s=128 is 512 KB).  A
+// block takes 256 points, one a thread; the centroids stream through
+// shared memory in tiles of 32 centroids x 32 dims.  For each tile of
+// centroids a thread keeps 32 running sums in registers and walks the dim
+// slices in order, loading its point's 32 dims of the slice into registers:
+// each distance is still summed dim 0, 1, ..., s-1.  (Padded dims of the
+// last slice are 0 in both point and centroid and add +0, which leaves a
+// sum unchanged.)  Tiles of centroids are visited in index order and a
+// thread takes a later centroid only on a strict <, so its (distance,
+// index) minimum is the lexicographic one: the lowest index wins ties.
+//
+// Every distance is summed one dim at a time with __fsub_rn/__fmul_rn/
+// __fadd_rn (no FMA contraction): exactly the arithmetic of the plain
+// PyTorch versions, so assignments agree bit for bit.
 //
 // No float atomics, so every result is the same from run to run.  The stats
 // kernel writes per-block partial sums, counts and inertia (each block
@@ -31,9 +52,9 @@
 // order.  The pair kernel's histogram uses integer atomics in shared memory
 // and then in device memory, which are exact.
 //
-// C entry points (each returns cudaGetLastError(); a point holds at most
-// 64 dims in registers, which the op wrapper checks):
-//   kmeans_stats(...), kmeans_pair_assign_hist(...).
+// C entry points (each returns cudaGetLastError()):
+//   kmeans_stats(...), kmeans_pair_assign_hist(...),
+//   kmeans_assign_batched(...), kmeans_assign(...).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -222,6 +243,82 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
         if (hist[u]) atomicAdd(&counts[(long long)i * k * k + u], hist[u]);
 }
 
+template <int MAXS>
+__global__ void __launch_bounds__(kThreads)
+kmeans_assign_batched_kernel(const float* __restrict__ x,  // (B, n, s)
+                             const float* __restrict__ c,  // (B, k, s)
+                             int n, int k, int s, int block_n,
+                             int* __restrict__ assign)     // (B, n)
+{
+    extern __shared__ float smem[];
+    float* cs = smem;  // k*s
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    for (int u = tid; u < k * s; u += kThreads) cs[u] = c[(long long)b * k * s + u];
+    __syncthreads();
+
+    const int start = blockIdx.x * block_n;
+    const int end = min(start + block_n, n);
+    for (int p = start + tid; p < end; p += kThreads) {
+        float xv[MAXS];
+        float best;
+        load_point<MAXS>(x + ((long long)b * n + p) * s, s, xv);
+        assign[(long long)b * n + p] = nearest<MAXS>(xv, cs, k, s, &best);
+    }
+}
+
+constexpr int kTileK = 32;  // centroids per shared-memory tile of kmeans_assign_kernel
+constexpr int kTileS = 32;  // dims per slice
+
+__global__ void __launch_bounds__(kThreads)
+kmeans_assign_kernel(const float* __restrict__ x,  // (n, s)
+                     const float* __restrict__ c,  // (k, s)
+                     int n, int k, int s,
+                     int* __restrict__ assign)     // (n,)
+{
+    __shared__ float cs[kTileK][kTileS];
+    const int tid = threadIdx.x;
+    const long long p = (long long)blockIdx.x * kThreads + tid;
+    const bool live = p < n;
+    const float* row = x + (live ? p : 0) * s;
+    float best = CUDART_INF_F;
+    int bi = 0;
+    for (int j0 = 0; j0 < k; j0 += kTileK) {
+        float acc[kTileK];
+#pragma unroll
+        for (int j = 0; j < kTileK; ++j) acc[j] = 0.f;
+        for (int d0 = 0; d0 < s; d0 += kTileS) {
+            __syncthreads();  // every thread is done with the previous slice
+            for (int u = tid; u < kTileK * kTileS; u += kThreads) {
+                const int j = u / kTileS;
+                const int t = u - j * kTileS;
+                cs[j][t] = (j0 + j < k && d0 + t < s) ? c[(long long)(j0 + j) * s + d0 + t] : 0.f;
+            }
+            __syncthreads();
+            float xv[kTileS];
+#pragma unroll
+            for (int t = 0; t < kTileS; ++t) xv[t] = (live && d0 + t < s) ? row[d0 + t] : 0.f;
+#pragma unroll
+            for (int j = 0; j < kTileK; ++j) {
+#pragma unroll
+                for (int t = 0; t < kTileS; ++t) {
+                    const float e = __fsub_rn(xv[t], cs[j][t]);
+                    acc[j] = __fadd_rn(acc[j], __fmul_rn(e, e));
+                }
+            }
+        }
+        const int jn = min(kTileK, k - j0);
+#pragma unroll
+        for (int j = 0; j < kTileK; ++j) {
+            if (j < jn && acc[j] < best) {
+                best = acc[j];
+                bi = j0 + j;
+            }
+        }
+    }
+    if (live) assign[p] = bi;
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
@@ -254,6 +351,18 @@ int launch_pair(const float* x, const float* c, int ns, int n, int k, int s, int
     if (e != cudaSuccess) return (int)e;
     kmeans_pair_assign_hist_kernel<MAXS><<<dim3(nblk, ns), kThreads, smem, stream>>>(
         x, c, ns, n, k, s, block_n, assign, counts);
+    return (int)cudaGetLastError();
+}
+
+template <int MAXS>
+int launch_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
+                          int block_n, int* assign, cudaStream_t stream) {
+    const int nblk = (n + block_n - 1) / block_n;
+    const size_t smem = sizeof(float) * (size_t)k * s;
+    const cudaError_t e = allow_smem(kmeans_assign_batched_kernel<MAXS>, smem);
+    if (e != cudaSuccess) return (int)e;
+    kmeans_assign_batched_kernel<MAXS><<<dim3(nblk, B), kThreads, smem, stream>>>(
+        x, c, n, k, s, block_n, assign);
     return (int)cudaGetLastError();
 }
 
@@ -291,4 +400,25 @@ extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, i
     if (s <= 64) REPRO_PAIR(64);
 #undef REPRO_PAIR
     return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
+                                     int block_n, int* assign, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_ASSIGN(M) return launch_assign_batched<M>(x, c, B, n, k, s, block_n, assign, st)
+    if (s <= 4) REPRO_ASSIGN(4);
+    if (s <= 8) REPRO_ASSIGN(8);
+    if (s <= 16) REPRO_ASSIGN(16);
+    if (s <= 32) REPRO_ASSIGN(32);
+    if (s <= 64) REPRO_ASSIGN(64);
+#undef REPRO_ASSIGN
+    return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int kmeans_assign(const float* x, const float* c, int n, int k, int s, int* assign,
+                             void* stream) {
+    const int nblk = (n + kThreads - 1) / kThreads;
+    kmeans_assign_kernel<<<nblk, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, c, n, k, s, assign);
+    return (int)cudaGetLastError();
 }

@@ -37,6 +37,8 @@ KERNELS = {
     "sc_score_cells_prefilter": (_score, "prefilter_launches"),
     "sc_score": (_score, "fused_launches"),
     "pairwise_sqdist": (_pairwise, "launches"),
+    "kmeans_assign_batched": (_kmeans, "assign_batched_launches"),
+    "kmeans_assign": (_kmeans, "assign_launches"),
 }
 
 

@@ -23,7 +23,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "entry", "library_path", "ptxas_report", "check"]
+__all__ = [
+    "SOURCES", "build_all", "load", "loaded", "entry", "library_path", "ptxas_report", "check",
+]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -118,6 +120,11 @@ def load(name: str) -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def loaded() -> tuple[str, ...]:
+    """The sources whose libraries this process has loaded, in load order."""
+    return tuple(_LOADED)
 
 
 def entry(name: str, fn_name: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -1,1 +1,1 @@
-"""Batched K-means passes: Lloyd statistics and the paired final assignment + IMI histogram."""
+"""K-means passes: Lloyd statistics, the paired final assignment + IMI histogram, and nearest-centroid assignment (batched, and one problem of any width)."""

@@ -1,13 +1,17 @@
-"""Launches of the CUDA kernels ``csrc/kmeans_assign.cu`` (which replace the
-TPU kernels ``kmeans_stats_kernel`` and ``kmeans_pair_assign_hist_kernel``):
-grid (chunks of ``block_n`` points, codebooks), the codebook's centroids in
-shared memory, one point per thread.  Operations bound them on an H100 (see
-the source's header).
+"""Launches of the CUDA kernels ``csrc/kmeans_assign.cu``, which replace the
+four TPU kernels of ``repro/kernels/kmeans_assign/kernel.py``:
+``kmeans_stats_kernel``, ``kmeans_pair_assign_hist_kernel`` and
+``kmeans_assign_batched_kernel`` (grid: chunks of ``block_n`` points x
+codebooks, the codebook's centroids in shared memory, one point per
+thread in registers) and ``kmeans_assign_kernel`` (one problem of any
+width and any ``k``: tiles of 256 points, the centroids streamed through
+shared memory in tiles of 32 centroids x 32 dims).  Operations bound all
+four on an H100 (see the source's header).
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates outputs and scratch, launches on the current stream and raises on
-any CUDA error.  ``stats_launches`` and ``pair_hist_launches`` count the
-launches.
+any CUDA error.  ``stats_launches``, ``pair_hist_launches``,
+``assign_batched_launches`` and ``assign_launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -20,10 +24,14 @@ from repro_torch.kernels import _build
 
 stats_launches = 0
 pair_hist_launches = 0
+assign_batched_launches = 0
+assign_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
 _PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P]
+_ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _P, _P]
 
 
 def kmeans_stats(
@@ -77,3 +85,39 @@ def kmeans_pair_assign_hist(
     _build.check("kmeans_assign", rc, "kmeans_pair_assign_hist")
     pair_hist_launches += 1
     return assign, counts
+
+
+def kmeans_assign_batched(
+    x: torch.Tensor, centroids: torch.Tensor, block_n: int
+) -> torch.Tensor:
+    global assign_batched_launches
+    b, n, s = x.shape
+    k = centroids.shape[1]
+    dev = x.device
+    assign = torch.empty((b, n), dtype=torch.int32, device=dev)
+    fn = _build.entry("kmeans_assign", "kmeans_assign_batched", _ASSIGN_BATCHED_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(
+            x.data_ptr(), centroids.data_ptr(), b, n, k, s, block_n, assign.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check("kmeans_assign", rc, "kmeans_assign_batched")
+    assign_batched_launches += 1
+    return assign
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    global assign_launches
+    n, s = x.shape
+    k = centroids.shape[0]
+    dev = x.device
+    assign = torch.empty((n,), dtype=torch.int32, device=dev)
+    fn = _build.entry("kmeans_assign", "kmeans_assign", _ASSIGN_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(
+            x.data_ptr(), centroids.data_ptr(), n, k, s, assign.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check("kmeans_assign", rc, "kmeans_assign")
+    assign_launches += 1
+    return assign

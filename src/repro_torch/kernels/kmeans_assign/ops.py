@@ -1,6 +1,7 @@
-"""The batched K-means passes of the build: Lloyd statistics and the paired
-final assignment with the IMI histogram.  Each checks its arguments, then
-dispatches on the device of the tensors it was given.
+"""The K-means passes: Lloyd statistics, the paired final assignment with
+the IMI histogram, and nearest-centroid assignment (batched, and a single
+problem of any width).  Each checks its arguments, then dispatches on the
+device of the tensors it was given.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel (:mod:`.kernel`), and a failed build or launch raises.
@@ -15,13 +16,19 @@ import torch
 from repro_torch.kernels._checks import check_tensor, same_device
 from repro_torch.kernels.kmeans_assign import kernel
 from repro_torch.kernels.kmeans_assign.ref import (
+    kmeans_assign_batched_ref,
+    kmeans_assign_ref,
     kmeans_pair_assign_hist_ref,
     kmeans_stats_ref,
 )
 
-__all__ = ["kmeans_stats", "kmeans_pair_assign_hist", "MAX_DIM"]
+__all__ = [
+    "kmeans_stats", "kmeans_pair_assign_hist", "kmeans_assign_batched", "kmeans_assign",
+    "MAX_DIM",
+]
 
-#: Widest (half-)subspace a kernel thread holds in registers.
+#: Widest (half-)subspace a thread of the batched kernels holds in registers
+#: (:func:`kmeans_assign` takes any width).
 MAX_DIM = 64
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 _THREADS = 256  # threads per block of the kmeans kernels
@@ -83,3 +90,38 @@ def kmeans_pair_assign_hist(
     if x.device.type == "cuda":
         return kernel.kmeans_pair_assign_hist(x, centroids, block_n)
     raise ValueError(f"no kmeans_pair_assign_hist route for device {x.device}")
+
+
+def kmeans_assign_batched(
+    x: torch.Tensor, centroids: torch.Tensor, *, block_n: int
+) -> torch.Tensor:
+    """Nearest centroid per codebook: ``x: (B, n, s)``, ``centroids:
+    (B, k, s)`` -> ``(B, n)`` int32, lowest index on ties."""
+    b, n, s, k = _check(x, centroids, block_n)
+    same_device(x, centroids)
+    smem = 4 * k * s
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"k={k}, s={s} need {smem} B of shared memory (> {_SMEM_LIMIT})")
+    if x.device.type == "cpu":
+        return kmeans_assign_batched_ref(x, centroids, block_n=block_n)
+    if x.device.type == "cuda":
+        return kernel.kmeans_assign_batched(x, centroids, block_n)
+    raise ValueError(f"no kmeans_assign_batched route for device {x.device}")
+
+
+def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of one problem at any width and any ``k``: ``x:
+    (n, s)``, ``centroids: (k, s)`` -> ``(n,)`` int32, lowest index on
+    ties."""
+    n, s = check_tensor("x", x, torch.float32, 2)
+    k = check_tensor("centroids", centroids, torch.float32, 2)[0]
+    if centroids.shape[1] != s:
+        raise ValueError(f"centroids must be (k, {s}), got {tuple(centroids.shape)}")
+    if min(n, s, k) < 1:
+        raise ValueError(f"need n, s and k >= 1, got {n}/{s}/{k}")
+    same_device(x, centroids)
+    if x.device.type == "cpu":
+        return kmeans_assign_ref(x, centroids)
+    if x.device.type == "cuda":
+        return kernel.kmeans_assign(x, centroids)
+    raise ValueError(f"no kmeans_assign route for device {x.device}")

@@ -9,7 +9,10 @@ and so must the pairwise distances (kernel and plain version sum in the same
 fixed order); the rerank distances agree to ``rtol=2e-5`` and the Lloyd sums
 and inertia to ``1e-5 * sum |terms|`` (fp32 sums in another order).  The
 query modes on the card equal the fused query there; SC-Linear's SC-scores on
-the card equal the CPU's.
+the card equal the CPU's.  The K-means library on the card gives the CPU's
+assignments on separated data (centroids within ``1e-5``), and a mutable
+engine's insert / delete / query sequence on the card gives the CPU's
+index exactly and its answers up to fp-distance ties.
 """
 
 import pytest
@@ -22,7 +25,12 @@ from repro_torch.data import gaussian_mixture, make_queries
 from repro_torch.kernels.gather_rerank import ops as gather_ops
 from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
-from repro_torch.kernels.kmeans_assign.ref import kmeans_pair_assign_hist_ref, kmeans_stats_ref
+from repro_torch.kernels.kmeans_assign.ref import (
+    kmeans_assign_batched_ref,
+    kmeans_assign_ref,
+    kmeans_pair_assign_hist_ref,
+    kmeans_stats_ref,
+)
 from repro_torch.core import sc_linear, subspace
 from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
 from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
@@ -266,3 +274,92 @@ def test_sc_linear_on_the_card_equals_the_cpu(dev, modes_data):
     count = subspace.collision_count(40_000, 0.05)
     s_card = sc_linear.sc_scores_from_subspaces(xs.to(dev), qs.to(dev), count)
     assert torch.equal(s_card.cpu(), sc_linear.sc_scores_from_subspaces(xs, qs, count))
+
+
+@pytest.mark.parametrize("s,k", [(16, 256), (13, 50), (64, 7)])
+def test_kmeans_assign_batched_kernel_equals_plain(dev, s, k):
+    x, c = _blobs(8, 8, 20_000, k, s)
+    before = kernels.launch_counts()["kmeans_assign_batched"]
+    got = kmeans_ops.kmeans_assign_batched(x.to(dev), c.to(dev), block_n=4096)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["kmeans_assign_batched"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), kmeans_assign_batched_ref(x, c, block_n=4096))
+
+
+@pytest.mark.parametrize("n,s,k", [(20_000, 128, 1024), (5_000, 130, 300), (777, 5, 7), (1, 1, 1)])
+def test_kmeans_assign_kernel_equals_plain(dev, n, s, k):
+    """Wider than a 32-dim slice and more centroids than a 32-row tile,
+    with ragged edges in both; duplicated centroids test the tie rule."""
+    g = _gen(9)
+    x = torch.randn(n, s, generator=g) * 3
+    c = torch.randn(k, s, generator=g) * 3
+    c[k // 2] = c[k // 3]  # an exact tie: the lower index must win
+    before = kernels.launch_counts()["kmeans_assign"]
+    got = kmeans_ops.kmeans_assign(x.to(dev), c.to(dev))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["kmeans_assign"] == before + 1
+    assert torch.equal(got.cpu(), kmeans_assign_ref(x, c))
+    if k > 2:
+        assert not (got == k // 2).any() or k // 2 == k // 3
+
+
+@pytest.mark.parametrize("algo,block_n", [("lloyd", 0), ("lloyd", 3000), ("minibatch", 2048)])
+def test_kmeans_library_on_the_card_equals_the_cpu(dev, algo, block_n):
+    from repro_torch.core import kmeans
+
+    x, c0 = _blobs(10, 4, 12_000, 20, 6)
+    sample = torch.randint(0, 12_000, (5, block_n), generator=_gen(11))
+    kw = dict(algo=algo, block_n=block_n, init_centroids=c0, pair_sqrt_k=0,
+              sample_idx=sample if algo == "minibatch" else None)
+    kernels.reset_launch_counts()
+    card = kmeans.kmeans_batched(x.to(dev), 20, 5, **kw)
+    counts = kernels.launch_counts()
+    final = "kmeans_stats" if algo == "minibatch" else "kmeans_assign_batched"
+    assert counts[final] >= 1 and counts["kmeans_stats"] >= 5
+    cpu = kmeans.kmeans_batched(x, 20, 5, **kw)
+    assert torch.equal(card.assignments.cpu(), cpu.assignments) and card.cell_counts is None
+    torch.testing.assert_close(card.centroids.cpu(), cpu.centroids, rtol=1e-5, atol=1e-5)
+    one = kmeans.assign(x[0].to(dev), card.centroids[0])
+    assert torch.equal(one.cpu(), cpu.assignments[0])
+
+
+def _same_answers(card, cpu, rtol=2e-5):
+    """Ids equal except where the CPU's distances tie within ``rtol``;
+    distances within ``rtol``; scores of the ids both return equal."""
+    ci, cd, cs = (t.cpu() for t in card)
+    pi, pd, ps = cpu
+    torch.testing.assert_close(cd, pd, rtol=rtol, atol=0)
+    for r in range(ci.shape[0]):
+        for c in torch.nonzero(ci[r] != pi[r]).flatten().tolist():
+            assert ((pd[r] - pd[r, c]).abs() <= rtol * pd[r, c]).sum() > 1, (r, c)
+        scores = dict(zip(pi[r].tolist(), ps[r].tolist()))
+        for i, s_ in zip(ci[r].tolist(), cs[r].tolist()):
+            assert scores.get(i, s_) == s_
+
+
+@pytest.mark.parametrize("mode", ["fused", "dense"])
+def test_engine_mutation_on_the_card_equals_the_cpu(dev, mode):
+    x = gaussian_mixture(20_000, 32, 12)
+    new = gaussian_mixture(3_000, 32, 13)
+    q = torch.from_numpy(make_queries(x, 8, seed=14))
+    idx = suco.build_index(torch.from_numpy(x), suco.SuCoConfig(n_subspaces=8, sqrt_k=16,
+                                                                 kmeans_iters=4))
+    policy = suco.EnginePolicy(mode=mode, tiles=TileConfig(block_n=4096, survivor_cap=128))
+    engines = [suco.SuCoEngine(x, idx, policy, capacity=24_000, device=d) for d in (dev, "cpu")]
+    dead = torch.randperm(21_000, generator=_gen(15))[:2_500]
+    for eng in engines:
+        eng.warmup(batch_sizes=(8,))
+        for lo in range(0, 3_000, 1_000):
+            eng.insert(new[lo:lo + 1_000])
+        assert eng.delete(dead) == 2_500 and eng.delete(dead[:10]) == 0
+    card, cpu = engines
+    for name in ("cell_ids", "cell_counts", "tombstone"):
+        assert torch.equal(getattr(card.index, name).cpu(), getattr(cpu.index, name))
+    assert card.n_live == cpu.n_live == 23_000 - 2_500 and card.free_slots == 1_000
+    assert abs(card.insert_inertia_per_point - cpu.insert_inertia_per_point) <= (
+        1e-5 * cpu.insert_inertia_per_point)
+    want = cpu.query(q, 10)
+    got = card.query(q, 10)
+    _same_answers(got, want)
+    assert not torch.isin(got.ids.cpu(), dead.int()).any()

@@ -221,7 +221,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(monkeypatch):
     for mod, fn in ((sk, "sc_score_compact"), (gk, "gather_rerank_l2"),
                     (kk, "kmeans_stats"), (kk, "kmeans_pair_assign_hist"),
                     (sk, "sc_score_cells"), (sk, "sc_score_cells_prefilter"),
-                    (sk, "sc_score_fused"), (pk, "pairwise_sqdist")):
+                    (sk, "sc_score_fused"), (pk, "pairwise_sqdist"),
+                    (kk, "kmeans_assign_batched"), (kk, "kmeans_assign")):
         monkeypatch.setattr(mod, fn, no_kernel)
     kernels.reset_launch_counts()
     ranks, cuts, cells, thr, keep = _score_inputs(0)
@@ -234,6 +235,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(monkeypatch):
     x, c = _separated(0, 4, 100, 3, 2)
     kmeans_ops.kmeans_stats(T(x), T(c), block_n=64)
     kmeans_ops.kmeans_pair_assign_hist(T(x), T(c), block_n=64)
+    kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=64)
+    kmeans_ops.kmeans_assign(T(x[0]), T(c[0]))
     gather_ops.gather_rerank_block(torch.zeros((2, 3), dtype=torch.int32), T(x[0]), T(x[0][:2]))
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 

@@ -1,0 +1,362 @@
+"""The port's K-means library against the JAX package's, on the CPU.
+
+* **Assignment kernels** (rows 5 and 6 of the kernel table): the port's
+  plain versions against the JAX Pallas kernels in interpret mode, exactly
+  on integer-valued data (both arithmetics are exact there) and, on float
+  data, equal except at near-ties: points whose two nearest centroids lie
+  within ``1e-5 * (|x|^2 + |c|^2)`` of each other in float64 (the JAX
+  kernels sum by the matmul identity, the port dim by dim).
+* **Training**: ``kmeans`` / ``kmeans_batched`` in dense and chunked
+  Lloyd and minibatch, fed the JAX package's own draws (its initial
+  centroids, and for minibatch its samples ``randint(fold_in(key, t))``):
+  centroids within ``1e-5``, assignments equal on data whose ties are far
+  apart, inertia within ``1e-5`` relative.
+* **Helpers**: the chunking helpers and the paired histogram (the padded
+  tail counts nothing), kmeans++ seeding, the argument checks.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:
+    from _hypothesis_fallback import given, settings, strategies as st
+
+from repro.core import kmeans as jkm
+from repro.kernels.kmeans_assign.ops import kmeans_assign as j_assign
+from repro.kernels.kmeans_assign.ops import kmeans_assign_batched as j_assign_batched
+
+from repro_torch import kernels
+from repro_torch.core import kmeans as pkm
+from repro_torch.data import gaussian_mixture
+from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+
+T = torch.from_numpy
+
+
+def _near_tie(x, c, rel=1e-5):
+    """``x: (n, s)``, ``c: (k, s)`` -> (n,) bool: the float64 gap between
+    the two nearest centroids is below ``rel * (|x|^2 + |c|^2)``."""
+    xd, cd = x.astype(np.float64), c.astype(np.float64)
+    d2 = ((xd[:, None, :] - cd[None]) ** 2).sum(-1)
+    if d2.shape[1] < 2:
+        return np.zeros(len(x), bool)
+    two = np.sort(d2, axis=1)[:, :2]
+    scale = (xd**2).sum(1) + (cd**2).sum(1)[np.argmin(d2, axis=1)]
+    return two[:, 1] - two[:, 0] < rel * scale
+
+
+def _assert_assign_equal(got, want, x, c):
+    """Equal, or a near-tie of ``x`` against ``c``."""
+    diff = got != want
+    assert not diff.any() or _near_tie(x[diff], c).all()
+
+
+# --------------------------------------------------------------------------
+# Rows 5 and 6: the assignment kernels' plain versions
+# --------------------------------------------------------------------------
+
+
+@settings(max_examples=12, deadline=None)
+@given(n=st.integers(1, 300), k=st.integers(1, 80), s=st.integers(1, 40),
+       seed=st.integers(0, 99), integer=st.booleans())
+def test_kmeans_assign_matches_the_jax_kernel(n, k, s, seed, integer):
+    rng = np.random.default_rng(seed)
+    if integer:
+        x = rng.integers(-6, 7, size=(n, s)).astype(np.float32)
+        c = rng.integers(-6, 7, size=(k, s)).astype(np.float32)
+    else:
+        x = rng.normal(size=(n, s)).astype(np.float32)
+        c = rng.normal(size=(k, s)).astype(np.float32)
+    want = np.asarray(j_assign(jnp.asarray(x), jnp.asarray(c), interpret=True))
+    got = kmeans_ops.kmeans_assign(T(x), T(c))
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    if integer:
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        _assert_assign_equal(got.numpy(), want, x, c)
+
+
+@settings(max_examples=10, deadline=None)
+@given(b=st.integers(1, 6), n=st.integers(1, 200), k=st.integers(1, 60),
+       s=st.integers(1, 30), block_n=st.integers(1, 256), seed=st.integers(0, 99))
+def test_kmeans_assign_batched_matches_the_jax_kernel(b, n, k, s, block_n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-6, 7, size=(b, n, s)).astype(np.float32)
+    c = rng.integers(-6, 7, size=(b, k, s)).astype(np.float32)
+    want = j_assign_batched(jnp.asarray(x), jnp.asarray(c), bn=64, impl="pallas", interpret=True)
+    got = kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=block_n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_kmeans_assign_batched_on_float_data(integer):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, 900, 9)).astype(np.float32) * 4
+    c = rng.normal(size=(4, 37, 9)).astype(np.float32) * 4
+    if integer:
+        x, c = np.round(x), np.round(c)
+    want = np.asarray(j_assign_batched(jnp.asarray(x), jnp.asarray(c), impl="jnp"))
+    got = kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=128).numpy()
+    for i in range(4):
+        if integer:
+            np.testing.assert_array_equal(got[i], want[i])
+        else:
+            _assert_assign_equal(got[i], want[i], x[i], c[i])
+
+
+def test_kmeans_assign_at_full_width_beyond_one_tile():
+    """s = 128 and k = 300: wider than the kernel's 32-dim slice and more
+    centroids than its 32-row tile, neither a multiple of the plain
+    version's 4096-point chunk."""
+    x = gaussian_mixture(5000, 128, 4)
+    c = x[np.random.default_rng(5).choice(5000, 300, replace=False)] + 0.5
+    want = np.asarray(j_assign(jnp.asarray(x), jnp.asarray(c), interpret=True))
+    got = pkm.assign(T(x), T(c))
+    _assert_assign_equal(got.numpy(), want, x, c)
+    xi, ci = np.round(x), np.round(c)
+    want_i = np.asarray(j_assign(jnp.asarray(xi), jnp.asarray(ci), interpret=True))
+    np.testing.assert_array_equal(pkm.assign(T(xi), T(ci)).numpy(), want_i)
+
+
+def test_assignment_ties_go_to_the_lowest_index():
+    x = torch.zeros((5, 3))
+    c = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]])
+    assert (kmeans_ops.kmeans_assign(x, c) == 0).all()
+    assert (kmeans_ops.kmeans_assign_batched(x[None], c[None], block_n=2) == 0).all()
+
+
+# --------------------------------------------------------------------------
+# Training against the JAX package with its own draws
+# --------------------------------------------------------------------------
+
+
+def _mixture(n, s, k_true, seed=0, spread=3.0):
+    """A gaussian mixture near the origin: its norms are small beside the
+    gaps between competing centroids, so the two arithmetics pick the same
+    argmin."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k_true, s)) * spread
+    who = rng.integers(0, k_true, n)
+    return (centers[who] + rng.normal(size=(n, s))).astype(np.float32)
+
+
+def _samples(key, iters, bn, n):
+    """The JAX package's minibatch samples (``kmeans.py`` ``mb_body``)."""
+    return np.stack([np.asarray(jax.random.randint(jax.random.fold_in(key, t), (bn,), 0, n))
+                     for t in range(iters)])
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.centroids.numpy(), np.asarray(want.centroids),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(want.assignments))
+    np.testing.assert_allclose(got.inertia.numpy(), np.asarray(want.inertia), rtol=1e-5)
+
+
+@pytest.mark.parametrize("algo,block_n", [
+    ("lloyd", 0), ("lloyd", 500), ("lloyd", 333), ("minibatch", 512), ("minibatch", 0),
+])
+def test_kmeans_matches_jax_with_its_draws(algo, block_n):
+    """block_n = 500 divides n = 3000, 333 does not (a padded tail);
+    minibatch at block_n = 0 samples the default 4096 (> n: all n)."""
+    n, s, k, iters = 3000, 6, 12, 6
+    x = _mixture(n, s, 9)
+    key = jax.random.key(3)
+    want = jkm.kmeans(key, jnp.asarray(x), k, iters, algo=algo, block_n=block_n)
+    if algo == "minibatch":
+        bn = min(block_n or 4096, n)
+        c0 = jkm.init_centroids_pp(key, jnp.asarray(x), k, sample_n=jkm._PP_SAMPLE_MIN)
+        sample = T(_samples(key, iters, bn, n))
+    else:
+        c0, sample = jkm._init_centroids(key, jnp.asarray(x), k), None
+    got = pkm.kmeans(T(x), k, iters, algo=algo, block_n=block_n,
+                     init_centroids=T(np.asarray(c0)), sample_idx=sample)
+    assert got.assignments.dtype == torch.int32 and got.cell_counts is None
+    _close(got, want)
+
+
+@pytest.mark.parametrize("algo,block_n,pair", [
+    ("lloyd", 0, 0), ("lloyd", 700, 0), ("lloyd", 1000, 8), ("minibatch", 600, 8),
+    ("minibatch", 600, 0),
+])
+def test_kmeans_batched_matches_jax_with_its_draws(algo, block_n, pair):
+    b, n, s, k, iters = 4, 2000, 5, 8, 5
+    xs = np.stack([_mixture(n, s, 6, seed=i) for i in range(b)])
+    key = jax.random.key(7)
+    want = jkm.kmeans_batched(key, jnp.asarray(xs), k, iters, algo=algo, block_n=block_n,
+                              pair_sqrt_k=pair)
+    c0 = np.asarray(jkm._init_batched(key, jnp.asarray(xs), k, "auto", algo))
+    sample = T(_samples(key, iters, block_n, n)) if algo == "minibatch" else None
+    kernels.reset_launch_counts()
+    got = pkm.kmeans_batched(T(xs), k, iters, algo=algo, block_n=block_n, pair_sqrt_k=pair,
+                             init_centroids=T(c0), sample_idx=sample)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)  # the CPU: no kernel
+    _close(got, want)
+    if pair:
+        np.testing.assert_array_equal(got.cell_counts.numpy(), np.asarray(want.cell_counts))
+    else:
+        assert got.cell_counts is None and want.cell_counts is None
+
+
+@pytest.mark.parametrize("block_n", [0, 256, 999])
+def test_lloyd_dense_and_chunked_agree_in_the_port(block_n):
+    """Integer data and centroids: every sum is exact, so the dense and the
+    chunked passes give the same bits; float data the same assignments."""
+    rng = np.random.default_rng(8)
+    xs = rng.integers(-20, 21, size=(2, 2500, 4)).astype(np.float32)
+    c0 = xs[:, :10].copy()
+    kw = dict(init_centroids=T(c0), pair_sqrt_k=10)
+    dense = pkm.kmeans_batched(T(xs), 10, 1, block_n=0, **kw)
+    chunk = pkm.kmeans_batched(T(xs), 10, 1, block_n=block_n, **kw)
+    for a, b in zip(dense, chunk):
+        assert torch.equal(a, b)
+    x = _mixture(2500, 6, 7)
+    dense = pkm.kmeans(T(x), 9, 5, init_centroids=T(x[:9]))
+    chunk = pkm.kmeans(T(x), 9, 5, block_n=block_n or 512, init_centroids=T(x[:9]))
+    assert torch.equal(dense.assignments, chunk.assignments)
+    torch.testing.assert_close(dense.centroids, chunk.centroids, rtol=1e-5, atol=1e-5)
+
+
+def test_empty_clusters_keep_their_centroid():
+    x = np.repeat(np.eye(3, dtype=np.float32), 50, axis=0)
+    c0 = np.concatenate([np.eye(3, dtype=np.float32), np.full((2, 3), 50.0, np.float32)])
+    for block_n in (0, 40):
+        res = pkm.kmeans(T(x), 5, 3, block_n=block_n, init_centroids=T(c0))
+        np.testing.assert_array_equal(res.centroids.numpy(), c0)
+        assert torch.isfinite(res.centroids).all()
+
+
+# --------------------------------------------------------------------------
+# Chunking helpers and the paired histogram
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_n", [64, 100, 300])
+def test_assign_scan_pair_histogram_counts_nothing_from_the_padded_tail(block_n):
+    """n = 700: block_n = 100 divides it; 64 and 300 leave a padded tail of
+    4 and 200 zero rows, which would all land in one cell if counted."""
+    rng = np.random.default_rng(9)
+    xs = rng.integers(-5, 6, size=(6, 700, 3)).astype(np.float32)
+    c = rng.integers(-5, 6, size=(6, 7, 3)).astype(np.float32)
+    jb, jv = jkm.block_batched(jnp.asarray(xs), block_n)
+    ja, jin, jcounts = jkm.assign_scan(jb, jv, jnp.asarray(c), pair_sqrt_k=7)
+    pb, pv = pkm.block_batched(T(xs), block_n)
+    assert pb.shape == tuple(jb.shape) and torch.equal(pv, T(np.asarray(jv)))
+    pa, pin, pcounts = pkm.assign_scan(pb, pv, T(c), pair_sqrt_k=7)
+    np.testing.assert_array_equal(pa[:, :700].numpy(), np.asarray(ja)[:, :700])
+    np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
+    assert int(pcounts.sum()) == 3 * 700
+    np.testing.assert_array_equal(pin.numpy(), np.asarray(jin))  # integers: exact
+    # the card's route: an integer bincount of the assignments
+    np.testing.assert_array_equal(pkm.pair_cell_counts(pa[:, :700], 7).numpy(),
+                                  np.asarray(jcounts))
+    sums, counts, inertia = pkm.lloyd_stats_scan(pb, pv, T(c))
+    js, jc, ji = jkm.lloyd_stats_scan(jb, jv, jnp.asarray(c))
+    for g, w in ((sums, js), (counts, jc), (inertia, ji)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# --------------------------------------------------------------------------
+# kmeans++ seeding
+# --------------------------------------------------------------------------
+
+
+def _start_inertia(x, c):
+    return float(((x[:, None, :] - c[None]) ** 2).sum(-1).min(1).values.sum())
+
+
+def test_kmeanspp_is_deterministic_per_seed_and_honours_sample_n():
+    x = T(gaussian_mixture(3000, 8, 1))
+    g = lambda seed: torch.Generator().manual_seed(seed)
+    a = pkm.init_centroids_pp(x, 12, sample_n=200, generator=g(4))
+    assert torch.equal(a, pkm.init_centroids_pp(x, 12, sample_n=200, generator=g(4)))
+    assert not torch.equal(a, pkm.init_centroids_pp(x, 12, sample_n=200, generator=g(5)))
+    sample = x[torch.randperm(3000, generator=g(4))[:200]]  # the first draw of the seeding
+    assert all((sample == row).all(1).any() for row in a)
+    assert len({tuple(r.tolist()) for r in a}) == 12  # D^2 never redraws a seed
+
+
+def test_kmeanspp_never_starts_worse_than_random_on_average():
+    """The guarantee is an expectation, so the mean over 8 seeds, on
+    clustered data with as many clusters as seeds (the regime D^2 seeding
+    is for; with 256 clusters or none at the scale of 12 seeds the two
+    starts are alike, and either may win)."""
+    k = 12
+    for x in (gaussian_mixture(3000, 16, 0, n_clusters=k), _mixture(3000, 16, k),
+              _mixture(3000, 8, k, seed=1, spread=6.0)):
+        x = T(x)
+        rand, pp = [], []
+        for seed in range(8):
+            g = torch.Generator().manual_seed(seed)
+            rand.append(_start_inertia(x, pkm.init_random(x[None], k, g)[0]))
+            g = torch.Generator().manual_seed(seed)
+            pp.append(_start_inertia(x, pkm.init_centroids_pp(x, k, generator=g)))
+        assert np.mean(pp) <= np.mean(rand)
+
+
+def test_init_auto_is_kmeanspp_for_minibatch_and_random_for_lloyd():
+    xs = T(np.stack([_mixture(1500, 8, 6, seed=i) for i in range(3)]))
+    g = lambda: torch.Generator().manual_seed(5)
+    for algo, mode in (("minibatch", "kmeans++"), ("lloyd", "random")):
+        auto = pkm.kmeans_batched(xs, 6, 2, algo=algo, block_n=256, generator=g())
+        explicit = pkm.kmeans_batched(xs, 6, 2, algo=algo, block_n=256, init=mode, generator=g())
+        assert torch.equal(auto.centroids, explicit.centroids)
+    # minibatch samples block_n points; kmeans++ from min(n, max(32k, 2048)) rows
+    res = pkm.kmeans_batched(xs, 6, 3, algo="minibatch", block_n=256, generator=g())
+    assert res.inertia.shape == (3,) and res.assignments.shape == (3, 1500)
+
+
+# --------------------------------------------------------------------------
+# Argument checks
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(algo="elkan"), "algo must be one of"),
+    (dict(block_n=-1), r"block_n must be >= 0 \(0 = dense\)"),
+    (dict(init="forgy"), "init must be one of"),
+])
+def test_check_args_messages_match_the_jax_package(kw, match):
+    x = T(_mixture(100, 4, 3))
+    args = dict(dict(algo="lloyd", block_n=0, init="auto"), **kw)
+    with pytest.raises(ValueError, match=match):
+        jkm._check_args(args["algo"], args["block_n"], args["init"])
+    with pytest.raises(ValueError, match=match):
+        pkm.kmeans(x, 3, 1, generator=torch.Generator(), **kw)
+    with pytest.raises(ValueError, match=match):
+        pkm.kmeans_batched(x[None], 3, 1, generator=torch.Generator(), **kw)
+
+
+def test_draws_need_a_generator_or_injected_draws():
+    x = T(_mixture(100, 4, 3))
+    with pytest.raises(ValueError, match="generator"):
+        pkm.kmeans(x, 3, 1)
+    with pytest.raises(ValueError, match="generator"):
+        pkm.kmeans(x, 3, 1, algo="minibatch", init_centroids=x[:3])
+    with pytest.raises(ValueError, match="sample_idx"):
+        pkm.kmeans(x, 3, 2, algo="minibatch", block_n=10, init_centroids=x[:3],
+                   sample_idx=torch.zeros((1, 10), dtype=torch.long))
+    with pytest.raises(ValueError, match="init_centroids"):
+        pkm.kmeans(x, 3, 1, init_centroids=x[:2])
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_assignment_ops_check_arguments(case):
+    x, c = torch.zeros((2, 10, 4)), torch.zeros((2, 3, 4))
+    calls = [
+        (TypeError, lambda: kmeans_ops.kmeans_assign(x[0].double(), c[0])),
+        (ValueError, lambda: kmeans_ops.kmeans_assign(x[0], c[0, :, :3].contiguous())),
+        (ValueError, lambda: kmeans_ops.kmeans_assign(x[0].t(), c[0])),
+        (ValueError, lambda: kmeans_ops.kmeans_assign_batched(x, c, block_n=0)),
+        (ValueError, lambda: kmeans_ops.kmeans_assign_batched(
+            torch.zeros((1, 5, 8)), torch.zeros((1, 7300, 8)), block_n=4)),
+    ]
+    exc, call = calls[case]
+    with pytest.raises(exc):
+        call()

@@ -86,7 +86,8 @@ def test_build_matches_jax_with_injected_seeds():
     jidx = jsuco.build_index(jnp.asarray(x), cfg)
     pidx = psuco.build_index(
         torch.from_numpy(x),
-        psuco.SuCoConfig(n_subspaces=ns, sqrt_k=sk, kmeans_iters=iters, block_n=block_n),
+        psuco.SuCoConfig(n_subspaces=ns, sqrt_k=sk, kmeans_iters=iters, build_mode="chunked",
+                         block_n=block_n),
         init_centroids=torch.tensor(seeds),
     )
     for a, b in ((jidx.centroids1, pidx.centroids1), (jidx.centroids2, pidx.centroids2)):
