@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives five paths over SIFT1M's shape (n = 1,000,000, d = 128, data from
-``gaussian_mixture``), each with every kernel's launch count set to 0 just
-before it and read just after:
+drives six paths, each with every kernel's launch count set to 0 just before
+it and read just after.  Five run over SIFT1M's shape (n = 1,000,000,
+d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
   batches of 1, 8 and 64 queries through ``SuCoEngine`` (fused mode);
@@ -16,15 +16,23 @@ before it and read just after:
   batches of 8 and 64;
 * ``kmeans_library``: the K-means library at its users' shapes: PQ8x8
   codebook training (``kmeans_batched`` on the (8, 1M, 16) sub-vectors,
-  k = 256, 20 chunked Lloyd steps, unpaired) and IVF1024 coarse assignment
-  at full width (``init_centroids_pp`` of 1,024 centroids from 32,768 rows,
-  then ``assign`` of all 1M rows);
+  k = 256, 20 chunked Lloyd steps, unpaired), IVF1024 coarse assignment at
+  full width (``init_centroids_pp`` of 1,024 centroids from 32,768 rows,
+  then ``assign`` of all 1M rows) and IVF1024 Lloyd training at d = 128
+  (``kmeans`` of a 262,144-row sample from those seeds, 20 chunked steps);
 * ``lifecycle``: a minibatch build at 1M and the fused engine over it; the
   main path's index in a mutable engine (``capacity`` 1.1M): 25 inserts of
   4,000 points, one delete of 50,000 ids, batches of 1, 8 and 64 in the
   fused and dense modes before and after, with checks (a)-(f) of the
   answers, the counts and the warm state; then ``SuCoIndex.save`` / ``load``
   on the card.
+
+The sixth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
+layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
+on the card from the seed) through ``repro_torch.launch.serve.Server``: 16
+requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
+``lm_cpu_recheck`` then runs a 2-layer model of the same width on the card
+and, with the same weights and the card's tokens, on the CPU.
 
 It checks recall@10 against an exact k-NN, answers 8 queries of the fused
 (before and after mutation) and SC-Linear paths again on the CPU with the
@@ -76,6 +84,8 @@ SOURCES = {
         "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:93"),
     "kmeans_assign": (
         "src/repro_torch/csrc/kmeans_assign.cu", "src/repro/kernels/kmeans_assign/kernel.py:52"),
+    "linear_attn": (
+        "src/repro_torch/csrc/linear_attn.cu", "src/repro/kernels/linear_attn/kernel.py:95"),
 }
 #: the path whose launches each kernel reports (the prefilter kernel is on no
 #: path: only its public op and the kernel checks call it)
@@ -84,6 +94,7 @@ PATH_OF = {
     "kmeans_stats": "main_path", "kmeans_pair_assign_hist": "main_path",
     "sc_score_cells": "query_modes", "sc_score": "sc_linear", "pairwise_sqdist": "sc_linear",
     "kmeans_assign_batched": "kmeans_library", "kmeans_assign": "kmeans_library",
+    "linear_attn": "lm_serve",
 }
 #: the kernels the lifecycle path runs (each reports its launches on its
 #: first path above): Lloyd statistics for the minibatch build and every
@@ -164,22 +175,12 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     # kmeans_stats: one Lloyd pass over the 2*Ns codebooks from the seeds
     got = kmeans_ops.kmeans_stats(both, c0, block_n=bn, with_assign=True)
     want = kmeans_stats_ref(both, c0, block_n=bn)
-    a, sums, counts, inertia = got
-    if not (torch.equal(a, want[0]) and torch.equal(counts, want[2])):
-        raise AssertionError("kmeans_stats: assignments or counts differ from the plain version")
-    onehot_mag = torch.zeros((b * k, s), dtype=torch.float64, device=dev)
-    onehot_mag.index_add_(0, (a.long() + torch.arange(b, device=dev)[:, None] * k).reshape(-1),
-                          both.abs().double().reshape(-1, s))
-    err_sums = (sums.double() - want[1].double()).abs()
-    if not (err_sums <= 1e-5 * onehot_mag.reshape(b, k, s)).all():
-        raise AssertionError("kmeans_stats: sums outside 1e-5 * sum |terms|")
-    err_in = (inertia.double() - want[3].double()).abs()
-    if not (err_in <= 1e-5 * want[3].double()).all():
-        raise AssertionError("kmeans_stats: inertia outside 1e-5 relative")
+    err_sums = stats_errors("kmeans_stats", both, got, want)
+    err_in = (got[3].double() - want[3].double()).abs()
     t_ops = 3.0 * b * n * k * s
-    bms, by = bound(nbytes(both, c0, sums, counts, inertia), t_ops)
+    bms, by = bound(nbytes(both, c0, *got[1:]), t_ops)
     out["kmeans_stats"] = dict(
-        max_abs_err=float(err_sums.max()),
+        max_abs_err=err_sums,
         ms=time_ms(lambda: kmeans_ops.kmeans_stats(both, c0, block_n=bn), 10),
         plain_ms=time_ms(lambda: kmeans_stats_ref(both, c0, block_n=bn), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -556,22 +557,34 @@ def assign_ops(n: int, k: int, s: int, b: int = 1) -> float:
 
 
 def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
-    """PQ8x8 codebook training and IVF1024 coarse assignment over the 1M
-    rows (the K-means library's entry points, as its users call them), then
-    rows 5 and 6 against their plain versions on the same inputs.  Returns
-    the path's launches and the two kernels' records."""
+    """PQ8x8 codebook training, IVF1024 coarse assignment over the 1M rows
+    and IVF1024 Lloyd training at d = 128 (the K-means library's entry
+    points, as its users call them); then rows 5 and 6 against their plain
+    versions on the same inputs, and the wide variants of rows 3-5 at the
+    IVF shapes.  Returns the path's launches and the kernels' records."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.core import kmeans as km
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
-    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_batched_ref, kmeans_assign_ref
+    from repro_torch.kernels.kmeans_assign.ref import (
+        kmeans_assign_batched_ref,
+        kmeans_assign_ref,
+        kmeans_pair_assign_hist_ref,
+        kmeans_stats_ref,
+    )
 
     n, d = data.shape
+    dev = data.device
     m_pq, k_pq, k_ivf, iters, bn = 8, 256, 1024, 20, 4096
+    # faiss trains IVF1024 on 256 points per centroid; chunks of 2,048 points
+    # give the one-codebook statistics kernel 128 blocks
+    n_ivf, ivf_bn = min(256 * k_ivf, n // 2), 2048
     xs = data.reshape(n, m_pq, d // m_pq).transpose(0, 1).contiguous()  # (8, n, 16)
     c0 = km.init_random(xs, k_pq, torch.Generator().manual_seed(seed))
     init_inertia = kmeans_ops.kmeans_stats(xs, c0, block_n=bn)[3]  # before the counted run
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(seed + 4))[:n_ivf]
+    sample = data[pick.to(dev)].contiguous()
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
@@ -588,9 +601,13 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     lists = km.assign(data, cents)
     torch.cuda.synchronize()
     assign_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf = km.kmeans(sample, k_ivf, iters, block_n=ivf_bn, init_centroids=cents)
+    torch.cuda.synchronize()
+    ivf_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     check_launched("kmeans_library", launches)
-    if launches["kmeans_stats"] != iters or launches["kmeans_assign_batched"] != 1 \
+    if launches["kmeans_stats"] != 2 * iters or launches["kmeans_assign_batched"] != 2 \
             or launches["kmeans_assign"] != 1:
         raise AssertionError(f"kmeans_library launches: {launches}")
     occupancy = torch.bincount(lists.long(), minlength=k_ivf)
@@ -602,6 +619,27 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     want6 = kmeans_assign_ref(data, cents)
     if not (torch.equal(pq.assignments, want5) and torch.equal(lists, want6)):
         raise AssertionError("kmeans_assign(_batched) differs from its plain version")
+
+    # the wide variants at the IVF shapes: row 3 at the kmeans++ start (its
+    # plain version's inertia is the start's), row 5 on the trained
+    # centroids, row 4 at s = 128 and sqrt_k = 256 on two 262,144-row halves
+    x1, c_ivf = sample[None], cents[None]
+    got3 = kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn, with_assign=True)
+    want3 = kmeans_stats_ref(x1, c_ivf, block_n=ivf_bn)
+    err3 = stats_errors("kmeans_stats (wide)", x1, got3, want3)
+    ivf_init_inertia = float(want3[3][0])
+    if not float(ivf.inertia) < ivf_init_inertia:
+        raise AssertionError("IVF1024 training did not lower the inertia of its kmeans++ start")
+    want5w = kmeans_assign_batched_ref(x1, ivf.centroids[None], block_n=ivf_bn)
+    if not torch.equal(ivf.assignments[None], want5w):
+        raise AssertionError("kmeans_assign_batched (wide) differs from its plain version")
+    halves = torch.stack([data[:n_ivf], data[n_ivf:2 * n_ivf]])
+    c4 = km.init_random(halves, 256, torch.Generator().manual_seed(seed + 5))
+    got4 = kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn)
+    if not all(torch.equal(g, w) for g, w in zip(
+            got4, kmeans_pair_assign_hist_ref(halves, c4, block_n=ivf_bn))):
+        raise AssertionError("kmeans_pair_assign_hist (wide) differs from its plain version")
+    ivf_lists = torch.bincount(ivf.assignments.long(), minlength=k_ivf)
     emit(dict(phase="kmeans_library",
               pq=dict(codebooks=m_pq, k=k_pq, sub_dim=d // m_pq, iters=iters, block_n=bn,
                       seconds=pq_s, init_inertia=init_inertia.tolist(),
@@ -610,6 +648,10 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
                        assign_ms=assign_s * 1e3, largest_list=int(occupancy.max()),
                        smallest_list=int(occupancy.min()),
                        empty_lists=int((occupancy == 0).sum())),
+              ivf_training=dict(sample=n_ivf, iters=iters, block_n=ivf_bn, seconds=ivf_s,
+                                init_inertia=ivf_init_inertia, final_inertia=float(ivf.inertia),
+                                largest_list=int(ivf_lists.max()),
+                                empty_lists=int((ivf_lists == 0).sum())),
               launches=launches, plain_equal=True))
 
     def cdist_argmin(a, b):
@@ -620,22 +662,64 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
         ("kmeans_assign_batched", (xs, pq.centroids),
          lambda: kmeans_ops.kmeans_assign_batched(xs, pq.centroids, block_n=bn),
          lambda: kmeans_assign_batched_ref(xs, pq.centroids, block_n=bn),
-         assign_ops(n, k_pq, d // m_pq, m_pq)),
+         assign_ops(n, k_pq, d // m_pq, m_pq), 10),
         ("kmeans_assign", (data, cents), lambda: kmeans_ops.kmeans_assign(data, cents),
-         lambda: kmeans_assign_ref(data, cents), assign_ops(n, k_ivf, d)),
+         lambda: kmeans_assign_ref(data, cents), assign_ops(n, k_ivf, d), 10),
+        ("kmeans_assign_batched (wide)", (x1, ivf.centroids[None]),
+         lambda: kmeans_ops.kmeans_assign_batched(x1, ivf.centroids[None], block_n=ivf_bn),
+         lambda: kmeans_assign_batched_ref(x1, ivf.centroids[None], block_n=ivf_bn),
+         assign_ops(n_ivf, k_ivf, d), 5),
     )
-    for name, args, fn, plain, ops in cases:
+    for name, args, fn, plain, ops, reps in cases:
         out = fn()
         lib = cdist_argmin(*args)
         bms, by = bound(nbytes(*args, out), ops)
         recs[name] = dict(
-            max_abs_err=0.0, ms=time_ms(fn, 10), plain_ms=time_ms(plain, 1, warmup=1),
+            max_abs_err=0.0, ms=time_ms(fn, reps), plain_ms=time_ms(plain, 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: cdist_argmin(*args), 3),
-            detail=dict(shape=list(args[0].shape), k=args[1].shape[-2], library=LIBRARY[name],
+            detail=dict(shape=list(args[0].shape), k=args[1].shape[-2],
+                        library=LIBRARY[name.split(" ")[0]],
                         library_disagrees=int((lib != out).sum())),
         )
         del lib
+    bms, by = bound(nbytes(x1, c_ivf, *got3[1:]), assign_ops(n_ivf, k_ivf, d))
+    recs["kmeans_stats (wide)"] = dict(
+        max_abs_err=err3, ms=time_ms(lambda: kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn), 5),
+        plain_ms=time_ms(lambda: kmeans_stats_ref(x1, c_ivf, block_n=ivf_bn), 1, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=list(x1.shape), k=k_ivf, block_n=ivf_bn))
+    bms, by = bound(nbytes(halves, c4, *got4), assign_ops(n_ivf, 256, d, 2))
+    recs["kmeans_pair_assign_hist (wide)"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn), 5),
+        plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(halves, c4, block_n=ivf_bn), 1,
+                         warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=list(halves.shape), k=256, cells=256 * 256, block_n=ivf_bn))
     return launches, recs
+
+
+def stats_errors(name: str, x, got, want) -> float:
+    """Hold a statistics kernel's output against its plain version's:
+    assignments and counts equal, sums within 1e-5 * sum |terms| (fp32 sums
+    in another order), inertia within 1e-5 relative.  Returns the largest
+    absolute error of the sums."""
+    import torch
+
+    a, sums, counts, inertia = got
+    b, _, s = x.shape
+    k = sums.shape[1]
+    if not (torch.equal(a, want[0]) and torch.equal(counts, want[2])):
+        raise AssertionError(f"{name}: assignments or counts differ from the plain version")
+    mag = torch.zeros((b * k, s), dtype=torch.float64, device=x.device)
+    mag.index_add_(0, (a.long() + torch.arange(b, device=x.device)[:, None] * k).reshape(-1),
+                   x.abs().double().reshape(-1, s))
+    err = (sums.double() - want[1].double()).abs()
+    if not (err <= 1e-5 * mag.reshape(b, k, s)).all():
+        raise AssertionError(f"{name}: sums outside 1e-5 * sum |terms|")
+    if not ((inertia.double() - want[3].double()).abs() <= 1e-5 * want[3].double()).all():
+        raise AssertionError(f"{name}: inertia outside 1e-5 relative")
+    return float(err.max())
 
 
 def lifecycle_phase(data, q64, gt, index, policy, seed: int, k: int) -> dict:
@@ -792,6 +876,274 @@ def lifecycle_phase(data, q64, gt, index, policy, seed: int, k: int) -> dict:
     return launches
 
 
+def linear_attn_ops(bh: int, t: int, dk: int, dv: int, chunk: int, shift: int) -> float:
+    """fp32 operations of chunked linear attention on these shapes: per
+    chunk of c live tokens, an exponential, two multiplies and an add per
+    (t, j, k) term of the causal part of A (j <= t - shift); two per term
+    of A @ v, of the inter-chunk product and of the state update; the bonus
+    (shift = 1)."""
+    total = 0.0
+    for c0 in range(0, t, chunk):
+        c = min(chunk, t - c0)
+        pairs = c * (c - 1) / 2 if shift else c * (c + 1) / 2
+        total += 4 * pairs * dk + 2 * pairs * dv + 4 * c * dk * dv
+        if shift:
+            total += 2 * c * dk + 2 * c * dv
+    return bh * total
+
+
+def _bf16_ulp(x):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _scan_fp64(q, k, v, w, u, shift):
+    """The token-by-token recurrence in fp64: ``(o, final state)``."""
+    import torch
+
+    q, k, v, u = (a.double() for a in (q, k, v, u))
+    w = w.double().clamp(1e-6, 1.0)
+    s = q.new_zeros(q.shape[0], q.shape[2], v.shape[2])
+    outs = []
+    for i in range(q.shape[1]):
+        kv = k[:, i, :, None] * v[:, i, None, :]
+        if shift:
+            outs.append(torch.einsum("bk,bkv->bv", q[:, i], s)
+                        + (q[:, i] * u[:, 0] * k[:, i]).sum(1, keepdim=True) * v[:, i])
+            s = w[:, i, :, None] * s + kv
+        else:
+            s = w[:, i, :, None] * s + kv
+            outs.append(torch.einsum("bk,bkv->bv", q[:, i], s))
+    return torch.stack(outs, 1), s
+
+
+def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
+    """Row 11 against its plain version on the same inputs: at the RWKV6
+    prefill shape (``bh`` = 8 slots x 32 heads, ``t`` tokens, 64 x 64, bf16,
+    shift 1; the model's decays), at Zamba2's SSD shape (shift 0, 64 x 128,
+    one decay per head and token), and in fp32 at a ragged length.
+    Tolerance, for sums taken in another order: the state within rtol 1e-4 /
+    atol 1e-4; the outputs within rtol 1e-4 (fp32) or one bf16 ulp (bf16)
+    plus 1e-6 * sum |terms| -- ``mag``, the same recurrence over |q|, |k|,
+    |v|, |u| -- because at these lengths an output is the small difference
+    of terms in the hundreds, and either version's fp32 error there exceeds
+    a fixed 1e-4.  The fp32 case also reports both versions' largest error
+    against an fp64 scan of its first two heads (``fp64_witness``)."""
+    import torch
+
+    from repro_torch.kernels.linear_attn import ops as la_ops
+    from repro_torch.kernels.linear_attn.ref import linear_attn_chunked
+
+    g = torch.Generator(dev).manual_seed(seed + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def inputs(kind, dtype, t_):
+        if kind == "rwkv":  # w = exp(-exp(w0 + dd)), w0 = -6, as the model's
+            q, k, v = randn(bh, t_, 64), randn(bh, t_, 64), randn(bh, t_, 64)
+            w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(bh, t_, 64)))
+            u = 0.1 * randn(bh, 1, 64)
+        else:  # Mamba2-SSD: a scalar decay per head and token, dt-scaled values
+            dt = torch.nn.functional.softplus(randn(bh, t_, 1))
+            q, k = randn(bh, t_, 64), randn(bh, t_, 64)
+            v = randn(bh, t_, 128) * dt
+            w = torch.exp(-dt).expand(bh, t_, 64)
+            u = torch.zeros(bh, 1, 64, device=dev)
+        return [a.to(dtype).contiguous() for a in (q, k, v, w, u)]
+
+    cases = {"rwkv6_prefill": ("rwkv", torch.bfloat16, t, 1),
+             "zamba2_ssd": ("ssd", torch.bfloat16, t, 0),
+             "fp32_ragged": ("rwkv", torch.float32, t - 48, 1)}
+    out = {}
+    for name, (kind, dtype, t_, shift) in cases.items():
+        args = inputs(kind, dtype, t_)
+        o, st = la_ops.linear_attention_with_state(*args, shift=shift)
+        tp = -(-t_ // 64) * 64
+        padded = [torch.nn.functional.pad(a, (0, 0, 0, tp - t_), value=1.0 if i == 3 else 0.0)
+                  if i < 4 else a for i, a in enumerate(args)]
+        plain = lambda: linear_attn_chunked(*padded, chunk=64, shift=shift)  # noqa: E731
+        po, ps = plain()
+        po = po[:, :t_]
+        mag = linear_attn_chunked(*(a if i == 3 else a.abs() for i, a in enumerate(padded)),
+                                  chunk=64, shift=shift)[0][:, :t_].float()
+        of, pf = o.float(), po.float()
+        err_o = (of - pf).abs()
+        if dtype == torch.float32:
+            ok_o = (err_o <= 1e-4 * pf.abs() + 1e-6 * mag).all()
+        else:
+            ok_o = (err_o <= _bf16_ulp(torch.maximum(of.abs(), pf.abs())) + 1e-6 * mag).all()
+        err_s = (st - ps).abs()
+        if not (ok_o and (err_s <= 1e-4 + 1e-4 * ps.abs()).all()):
+            raise AssertionError(f"linear_attn ({name}) outside its tolerance of the plain version")
+        dk, dv = args[0].shape[2], args[2].shape[2]
+        bms, by = bound(nbytes(*args, o, st), linear_attn_ops(bh, t_, dk, dv, 64, shift))
+        out[name] = dict(
+            shape=dict(bh=bh, t=t_, dk=dk, dv=dv, chunk=64, shift=shift, dtype=str(dtype)),
+            max_abs_err=float(err_o.max()), state_max_abs_err=float(err_s.max()),
+            max_err_over_sum_abs_terms=float((err_o / mag.clamp_min(1e-30)).max()),
+            max_abs_o=float(pf.abs().max()),
+            ms=time_ms(lambda: la_ops.linear_attention_with_state(*args, shift=shift), 10),
+            plain_ms=time_ms(plain, 2, warmup=1), bound_ms=bms, bound_by=by)
+        if dtype == torch.float32:
+            o64, s64 = _scan_fp64(*(a[:2] for a in args), shift=shift)
+            out[name]["fp64_witness"] = dict(
+                heads=2, kernel_o=float((of[:2].double() - o64).abs().max()),
+                plain_o=float((pf[:2].double() - o64).abs().max()),
+                kernel_state=float((st[:2].double() - s64).abs().max()),
+                plain_state=float((ps[:2].double() - s64).abs().max()))
+        del o, st, po, ps, padded, args, mag
+    main_case = out["rwkv6_prefill"]
+    return dict(max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
+                plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+                bound_by=main_case["bound_by"], library_ms=None, detail=out)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def lm_serve_phase(dev, seed: int, cfg, n_req: int = 16, slots: int = 8,
+                   prompt_len: int = 2048, gen_len: int = 32) -> dict:
+    """RWKV6 served through the port's ``Server``: fp32 master weights drawn
+    on the card from ``seed``, ``n_req`` requests of ``prompt_len`` random
+    tokens in batches of ``slots``, ``gen_len`` greedy tokens each; then one
+    prefill batch and one decode step under the profiler.  Returns the
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    server = Server(model, params, slots, prompt_len + gen_len + 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (n_req, prompt_len))
+    server.run([Request(-1, prompts[0, :64])], 2)  # first use: library, cuBLAS handles
+    server.timings.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.run([Request(i, prompts[i]) for i in range(n_req)], gen_len)
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_launched("lm_serve", launches)
+    batches = len(server.timings)
+    if launches["linear_attn"] != cfg.n_layers * batches:
+        raise AssertionError(f"linear_attn launched {launches['linear_attn']} times, not "
+                             f"{cfg.n_layers} per prefill batch")
+    tokens = np.array([r.generated for r in done])
+    if tokens.shape != (n_req, gen_len) or not (tokens < cfg.vocab_size).all():
+        raise AssertionError("the server's answers are not gen_len in-vocabulary tokens each")
+    decode_ms = [1e3 * x for tm in server.timings for x in tm["decode_s"]]
+    toks = torch.as_tensor(prompts[:slots], device=dev)
+    logits, cache = model.prefill(server.params, toks)
+    if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
+        raise AssertionError("prefill logits are not finite")
+    nxt = logits.argmax(-1)
+    prof = dict(prefill=profile_batch(lambda: model.prefill(server.params, toks)),
+                decode_step=profile_batch(
+                    lambda: model.decode_step(server.params, cache, nxt, prompt_len)))
+    emit(dict(phase="lm_serve", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+              vocab=cfg.vocab_size, dtype=cfg.dtype,
+              params=sum(t.numel() for t in leaves(params)), init_seconds=init_s,
+              requests=n_req, slots=slots, prompt_len=prompt_len, gen_len=gen_len,
+              prefill_seconds_per_batch=[tm["prefill_s"] for tm in server.timings],
+              decode_ms_median=float(np.median(decode_ms)), decode_ms_p90=float(
+                  np.percentile(decode_ms, 90)), decode_steps=len(decode_ms),
+              run_seconds=run_s, generated_tokens_per_s=tokens.size / run_s,
+              max_memory_allocated=peak, linear_attn_launches=launches["linear_attn"],
+              launches=launches, profile=prof, first_tokens=tokens[:2, :8].tolist()))
+    del params, server, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def leaves(tree):
+    """The tensors of a parameter tree, depth first."""
+    for v in tree.values():
+        yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _forced(model, params, prompt, tokens):
+    """Logits (n, B, V) of the prompt's last position and of each decode
+    step fed ``tokens`` in turn (teacher forcing)."""
+    import torch
+
+    logits, cache = model.prefill(params, prompt)
+    out = [logits.float().cpu()]
+    for i in range(tokens.shape[1] - 1):
+        logits, cache = model.decode_step(params, cache, tokens[:, i], prompt.shape[1] + i)
+        out.append(logits.float().cpu())
+    return torch.stack(out)
+
+
+def lm_cpu_recheck_phase(dev, seed: int, cfg, prompt_len: int = 64, gen_len: int = 8) -> dict:
+    """A 2-layer model of ``cfg``'s full width, one request of
+    ``prompt_len`` tokens and ``gen_len`` greedy tokens on the card; the
+    same weights on the CPU, fed the card's tokens.  Tolerance: the model's
+    own bf16 error, ``tol`` = the largest distance of the CPU's bf16 logits
+    from its fp32 logits on the same weights.  The card's logits must lie
+    within ``tol`` of the CPU's, and each of the card's tokens must be the
+    CPU's greedy token, or a near tie there (top two within twice the
+    card-CPU distance at that step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import Model
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = Model(cfg2)
+    params = model.init(torch.Generator(dev).manual_seed(seed + 10))
+    prompt = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, (1, prompt_len))
+    kernels.reset_launch_counts()
+    server = Server(model, params, 1, prompt_len + gen_len + 1)
+    req = server.run([Request(0, prompt[0])], gen_len)[0]
+    launches = kernels.launch_counts()
+    tokens = torch.tensor([req.generated])
+    card = _forced(model, server.params, torch.as_tensor(prompt, device=dev), tokens.to(dev))
+    t0 = time.perf_counter()
+    cpu_params = _to(params, "cpu")
+    del params, server
+    cpu = _forced(model, model.compute_params(cpu_params), torch.as_tensor(prompt), tokens)
+    f32 = Model(dataclasses.replace(cfg2, dtype="float32"))
+    ref32 = _forced(f32, cpu_params, torch.as_tensor(prompt), tokens)
+    cpu_s = time.perf_counter() - t0
+    v = cfg.vocab_size
+    card, cpu, ref32 = card[..., :v], cpu[..., :v], ref32[..., :v]
+    tol = float((cpu - ref32).abs().max())
+    dist = (card - cpu).abs().amax(-1)  # (steps, 1)
+    greedy = cpu.argmax(-1)
+    want = tokens.T
+    top2 = cpu.topk(2, dim=-1).values
+    near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * dist
+    equal = greedy == want
+    emit(dict(phase="lm_cpu_recheck", layers=2, d_model=cfg.d_model, vocab=v,
+              prompt_len=prompt_len, gen_len=gen_len, seconds_cpu=cpu_s,
+              linear_attn_launches=launches["linear_attn"], card_tokens=req.generated,
+              cpu_greedy_tokens=greedy[:, 0].tolist(), tokens_equal=int(equal.sum()),
+              near_ties=int((~equal & near_tie).sum()), max_abs_logit_diff=float(dist.max()),
+              tolerance_bf16_vs_fp32=tol, logit_scale=float(cpu.abs().max())))
+    if launches["linear_attn"] != 2 or not torch.isfinite(card).all():
+        raise AssertionError("the 2-layer card run did not go through the kernel once a layer")
+    if not (float(dist.max()) <= tol and (equal | near_tie).all()):
+        raise AssertionError("the card's logits or greedy tokens disagree with the CPU's")
+    return dict(tokens_equal=int(equal.sum()), steps=gen_len)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the data and queries")
@@ -804,6 +1156,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import EnginePolicy, SuCoConfig, SuCoEngine, kernels
+    from repro_torch.configs import get_config
     from repro_torch.core import subspace as sub
     from repro_torch.core.kmeans import init_random
     from repro_torch.data import gaussian_mixture, make_queries, recall
@@ -895,7 +1248,13 @@ def main() -> int:
     launches_by_path["lifecycle"] = lifecycle_phase(data, q64, gt, engine.index, policy,
                                                     args.seed, k)
 
-    # 8. each kernel against its plain version at its path's shapes
+    # 8. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
+    # the same width on the card and again on the CPU
+    lm_cfg = get_config("rwkv6-1.6b")
+    launches_by_path["lm_serve"] = lm_serve_phase(dev, args.seed, lm_cfg)
+    lm_cpu_recheck_phase(dev, args.seed, lm_cfg)
+
+    # 9. each kernel against its plain version at its path's shapes
     spec = engine.index.spec
     h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, data))
     both = torch.cat([h1, h2]).contiguous()
@@ -905,9 +1264,10 @@ def main() -> int:
     del both
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
     checks.update(library_checks)
+    checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
-    # 9. the same 8 queries on the CPU: plain versions over the same index
+    # 10. the same 8 queries on the CPU: plain versions over the same index
     t0 = time.perf_counter()
     cpu_policy = EnginePolicy(alpha=0.05, beta=0.02, tiles=engine.tiles_for(8, k))
     cpu_engine = SuCoEngine(x_np, engine.index.to("cpu"), cpu_policy, device="cpu")
@@ -927,6 +1287,10 @@ def main() -> int:
                          max_abs_err=rec_["max_abs_err"],
                          ms=rec_["ms"], plain_ms=rec_["plain_ms"], bound_ms=rec_["bound_ms"],
                          bound_by=rec_["bound_by"], library_ms=rec_["library_ms"]))
+        wide = checks.get(f"{name} (wide)")  # rows 3-5 at the IVF shapes
+        if wide is not None:
+            rows[-1]["wide"] = {key: wide[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": rows})
     print(smi, flush=True)

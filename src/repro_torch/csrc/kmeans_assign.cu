@@ -14,7 +14,8 @@
 // * kmeans_assign_batched_kernel (_batched_kernel): the argmin of every
 //   point against its own codebook, nothing else.
 // * kmeans_assign_kernel (_kernel): the argmin of one problem, (n, s)
-//   against (k, s), at any width s and any k.
+//   against (k, s), at any width s and any k: kmeans_assign_streamed_kernel
+//   at one codebook.
 //
 // What bounds them on an H100: operations.  Each (point, centroid) pair
 // costs 3*s fp32 operations (difference, square, sum) against 4*s bytes of
@@ -25,13 +26,26 @@
 // codebooks); the codebook's centroids (both halves' for the pair kernel)
 // sit in shared memory, where every thread reads the same centroid at once
 // (a broadcast); each thread takes one point, holds it in registers (at
-// most 64 dims, which the op wrapper checks) and scans the centroids in
-// index order with a strict <, so ties go to the lowest index as with
-// jnp.argmin / torch.argmin.
+// most 64 dims) and scans the centroids in index order with a strict <, so
+// ties go to the lowest index as with jnp.argmin / torch.argmin.  These
+// narrow instantiations (MAXS 4..64) take s <= 64 and a codebook that fits
+// in shared memory.
 //
-// kmeans_assign_kernel takes a point of any width and a codebook of any
-// size, which need not fit in shared memory (k=1024, s=128 is 512 KB).  A
-// block takes 256 points, one a thread; the centroids stream through
+// Beside each of the three sits a wide variant, which the op wrapper picks
+// for any other shape (s > 64, or k*s -- for the pair kernel also k^2 --
+// past shared memory): it finds each point's centroid as kernel 6 does
+// below (nearest_streamed), walking its chunk in tiles of 256 points.  The
+// wide assignment is kernel 6's own kernel, kmeans_assign_streamed_kernel,
+// over B codebooks.  The
+// wide stats kernel keeps its per-block partial sums and counts in device
+// memory (only its own block writes them), adding each tile's points in
+// index order as the narrow one does, so both give the same bits; the wide
+// pair kernel adds its k^2 histogram straight into device memory with
+// integer atomics.
+//
+// kmeans_assign_streamed_kernel takes a point of any width and a codebook
+// of any size, which need not fit in shared memory (k=1024, s=128 is
+// 512 KB).  A block walks its points 256 at a time, one a thread; the centroids stream through
 // shared memory in tiles of 32 centroids x 32 dims.  For each tile of
 // centroids a thread keeps 32 running sums in registers and walks the dim
 // slices in order, loading its point's 32 dims of the slice into registers:
@@ -53,8 +67,8 @@
 // and then in device memory, which are exact.
 //
 // C entry points (each returns cudaGetLastError()):
-//   kmeans_stats(...), kmeans_pair_assign_hist(...),
-//   kmeans_assign_batched(...), kmeans_assign(...).
+//   kmeans_stats(..., wide, stream), kmeans_pair_assign_hist(..., wide, stream),
+//   kmeans_assign_batched(..., wide, stream), kmeans_assign(...).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -179,15 +193,16 @@ kmeans_stats_partial_kernel(const float* __restrict__ x,   // (B, n, s)
     if (tid == 0) part_inertia[pb] = inertia;
 }
 
-// Sum the per-block partials over the blocks, in block order.
+// Sum the per-block partials over the blocks, in block order (grid: slices
+// of the k*s + k + 1 outputs x codebooks).
 __global__ void __launch_bounds__(kThreads)
 kmeans_stats_reduce_kernel(const float* __restrict__ part_sums, const float* __restrict__ part_counts,
                            const float* __restrict__ part_inertia, int nblk, int k, int s,
                            float* __restrict__ sums, float* __restrict__ counts,
                            float* __restrict__ inertia) {
-    const int b = blockIdx.x;
+    const int b = blockIdx.y;
     const int ks = k * s;
-    for (int u = threadIdx.x; u < ks + k + 1; u += kThreads) {
+    for (int u = blockIdx.x * kThreads + threadIdx.x; u < ks + k + 1; u += gridDim.x * kThreads) {
         float a = 0.f;
         if (u < ks) {
             for (int blk = 0; blk < nblk; ++blk) a += part_sums[((long long)b * nblk + blk) * ks + u];
@@ -267,20 +282,19 @@ kmeans_assign_batched_kernel(const float* __restrict__ x,  // (B, n, s)
     }
 }
 
-constexpr int kTileK = 32;  // centroids per shared-memory tile of kmeans_assign_kernel
+constexpr int kTileK = 32;  // centroids per shared-memory tile of the streamed kernels
 constexpr int kTileS = 32;  // dims per slice
 
-__global__ void __launch_bounds__(kThreads)
-kmeans_assign_kernel(const float* __restrict__ x,  // (n, s)
-                     const float* __restrict__ c,  // (k, s)
-                     int n, int k, int s,
-                     int* __restrict__ assign)     // (n,)
-{
-    __shared__ float cs[kTileK][kTileS];
+// Nearest centroid of one point of any width against a codebook of any size,
+// the centroids streamed through `cs` in tiles of kTileK centroids x kTileS
+// dims.  Every thread of the block calls it together (it synchronises); a
+// thread whose point is not live (`live` false) computes junk for row 0.
+// Distances are summed dim 0..s-1 in order, tiles are visited in index order
+// and a later centroid wins only on a strict <: the lowest index wins ties.
+__device__ __forceinline__ int nearest_streamed(const float* __restrict__ row, bool live,
+                                                const float* __restrict__ c, int k, int s,
+                                                float (&cs)[kTileK][kTileS], float* best_out) {
     const int tid = threadIdx.x;
-    const long long p = (long long)blockIdx.x * kThreads + tid;
-    const bool live = p < n;
-    const float* row = x + (live ? p : 0) * s;
     float best = CUDART_INF_F;
     int bi = 0;
     for (int j0 = 0; j0 < k; j0 += kTileK) {
@@ -316,7 +330,138 @@ kmeans_assign_kernel(const float* __restrict__ x,  // (n, s)
             }
         }
     }
-    if (live) assign[p] = bi;
+    *best_out = best;
+    return bi;
+}
+
+// Nearest centroid of every point against its own codebook, any width and
+// any k (grid: chunks of block_n points x codebooks).  Kernel 6 is this at
+// B = 1 and block_n = kThreads; kernel 5 takes it for its wide shapes.
+__global__ void __launch_bounds__(kThreads)
+kmeans_assign_streamed_kernel(const float* __restrict__ x,  // (B, n, s)
+                              const float* __restrict__ c,  // (B, k, s)
+                              int n, int k, int s, int block_n,
+                              int* __restrict__ assign)     // (B, n)
+{
+    __shared__ float cs[kTileK][kTileS];
+    const int b = blockIdx.y;
+    const int start = blockIdx.x * block_n;
+    const int end = min(start + block_n, n);
+    for (int t0 = start; t0 < end; t0 += kThreads) {
+        const int p = t0 + threadIdx.x;
+        const bool live = p < end;
+        float best;
+        const int bi = nearest_streamed(x + ((long long)b * n + (live ? p : start)) * s, live,
+                                        c + (long long)b * k * s, k, s, cs, &best);
+        if (live) assign[(long long)b * n + p] = bi;
+    }
+}
+
+int launch_assign_streamed(const float* x, const float* c, int B, int n, int k, int s,
+                           int block_n, int* assign, cudaStream_t stream) {
+    const int nblk = (n + block_n - 1) / block_n;
+    kmeans_assign_streamed_kernel<<<dim3(nblk, B), kThreads, 0, stream>>>(
+        x, c, n, k, s, block_n, assign);
+    return (int)cudaGetLastError();
+}
+
+// ---- wide variants of kernels 3-5: any width s and any k ------------------
+// Grid and outputs as the narrow kernels (chunks of block_n points x
+// codebooks); a block walks its chunk in tiles of kThreads points, one a
+// thread, and finds each point's centroid with nearest_streamed.  Kernel 5's
+// wide variant is kmeans_assign_streamed_kernel above.
+
+__global__ void __launch_bounds__(kThreads)
+kmeans_stats_partial_wide_kernel(const float* __restrict__ x,   // (B, n, s)
+                                 const float* __restrict__ c,   // (B, k, s)
+                                 int n, int k, int s, int block_n,
+                                 float* __restrict__ part_sums,     // (B, nblk, k, s)
+                                 float* __restrict__ part_counts,   // (B, nblk, k)
+                                 float* __restrict__ part_inertia,  // (B, nblk)
+                                 int* __restrict__ assign)          // (B, n) or null
+{
+    __shared__ float cs[kTileK][kTileS];
+    __shared__ float tbest[kThreads];
+    __shared__ int ta[kThreads];
+    const int blk = blockIdx.x;
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x;
+    const long long xoff = (long long)b * n;
+    const float* cb = c + (long long)b * k * s;
+    // this block's partials live in device memory (k*s need not fit in
+    // shared memory); only this block writes them, so no atomics
+    const long long pb = (long long)b * gridDim.x + blk;
+    float* psums = part_sums + pb * k * s;
+    float* pcounts = part_counts + pb * k;
+    for (long long u = tid; u < (long long)k * s; u += kThreads) psums[u] = 0.f;
+    for (int u = tid; u < k; u += kThreads) pcounts[u] = 0.f;
+    __syncthreads();
+
+    float inertia = 0.f;  // thread 0 only
+    const int start = blk * block_n;
+    const int end = min(start + block_n, n);
+    for (int t0 = start; t0 < end; t0 += kThreads) {
+        const int p = t0 + tid;
+        const bool live = p < end;
+        float best;
+        const int bi = nearest_streamed(x + (xoff + (live ? p : start)) * s, live, cb, k, s, cs,
+                                        &best);
+        if (live) {
+            if (assign) assign[xoff + p] = bi;
+            ta[tid] = bi;
+            tbest[tid] = best;
+        }
+        __syncthreads();
+        // the tile's points in order, as the narrow kernel: thread t owns dim
+        // t of every centroid (t == s: the counts), so each sum runs over the
+        // points in index order
+        const int cnt = min(kThreads, end - t0);
+        for (int t = tid; t <= s; t += kThreads) {
+            for (int pp = 0; pp < cnt; ++pp) {
+                const int j = ta[pp];
+                if (t < s)
+                    psums[(long long)j * s + t] += x[(xoff + t0 + pp) * s + t];
+                else
+                    pcounts[j] += 1.f;
+            }
+        }
+        if (tid == 0)
+            for (int pp = 0; pp < cnt; ++pp) inertia += tbest[pp];
+        __syncthreads();
+    }
+    if (tid == 0) part_inertia[pb] = inertia;
+}
+
+__global__ void __launch_bounds__(kThreads)
+kmeans_pair_assign_hist_wide_kernel(const float* __restrict__ x,  // (2ns, n, s)
+                                    const float* __restrict__ c,  // (2ns, k, s)
+                                    int ns, int n, int k, int s, int block_n,
+                                    int* __restrict__ assign,     // (2ns, n)
+                                    int* __restrict__ counts)     // (ns, k*k), zeroed by the caller
+{
+    __shared__ float cs[kTileK][kTileS];
+    const int i = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int start = blockIdx.x * block_n;
+    const int end = min(start + block_n, n);
+    const float* c1 = c + (long long)i * k * s;
+    const float* c2 = c + (long long)(ns + i) * k * s;
+    for (int t0 = start; t0 < end; t0 += kThreads) {
+        const int p = t0 + tid;
+        const bool live = p < end;
+        const long long row = live ? p : start;
+        float best;
+        const int a1 = nearest_streamed(x + ((long long)i * n + row) * s, live, c1, k, s, cs, &best);
+        const int a2 = nearest_streamed(x + ((long long)(ns + i) * n + row) * s, live, c2, k, s, cs,
+                                        &best);
+        if (live) {
+            assign[(long long)i * n + p] = a1;
+            assign[(long long)(ns + i) * n + p] = a2;
+            // the k*k histogram need not fit in shared memory: integer adds
+            // in device memory, exact in any order
+            atomicAdd(&counts[(long long)i * k * k + (long long)a1 * k + a2], 1);
+        }
+    }
 }
 
 template <typename K>
@@ -337,8 +482,25 @@ int launch_stats(const float* x, const float* c, int B, int n, int k, int s,
         x, c, n, k, s, block_n, part_sums, part_counts, part_inertia, assign);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    kmeans_stats_reduce_kernel<<<B, kThreads, 0, stream>>>(part_sums, part_counts, part_inertia,
-                                                           nblk, k, s, sums, counts, inertia);
+    kmeans_stats_reduce_kernel<<<dim3(1, B), kThreads, 0, stream>>>(
+        part_sums, part_counts, part_inertia, nblk, k, s, sums, counts, inertia);
+    return (int)cudaGetLastError();
+}
+
+int launch_stats_wide(const float* x, const float* c, int B, int n, int k, int s, int block_n,
+                      float* part_sums, float* part_counts, float* part_inertia, float* sums,
+                      float* counts, float* inertia, int* assign, cudaStream_t stream) {
+    const int nblk = (n + block_n - 1) / block_n;
+    kmeans_stats_partial_wide_kernel<<<dim3(nblk, B), kThreads, 0, stream>>>(
+        x, c, n, k, s, block_n, part_sums, part_counts, part_inertia, assign);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    // k*s may be large: spread the reduction's outputs over blocks
+    const long long outs = (long long)k * s + k + 1;
+    const long long blocks = (outs + kThreads - 1) / kThreads;
+    const int gx = (int)(blocks < 1024 ? blocks : 1024);
+    kmeans_stats_reduce_kernel<<<dim3(gx, B), kThreads, 0, stream>>>(
+        part_sums, part_counts, part_inertia, nblk, k, s, sums, counts, inertia);
     return (int)cudaGetLastError();
 }
 
@@ -372,11 +534,16 @@ extern "C" const char* repro_cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// `wide` (chosen by the op wrapper from the shape) takes the streamed
+// variant; otherwise the register/shared-memory one for s <= 64.
 extern "C" int kmeans_stats(const float* x, const float* c, int B, int n, int k,
                             int s, int block_n, float* part_sums, float* part_counts,
                             float* part_inertia, float* sums, float* counts, float* inertia,
-                            int* assign, void* stream) {
+                            int* assign, int wide, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (wide)
+        return launch_stats_wide(x, c, B, n, k, s, block_n, part_sums, part_counts,
+                                 part_inertia, sums, counts, inertia, assign, st);
 #define REPRO_STATS(M) \
     return launch_stats<M>(x, c, B, n, k, s, block_n, part_sums, part_counts, part_inertia, \
                            sums, counts, inertia, assign, st)
@@ -390,8 +557,15 @@ extern "C" int kmeans_stats(const float* x, const float* c, int B, int n, int k,
 }
 
 extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, int n, int k, int s,
-                                       int block_n, int* assign, int* counts, void* stream) {
+                                       int block_n, int* assign, int* counts, int wide,
+                                       void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (wide) {
+        const int nblk = (n + block_n - 1) / block_n;
+        kmeans_pair_assign_hist_wide_kernel<<<dim3(nblk, ns), kThreads, 0, st>>>(
+            x, c, ns, n, k, s, block_n, assign, counts);
+        return (int)cudaGetLastError();
+    }
 #define REPRO_PAIR(M) return launch_pair<M>(x, c, ns, n, k, s, block_n, assign, counts, st)
     if (s <= 4) REPRO_PAIR(4);
     if (s <= 8) REPRO_PAIR(8);
@@ -403,8 +577,9 @@ extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, i
 }
 
 extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
-                                     int block_n, int* assign, void* stream) {
+                                     int block_n, int* assign, int wide, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (wide) return launch_assign_streamed(x, c, B, n, k, s, block_n, assign, st);
 #define REPRO_ASSIGN(M) return launch_assign_batched<M>(x, c, B, n, k, s, block_n, assign, st)
     if (s <= 4) REPRO_ASSIGN(4);
     if (s <= 8) REPRO_ASSIGN(8);
@@ -417,8 +592,6 @@ extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int 
 
 extern "C" int kmeans_assign(const float* x, const float* c, int n, int k, int s, int* assign,
                              void* stream) {
-    const int nblk = (n + kThreads - 1) / kThreads;
-    kmeans_assign_kernel<<<nblk, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, c, n, k, s, assign);
-    return (int)cudaGetLastError();
+    return launch_assign_streamed(x, c, 1, n, k, s, kThreads, assign,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.gather_rerank import kernel as _gather
 from repro_torch.kernels.kmeans_assign import kernel as _kmeans
+from repro_torch.kernels.linear_attn import kernel as _linear_attn
+from repro_torch.kernels.linear_attn.ops import linear_attention, linear_attention_with_state
 from repro_torch.kernels.pairwise_l2 import kernel as _pairwise
 from repro_torch.kernels.pairwise_l2.ops import pairwise_sqdist
 from repro_torch.kernels.sc_score import kernel as _score
@@ -25,6 +27,8 @@ __all__ = [
     "pairwise_sqdist",
     "sc_scores_fused",
     "sc_scores_cells",
+    "linear_attention",
+    "linear_attention_with_state",
 ]
 
 #: kernel name -> (kernel module, launch-counter attribute)
@@ -39,6 +43,7 @@ KERNELS = {
     "pairwise_sqdist": (_pairwise, "launches"),
     "kmeans_assign_batched": (_kmeans, "assign_batched_launches"),
     "kmeans_assign": (_kmeans, "assign_launches"),
+    "linear_attn": (_linear_attn, "launches"),
 }
 
 

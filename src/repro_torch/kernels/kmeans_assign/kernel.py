@@ -2,10 +2,13 @@
 four TPU kernels of ``repro/kernels/kmeans_assign/kernel.py``:
 ``kmeans_stats_kernel``, ``kmeans_pair_assign_hist_kernel`` and
 ``kmeans_assign_batched_kernel`` (grid: chunks of ``block_n`` points x
-codebooks, the codebook's centroids in shared memory, one point per
-thread in registers) and ``kmeans_assign_kernel`` (one problem of any
+codebooks; narrow: the codebook's centroids in shared memory, one point
+per thread in registers; ``wide``: the centroids streamed through shared
+memory as in the fourth, for any width and any ``k``) and ``kmeans_assign_kernel`` (one problem of any
 width and any ``k``: tiles of 256 points, the centroids streamed through
-shared memory in tiles of 32 centroids x 32 dims).  Operations bound all
+shared memory in tiles of 32 centroids x 32 dims).  The fourth and the wide
+batched assignment are one CUDA kernel, ``kmeans_assign_streamed_kernel``,
+at one codebook and at ``B``.  Operations bound all
 four on an H100 (see the source's header).
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
@@ -28,14 +31,14 @@ assign_batched_launches = 0
 assign_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
-_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
-_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P]
+_STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
+_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P]
 _ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _P, _P]
 
 
 def kmeans_stats(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int, with_assign: bool
+    x: torch.Tensor, centroids: torch.Tensor, block_n: int, with_assign: bool, wide: bool
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor]:
     global stats_launches
     b, n, s = x.shape
@@ -57,7 +60,7 @@ def kmeans_stats(
             x.data_ptr(), centroids.data_ptr(), b, n, k, s, block_n,
             part_sums.data_ptr(), part_counts.data_ptr(), part_inertia.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
-            None if assign is None else assign.data_ptr(),
+            None if assign is None else assign.data_ptr(), int(wide),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_stats")
@@ -66,7 +69,7 @@ def kmeans_stats(
 
 
 def kmeans_pair_assign_hist(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int
+    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     global pair_hist_launches
     b, n, s = x.shape
@@ -79,7 +82,7 @@ def kmeans_pair_assign_hist(
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), centroids.data_ptr(), ns, n, k, s, block_n,
-            assign.data_ptr(), counts.data_ptr(),
+            assign.data_ptr(), counts.data_ptr(), int(wide),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_pair_assign_hist")
@@ -88,7 +91,7 @@ def kmeans_pair_assign_hist(
 
 
 def kmeans_assign_batched(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int
+    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
 ) -> torch.Tensor:
     global assign_batched_launches
     b, n, s = x.shape
@@ -99,7 +102,7 @@ def kmeans_assign_batched(
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), centroids.data_ptr(), b, n, k, s, block_n, assign.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(wide), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_assign_batched")
     assign_batched_launches += 1

@@ -7,6 +7,12 @@ A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
 the kernel (:mod:`.kernel`), and a failed build or launch raises.
 ``block_n`` is the chunk of points: the plain version's memory bound, and
 the points each block of the kernel takes.
+
+Every op takes any width ``s`` and any ``k``, as the JAX package's do.  The
+batched kernels come in two variants, chosen here by shape: the narrow one
+holds a point in registers (``s <= MAX_DIM``) and the codebook in shared
+memory (:func:`_fits`); the wide one streams the centroids through shared
+memory for any other shape.  Both give the same results.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ __all__ = [
     "MAX_DIM",
 ]
 
-#: Widest (half-)subspace a thread of the batched kernels holds in registers
-#: (:func:`kmeans_assign` takes any width).
+#: Widest (half-)subspace a thread of the narrow batched kernels holds in
+#: registers; wider ones take the wide variants.
 MAX_DIM = 64
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 _THREADS = 256  # threads per block of the kmeans kernels
@@ -43,9 +49,13 @@ def _check(x, centroids, block_n) -> tuple[int, int, int, int]:
         )
     if min(b, n, s, k) < 1 or block_n < 1:
         raise ValueError(f"need B, n, s, k and block_n >= 1, got {b}/{n}/{s}/{k}/{block_n}")
-    if s > MAX_DIM:
-        raise ValueError(f"subspace width {s} exceeds the kernels' {MAX_DIM}")
     return b, n, s, k
+
+
+def _fits(s: int, smem: int) -> bool:
+    """Whether the narrow variant takes a shape: a point of ``s`` dims in
+    registers and ``smem`` bytes of shared memory."""
+    return s <= MAX_DIM and smem <= _SMEM_LIMIT
 
 
 def kmeans_stats(
@@ -61,14 +71,13 @@ def kmeans_stats(
     ``with_assign``."""
     b, n, s, k = _check(x, centroids, block_n)
     same_device(x, centroids)
-    smem = 4 * (k * s + k * (s + 1) + _THREADS * (s + 2))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"k={k}, s={s} need {smem} B of shared memory (> {_SMEM_LIMIT})")
     if x.device.type == "cpu":
         a, sums, counts, inertia = kmeans_stats_ref(x, centroids, block_n=block_n)
         return (a if with_assign else None), sums, counts, inertia
     if x.device.type == "cuda":
-        return kernel.kmeans_stats(x, centroids, block_n, with_assign)
+        # centroids, accumulators and one tile of points in shared memory
+        wide = not _fits(s, 4 * (k * s + k * (s + 1) + _THREADS * (s + 2)))
+        return kernel.kmeans_stats(x, centroids, block_n, with_assign, wide)
     raise ValueError(f"no kmeans_stats route for device {x.device}")
 
 
@@ -82,13 +91,12 @@ def kmeans_pair_assign_hist(
     if b % 2:
         raise ValueError(f"paired layout needs an even batch, got B={b}")
     same_device(x, centroids)
-    smem = 4 * (2 * k * s + k * k)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"k={k}, s={s} need {smem} B of shared memory (> {_SMEM_LIMIT})")
     if x.device.type == "cpu":
         return kmeans_pair_assign_hist_ref(x, centroids, block_n=block_n)
     if x.device.type == "cuda":
-        return kernel.kmeans_pair_assign_hist(x, centroids, block_n)
+        # both codebooks and the k*k histogram in shared memory
+        wide = not _fits(s, 4 * (2 * k * s + k * k))
+        return kernel.kmeans_pair_assign_hist(x, centroids, block_n, wide)
     raise ValueError(f"no kmeans_pair_assign_hist route for device {x.device}")
 
 
@@ -99,13 +107,10 @@ def kmeans_assign_batched(
     (B, k, s)`` -> ``(B, n)`` int32, lowest index on ties."""
     b, n, s, k = _check(x, centroids, block_n)
     same_device(x, centroids)
-    smem = 4 * k * s
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"k={k}, s={s} need {smem} B of shared memory (> {_SMEM_LIMIT})")
     if x.device.type == "cpu":
         return kmeans_assign_batched_ref(x, centroids, block_n=block_n)
     if x.device.type == "cuda":
-        return kernel.kmeans_assign_batched(x, centroids, block_n)
+        return kernel.kmeans_assign_batched(x, centroids, block_n, not _fits(s, 4 * k * s))
     raise ValueError(f"no kmeans_assign_batched route for device {x.device}")
 
 

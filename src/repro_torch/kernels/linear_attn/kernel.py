@@ -1,0 +1,67 @@
+"""Launch of the CUDA kernel ``csrc/linear_attn.cu``, which replaces the TPU
+kernel ``linear_attn_kernel`` of ``repro/kernels/linear_attn/kernel.py``:
+chunked gated linear attention, one block per (head, slice of value
+columns) walking the chunks in order with its slice of the state in shared
+memory.  Operations bound it on an H100 (see the source's header).
+
+The op wrappers (:mod:`.ops`) have checked every argument; this module
+picks the value-column slice, allocates the outputs, launches on the
+current stream and raises on any CUDA error.  ``launches`` counts the
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+SLICE_K = 64  # dims of k per slice (kSliceK in the source)
+_SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+
+
+def smem_bytes(chunk: int, dk: int, dvs: int) -> int:
+    """Shared memory of one block: the q, k and log-decay tiles, the value
+    tile, the state's slice and two short vectors (``smem_floats``)."""
+    ld = SLICE_K + 1
+    return 4 * (2 * chunk * ld + (chunk + 1) * ld + chunk * dvs + dk * dvs + chunk + SLICE_K)
+
+
+def value_slice(bh: int, dk: int, dv: int, chunk: int, n_sm: int) -> int:
+    """Value columns per block, one of 64, 32, 16: the widest that wastes
+    no half of itself on ``dv``, still gives every SM a block (the dv
+    slices of one head are independent), and fits in shared memory."""
+    dvs = 64
+    while dvs > 16 and (dv <= dvs // 2 or bh * -(-dv // dvs) < n_sm
+                        or smem_bytes(chunk, dk, dvs) > _SMEM_LIMIT):
+        dvs //= 2
+    return dvs
+
+
+def linear_attn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    chunk: int, shift: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    global launches
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    dvs = value_slice(bh, dk, dv, chunk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    o = torch.empty((bh, t, dv), dtype=q.dtype, device=dev)
+    state = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
+    fn = _build.entry("linear_attn", "linear_attn", _ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            bh, t, dk, dv, chunk, shift, dvs, int(q.dtype == torch.bfloat16),
+            o.data_ptr(), state.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check("linear_attn", rc, "linear_attn")
+    launches += 1
+    return o, state

@@ -1,0 +1,11 @@
+"""The LM stack of the port: the ``ssm`` family (RWKV6) for serving, the
+counterpart of ``repro.models``."""
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import SHAPES, Model, ShapeSpec
+from repro_torch.models import backbone, convert, decode, layers, prefill, ssm
+
+__all__ = [
+    "ModelConfig", "Model", "ShapeSpec", "SHAPES",
+    "backbone", "convert", "decode", "prefill", "layers", "ssm",
+]

@@ -12,7 +12,12 @@ query modes on the card equal the fused query there; SC-Linear's SC-scores on
 the card equal the CPU's.  The K-means library on the card gives the CPU's
 assignments on separated data (centroids within ``1e-5``), and a mutable
 engine's insert / delete / query sequence on the card gives the CPU's
-index exactly and its answers up to fp-distance ties.
+index exactly and its answers up to fp-distance ties.  The wide variants of
+rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
+same rules.  The linear-attention kernel (row 11) equals its plain version
+within rtol 1e-4 / atol 1e-4 in fp32 and one bf16 ulp in bf16 (sums in
+another order), and the reduced RWKV6 model on the card gives the CPU's
+logits.
 """
 
 import pytest
@@ -127,6 +132,65 @@ def test_kmeans_pair_assign_hist_kernel_equals_plain(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("s,k", [(65, 300), (128, 1024), (16, 3000)])
+def test_wide_kmeans_kernels_equal_plain(dev, s, k):
+    """Rows 3 and 5 past the narrow variants: s > 64, or k*s past shared
+    memory (s = 16, k = 3000); ragged chunks (block_n 1000)."""
+    x, c = _blobs(20, 2, 6_000, k, s)
+    a0, sums0, counts0, inertia0 = kmeans_stats_ref(x, c, block_n=1000)
+    a, sums, counts, inertia = kmeans_ops.kmeans_stats(
+        x.to(dev), c.to(dev), block_n=1000, with_assign=True
+    )
+    got5 = kmeans_ops.kmeans_assign_batched(x.to(dev), c.to(dev), block_n=1000)
+    torch.cuda.synchronize()
+    assert torch.equal(a.cpu(), a0) and torch.equal(counts.cpu(), counts0)
+    assert torch.equal(got5.cpu(), a0)
+    mag = torch.zeros((2 * k, s), dtype=torch.float64)
+    mag.index_add_(0, (a0.long() + torch.arange(2)[:, None] * k).reshape(-1),
+                   x.double().abs().reshape(-1, s))
+    assert ((sums.cpu().double() - sums0.double()).abs() <= 1e-5 * mag.reshape(2, k, s)).all()
+    assert ((inertia.cpu().double() - inertia0.double()).abs() <= 1e-5 * inertia0.double()).all()
+
+
+def test_wide_stats_kernel_gives_the_narrow_bits(dev):
+    """At a shape both variants take, the wide statistics kernel adds the
+    same points in the same order as the narrow one: equal bits."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = _blobs(21, 4, 9_000, 50, 8)
+    narrow = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), 2048, True, False)
+    wide = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), 2048, True, True)
+    torch.cuda.synchronize()
+    for g, w in zip(wide, narrow):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("s,k", [(16, 256), (128, 256)])
+def test_wide_pair_assign_hist_kernel_equals_plain(dev, s, k):
+    """Row 4 at sqrt_k = 256: a 65,536-cell histogram, past shared memory."""
+    x, c = _blobs(22, 4, 8_000, k, s)
+    want = kmeans_pair_assign_hist_ref(x, c, block_n=3000)
+    got = kmeans_ops.kmeans_pair_assign_hist(x.to(dev), c.to(dev), block_n=3000)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_kmeans_at_d128_on_the_card_equals_the_cpu(dev):
+    """IVF-style Lloyd training at d = 128 (row 3 wide, row 5 wide)."""
+    from repro_torch.core import kmeans
+
+    x = torch.from_numpy(gaussian_mixture(8_000, 128, 23))
+    c0 = x[torch.randperm(8_000, generator=_gen(24))[:64]]
+    kernels.reset_launch_counts()
+    card = kmeans.kmeans(x.to(dev), 64, 4, block_n=2048, init_centroids=c0)
+    counts = kernels.launch_counts()
+    assert counts["kmeans_stats"] == 4 and counts["kmeans_assign_batched"] == 1
+    cpu = kmeans.kmeans(x, 64, 4, block_n=2048, init_centroids=c0)
+    assert torch.equal(card.assignments.cpu(), cpu.assignments)
+    torch.testing.assert_close(card.centroids.cpu(), cpu.centroids, rtol=1e-5, atol=1e-5)
 
 
 def test_mixed_devices_raise(dev):
@@ -363,3 +427,100 @@ def test_engine_mutation_on_the_card_equals_the_cpu(dev, mode):
     got = card.query(q, 10)
     _same_answers(got, want)
     assert not torch.isin(got.ids.cpu(), dead.int()).any()
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _assert_o_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    """fp32: rtol 1e-4 / atol 1e-4 (sums in another order).  bf16: the two
+    fp32 results may round to neighbouring bf16 values, so one bf16 ulp of
+    the larger, on top of the fp32 atol."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    else:
+        assert ((g - w).abs() <= _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-4).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (4, 200, 64, 64, 64),    # RWKV6 widths, a ragged last chunk
+    (2, 130, 64, 128, 64),   # Zamba2 widths: two value slices
+    (3, 100, 12, 20, 32),    # odd widths of the reference's tests
+    (2, 64, 16, 24, 16),
+    (2, 96, 96, 40, 32),     # dk past one 64-dim slice
+])
+def test_linear_attn_kernel_equals_plain(dev, dtype, shift, bh, t, dk, dv, chunk):
+    from repro_torch.kernels.linear_attn import ops as la_ops
+
+    g = _gen(30)
+    q, k = (torch.randn(bh, t, dk, generator=g).to(dtype) for _ in range(2))
+    v = torch.randn(bh, t, dv, generator=g).to(dtype)
+    w = torch.exp(-torch.exp(torch.randn(bh, t, dk, generator=g) - 2)).to(dtype)
+    u = (0.5 * torch.randn(bh, 1, dk, generator=g)).to(dtype)
+    want_o, want_s = la_ops.linear_attention_with_state(q, k, v, w, u, chunk=chunk, shift=shift)
+    before = kernels.launch_counts()["linear_attn"]
+    got_o, got_s = la_ops.linear_attention_with_state(
+        *(a.to(dev) for a in (q, k, v, w, u)), chunk=chunk, shift=shift)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["linear_attn"] == before + 1
+    assert got_o.dtype == dtype and got_s.dtype == torch.float32
+    _assert_o_close(got_o.cpu(), want_o)
+    torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_linear_attn_kernel_small_decay_stays_finite(dev):
+    """w = 0.2 over chunks of 64: exponents stay differences of log-decays."""
+    from repro_torch.kernels.linear_attn import ops as la_ops
+
+    g = _gen(31)
+    q, k, v = (torch.randn(2, 128, 16, generator=g) for _ in range(3))
+    w = torch.full_like(q, 0.2)
+    u = torch.randn(2, 1, 16, generator=g)
+    o, s = la_ops.linear_attention_with_state(*(a.to(dev) for a in (q, k, v, w, u)))
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    want_o, want_s = la_ops.linear_attention_with_state(q, k, v, w, u)
+    _assert_o_close(o.cpu(), want_o)
+    torch.testing.assert_close(s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv_model_on_the_card_equals_the_cpu(dev):
+    """The reduced RWKV6 in fp32: prefill through the 3-D entry, the forward
+    pass through the 4-D entry, one decode step; one launch per layer."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model, backbone
+
+    cfg = dataclasses.replace(reduced_config("rwkv6-1.6b"), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(2))
+    card = _to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(32))
+    kernels.reset_launch_counts()
+    lc, cache_c = model.prefill(card, toks.to(dev))
+    assert kernels.launch_counts()["linear_attn"] == cfg.n_layers
+    lp, cache_p = model.prefill(params, toks)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=2e-4)
+    dc, _ = model.decode_step(card, cache_c, lc.argmax(-1), 40)
+    dp, _ = model.decode_step(params, cache_p, lp.argmax(-1), 40)
+    torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=2e-4)
+    hc = backbone.forward_hidden(cfg, card, toks.to(dev))
+    hp = backbone.forward_hidden(cfg, params, toks)
+    torch.testing.assert_close(hc.cpu(), hp, rtol=1e-3, atol=2e-4)
+
+
+def test_init_cache_defaults_to_the_card(dev):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+
+    cache = Model(reduced_config("rwkv6-1.6b")).init_cache(2, 8)
+    assert all(t.is_cuda for t in cache.values())
+
+
+def _to(tree, dev):
+    return {k_: _to(v_, dev) if isinstance(v_, dict) else v_.to(dev) for k_, v_ in tree.items()}

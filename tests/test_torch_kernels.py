@@ -263,9 +263,9 @@ def _bad_calls():
         (ValueError, lambda: kmeans_ops.kmeans_stats(x, c[:2].contiguous(), block_n=64)),
         (ValueError, lambda: kmeans_ops.kmeans_stats(x, c, block_n=0)),
         (ValueError, lambda: kmeans_ops.kmeans_pair_assign_hist(
-            torch.zeros((2, 10, 65)), torch.zeros((2, 3, 65)), block_n=64)),
+            torch.zeros((3, 10, 4)), torch.zeros((3, 3, 4)), block_n=64)),
         (ValueError, lambda: kmeans_ops.kmeans_pair_assign_hist(
-            torch.zeros((2, 10, 4)), torch.zeros((2, 300, 4)), block_n=64)),
+            torch.zeros((2, 10, 4)), torch.zeros((2, 3, 4)), block_n=0)),
         (TypeError, lambda: score_ops.sc_scores_cells(ranks, cuts.float(), cells)),
         (ValueError, lambda: score_ops.sc_scores_cells(ranks, cuts, cells[:2])),
         (ValueError, lambda: score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr[:2])),

@@ -11,6 +11,10 @@
   centroids, and for minibatch its samples ``randint(fold_in(key, t))``):
   centroids within ``1e-5``, assignments equal on data whose ties are far
   apart, inertia within ``1e-5`` relative.
+* **Wide shapes** (rows 3-5 past ``s = 64`` or shared memory): the plain
+  versions against the Pallas kernels in interpret mode on integer data
+  (exact), and ``kmeans`` / ``kmeans_batched`` at d = 65..128 against the
+  JAX package fed its own initial centroids.
 * **Helpers**: the chunking helpers and the paired histogram (the padded
   tail counts nothing), kmeans++ seeding, the argument checks.
 """
@@ -29,6 +33,8 @@ except ImportError:
 from repro.core import kmeans as jkm
 from repro.kernels.kmeans_assign.ops import kmeans_assign as j_assign
 from repro.kernels.kmeans_assign.ops import kmeans_assign_batched as j_assign_batched
+from repro.kernels.kmeans_assign.ops import kmeans_assign_stats as j_stats
+from repro.kernels.kmeans_assign.ops import kmeans_pair_assign_hist as j_pair_hist
 
 from repro_torch import kernels
 from repro_torch.core import kmeans as pkm
@@ -129,6 +135,72 @@ def test_assignment_ties_go_to_the_lowest_index():
     c = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]])
     assert (kmeans_ops.kmeans_assign(x, c) == 0).all()
     assert (kmeans_ops.kmeans_assign_batched(x[None], c[None], block_n=2) == 0).all()
+
+
+# --------------------------------------------------------------------------
+# Rows 3-5 at the shapes their wide variants take (s > 64, k*s past shared
+# memory), against the Pallas kernels in interpret mode.  Integer-valued
+# data: both arithmetics are exact there, so assignments, sums, counts and
+# inertia must be equal, ties included.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,k", [(65, 300), (65, 1024), (128, 300), (128, 1024)])
+def test_wide_stats_and_batched_assign_match_the_jax_kernels(s, k):
+    rng = np.random.default_rng(s + k)
+    b, n = 2, 2500
+    x = rng.integers(-4, 5, size=(b, n, s)).astype(np.float32)
+    c = rng.integers(-4, 5, size=(b, k, s)).astype(np.float32)
+    ja, jsums, jcounts, jinertia = j_stats(jnp.asarray(x), jnp.asarray(c), bn=1024,
+                                           impl="pallas", interpret=True)
+    a, sums, counts, inertia = kmeans_ops.kmeans_stats(T(x), T(c), block_n=700, with_assign=True)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(jsums))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(inertia.numpy(), np.asarray(jinertia))
+    want = j_assign_batched(jnp.asarray(x), jnp.asarray(c), bn=1024, impl="pallas",
+                            interpret=True)
+    got = kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=700)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("s", [16, 65])
+def test_pair_assign_hist_past_shared_memory_matches_the_jax_kernel(s):
+    """sqrt_k = 240: a 57,600-cell histogram per subspace, past what the
+    narrow kernel holds in shared memory."""
+    rng = np.random.default_rng(s)
+    ns, n, k = 2, 3000, 240
+    x = rng.integers(-3, 4, size=(2 * ns, n, s)).astype(np.float32)
+    c = rng.integers(-3, 4, size=(2 * ns, k, s)).astype(np.float32)
+    ja, jcounts = j_pair_hist(jnp.asarray(x), jnp.asarray(c), bn=1024, impl="pallas",
+                              interpret=True)
+    a, counts = kmeans_ops.kmeans_pair_assign_hist(T(x), T(c), block_n=1000)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    assert counts.shape == (ns, k * k) and int(counts.sum()) == ns * n
+
+
+@pytest.mark.parametrize("block_n", [0, 700])
+def test_kmeans_at_d128_matches_jax_with_its_draws(block_n):
+    """IVF-style training at SIFT's width: one problem at d = 128."""
+    n, d, k, iters = 3000, 128, 16, 5
+    x = _mixture(n, d, 10, seed=21)
+    key = jax.random.key(11)
+    want = jkm.kmeans(key, jnp.asarray(x), k, iters, block_n=block_n)
+    c0 = np.asarray(jkm._init_centroids(key, jnp.asarray(x), k))
+    got = pkm.kmeans(T(x), k, iters, block_n=block_n, init_centroids=T(c0))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("s", [65, 96, 128])
+def test_kmeans_batched_at_wide_subspaces_matches_jax(s):
+    b, n, k, iters = 2, 2000, 12, 4
+    xs = np.stack([_mixture(n, s, 8, seed=30 + i) for i in range(b)])
+    key = jax.random.key(s)
+    want = jkm.kmeans_batched(key, jnp.asarray(xs), k, iters, block_n=600)
+    c0 = np.asarray(jkm._init_batched(key, jnp.asarray(xs), k, "auto", "lloyd"))
+    got = pkm.kmeans_batched(T(xs), k, iters, block_n=600, init_centroids=T(c0))
+    _close(got, want)
 
 
 # --------------------------------------------------------------------------
@@ -355,7 +427,7 @@ def test_assignment_ops_check_arguments(case):
         (ValueError, lambda: kmeans_ops.kmeans_assign(x[0].t(), c[0])),
         (ValueError, lambda: kmeans_ops.kmeans_assign_batched(x, c, block_n=0)),
         (ValueError, lambda: kmeans_ops.kmeans_assign_batched(
-            torch.zeros((1, 5, 8)), torch.zeros((1, 7300, 8)), block_n=4)),
+            torch.zeros((1, 5, 8)), torch.zeros((2, 7, 8)), block_n=4)),
     ]
     exc, call = calls[case]
     with pytest.raises(exc):
