@@ -37,7 +37,10 @@ and, with the same weights and the card's tokens, on the CPU.
 It checks recall@10 against an exact k-NN, answers 8 queries of the fused
 (before and after mutation) and SC-Linear paths again on the CPU with the
 plain versions, and holds each kernel against its plain PyTorch version at
-the shapes of its path.
+the shapes of its path.  The screened assignment (rows 6 and 5-wide) is also
+held to its plain version on adversarial inputs, and at the IVF shapes its
+re-checks per point and its largest screen error over its margin (<= 0.25)
+are reported.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
 kernel: its launches on its path, its error against the plain version, its
@@ -63,6 +66,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores, fp32 (also taken for 32-bit int ops)
+TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, dense TF32
 SOURCES = {
     "sc_score_cells_prefilter_compact": (
         "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:151"),
@@ -556,6 +560,90 @@ def assign_ops(n: int, k: int, s: int, b: int = 1) -> float:
     return 3.0 * b * n * k * s
 
 
+def tc_assign_bound(nbytes_: float, n: int, k: int, s: int, b: int = 1) -> tuple[float, str]:
+    """The screened assignment's bound (rows 6 and 5-wide): the larger of
+    the bytes over the memory rate and its 3xTF32 products, 3 * 2 n k s
+    operations, over the tensor cores' TF32 rate, in ms."""
+    t_bytes = nbytes_ / MEM_BYTES_PER_S * 1e3
+    t_ops = 3 * 2.0 * b * n * k * s / TF32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def screen_probe(x, c, sample: int = 16_384) -> dict:
+    """The screened kernel's instruments at one shape (``x: (B, n, s)``,
+    ``c: (B, k, s)``): its re-checked pairs per point over all n points (its
+    assignments held to the plain version's), and the largest |screen -
+    d_plain| / delta_p over the first ``sample`` points of codebook 0 and
+    every centroid, which must be <= 0.25 (the margin allows 0.5)."""
+    import torch
+
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_batched_ref
+
+    b, n, s = x.shape
+    got, rechecks, _ = kmeans_kernel.kmeans_assign_probe(x, c)
+    if not torch.equal(got, kmeans_assign_batched_ref(x, c, block_n=4096)):
+        raise AssertionError("the screened kernel's probe differs from the plain version")
+    xs = x[:1, :sample].contiguous()
+    _, _, screen = kmeans_kernel.kmeans_assign_probe(xs, c[:1].contiguous(), screen=True)
+    d = sqdist_rowwise(xs[0], c[0]).double()
+    big = (xs[0].double() ** 2).sum(1) + (c[0].double() ** 2).sum(1).max()
+    ratio = float(((screen[0].double() - d).abs()
+                   / (kmeans_kernel.screen_margin(s) * big)[:, None]).max())
+    if not ratio <= 0.25:
+        raise AssertionError(f"screen error {ratio} of its margin, above 0.25")
+    return dict(rechecks_per_point=float(rechecks.sum()) / (b * n),
+                screen_err_over_margin=ratio, margin_mu=kmeans_kernel.screen_margin(s),
+                sampled_points=xs.shape[1])
+
+
+def screen_adversarial(dev, seed: int) -> dict:
+    """Rows 6 and 5-wide against their plain version, bit for bit, on small
+    adversarial inputs: exact ties from duplicated centroids, points
+    equidistant from mirrored centroids, integer data, a large common
+    offset (which re-checks nearly every pair), n = k = s = 1, ragged n, k,
+    s, and rows off a 16-byte boundary.  Returns re-checks per point."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+
+    g = torch.Generator(dev).manual_seed(seed + 30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    cases = {}
+    c = randn(50, 40) * 3
+    c[25:] = c[:25]
+    c[7] = c[3]
+    cases["duplicates"] = (c[torch.randint(0, 50, (3000,), generator=g, device=dev)]
+                           + 0.5 * randn(3000, 40), c)
+    x, v = randint(-20, 21, 2000, 36), randint(-5, 6, 2000, 36)
+    cases["mirrored"] = (x, torch.stack([x[:64] + v[:64], x[:64] - v[:64]], 1).reshape(128, 36))
+    cases["integer"] = (randint(-30, 31, 4000, 100), randint(-30, 31, 333, 100))
+    cases["offset_1e3"] = (1e3 + randn(1000, 128), 1e3 + randn(200, 128))
+    cases["one"] = (randn(1, 1), randn(1, 1))
+    cases["ragged"] = (randn(1001, 37) * 4, randn(77, 37) * 4)
+    cases["unaligned"] = (randn(777 * 64 + 1)[1:].view(777, 64),
+                          randn(70 * 64 + 1)[1:].view(70, 64))
+    out = {}
+    for name, (x, c) in cases.items():
+        want = kmeans_assign_ref(x, c)
+        got, rechecks, _ = kmeans_kernel.kmeans_assign_probe(x[None], c[None])
+        if not (torch.equal(kmeans_ops.kmeans_assign(x, c), want) and torch.equal(got[0], want)):
+            raise AssertionError(f"screened assignment ({name}) differs from its plain version")
+        out[name] = float(rechecks.sum()) / x.shape[0]
+    if out["offset_1e3"] < 0.9 * 200:
+        raise AssertionError("a large common offset should re-check nearly every pair")
+    return dict(cases=list(out), rechecks_per_point=out, plain_equal=True)
+
+
 def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     """PQ8x8 codebook training, IVF1024 coarse assignment over the 1M rows
     and IVF1024 Lloyd training at d = 128 (the K-means library's entry
@@ -670,16 +758,27 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
          lambda: kmeans_assign_batched_ref(x1, ivf.centroids[None], block_n=ivf_bn),
          assign_ops(n_ivf, k_ivf, d), 5),
     )
+    # the screened kernel (rows 6 and 5-wide): re-checks and screen error at
+    # the IVF shapes, then the adversarial set
+    probes = {"kmeans_assign": screen_probe(data[None], cents[None]),
+              "kmeans_assign_batched (wide)": screen_probe(x1, ivf.centroids[None])}
+    adversarial = screen_adversarial(dev, seed)
+    emit(dict(phase="screened_assign", ivf=probes, adversarial=adversarial))
     for name, args, fn, plain, ops, reps in cases:
         out = fn()
         lib = cdist_argmin(*args)
         bms, by = bound(nbytes(*args, out), ops)
+        detail = dict(shape=list(args[0].shape), k=args[1].shape[-2],
+                      library=LIBRARY[name.split(" ")[0]],
+                      library_disagrees=int((lib != out).sum()))
+        if name in probes:  # the tensor-core bound, the fp32 one kept beside it
+            b_, n_, s_ = (1, *args[0].shape) if args[0].dim() == 2 else args[0].shape
+            detail.update(probes[name], fp32_bound_ms=bms)
+            bms, by = tc_assign_bound(nbytes(*args, out), n_, args[1].shape[-2], s_, b_)
         recs[name] = dict(
             max_abs_err=0.0, ms=time_ms(fn, reps), plain_ms=time_ms(plain, 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: cdist_argmin(*args), 3),
-            detail=dict(shape=list(args[0].shape), k=args[1].shape[-2],
-                        library=LIBRARY[name.split(" ")[0]],
-                        library_disagrees=int((lib != out).sum())),
+            detail=detail,
         )
         del lib
     bms, by = bound(nbytes(x1, c_ivf, *got3[1:]), assign_ops(n_ivf, k_ivf, d))
@@ -922,7 +1021,10 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
     """Row 11 against its plain version on the same inputs: at the RWKV6
     prefill shape (``bh`` = 8 slots x 32 heads, ``t`` tokens, 64 x 64, bf16,
     shift 1; the model's decays), at Zamba2's SSD shape (shift 0, 64 x 128,
-    one decay per head and token), and in fp32 at a ragged length.
+    one decay per head and token), in fp32 at a ragged length, and at
+    chunks 8, 40, 128 and 200 (16 heads, 1,000 tokens: ragged against each;
+    above 128 the kernel runs sub-chunks of 128) against the plain version
+    at the same chunk.
     Tolerance, for sums taken in another order: the state within rtol 1e-4 /
     atol 1e-4; the outputs within rtol 1e-4 (fp32) or one bf16 ulp (bf16)
     plus 1e-6 * sum |terms| -- ``mag``, the same recurrence over |q|, |k|,
@@ -940,34 +1042,39 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    def inputs(kind, dtype, t_):
+    def inputs(kind, dtype, bh_, t_):
         if kind == "rwkv":  # w = exp(-exp(w0 + dd)), w0 = -6, as the model's
-            q, k, v = randn(bh, t_, 64), randn(bh, t_, 64), randn(bh, t_, 64)
-            w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(bh, t_, 64)))
-            u = 0.1 * randn(bh, 1, 64)
+            q, k, v = randn(bh_, t_, 64), randn(bh_, t_, 64), randn(bh_, t_, 64)
+            w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(bh_, t_, 64)))
+            u = 0.1 * randn(bh_, 1, 64)
         else:  # Mamba2-SSD: a scalar decay per head and token, dt-scaled values
-            dt = torch.nn.functional.softplus(randn(bh, t_, 1))
-            q, k = randn(bh, t_, 64), randn(bh, t_, 64)
-            v = randn(bh, t_, 128) * dt
-            w = torch.exp(-dt).expand(bh, t_, 64)
-            u = torch.zeros(bh, 1, 64, device=dev)
+            dt = torch.nn.functional.softplus(randn(bh_, t_, 1))
+            q, k = randn(bh_, t_, 64), randn(bh_, t_, 64)
+            v = randn(bh_, t_, 128) * dt
+            w = torch.exp(-dt).expand(bh_, t_, 64)
+            u = torch.zeros(bh_, 1, 64, device=dev)
         return [a.to(dtype).contiguous() for a in (q, k, v, w, u)]
 
-    cases = {"rwkv6_prefill": ("rwkv", torch.bfloat16, t, 1),
-             "zamba2_ssd": ("ssd", torch.bfloat16, t, 0),
-             "fp32_ragged": ("rwkv", torch.float32, t - 48, 1)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {"rwkv6_prefill": ("rwkv", bf16, bh, t, 1, 64),
+             "zamba2_ssd": ("ssd", bf16, bh, t, 0, 64),
+             "fp32_ragged": ("rwkv", f32, bh, t - 48, 1, 64),
+             "chunk8_fp32": ("rwkv", f32, 16, 1000, 1, 8),
+             "chunk40_bf16_ssd": ("ssd", bf16, 16, 1000, 0, 40),
+             "chunk128_fp32": ("rwkv", f32, 16, 1000, 1, 128),
+             "chunk200_bf16": ("rwkv", bf16, 16, 1000, 1, 200)}
     out = {}
-    for name, (kind, dtype, t_, shift) in cases.items():
-        args = inputs(kind, dtype, t_)
-        o, st = la_ops.linear_attention_with_state(*args, shift=shift)
-        tp = -(-t_ // 64) * 64
+    for name, (kind, dtype, bh_, t_, shift, chunk) in cases.items():
+        args = inputs(kind, dtype, bh_, t_)
+        o, st = la_ops.linear_attention_with_state(*args, chunk=chunk, shift=shift)
+        tp = -(-t_ // chunk) * chunk
         padded = [torch.nn.functional.pad(a, (0, 0, 0, tp - t_), value=1.0 if i == 3 else 0.0)
                   if i < 4 else a for i, a in enumerate(args)]
-        plain = lambda: linear_attn_chunked(*padded, chunk=64, shift=shift)  # noqa: E731
+        plain = lambda: linear_attn_chunked(*padded, chunk=chunk, shift=shift)  # noqa: E731
         po, ps = plain()
         po = po[:, :t_]
         mag = linear_attn_chunked(*(a if i == 3 else a.abs() for i, a in enumerate(padded)),
-                                  chunk=64, shift=shift)[0][:, :t_].float()
+                                  chunk=chunk, shift=shift)[0][:, :t_].float()
         of, pf = o.float(), po.float()
         err_o = (of - pf).abs()
         if dtype == torch.float32:
@@ -978,13 +1085,14 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
         if not (ok_o and (err_s <= 1e-4 + 1e-4 * ps.abs()).all()):
             raise AssertionError(f"linear_attn ({name}) outside its tolerance of the plain version")
         dk, dv = args[0].shape[2], args[2].shape[2]
-        bms, by = bound(nbytes(*args, o, st), linear_attn_ops(bh, t_, dk, dv, 64, shift))
+        bms, by = bound(nbytes(*args, o, st), linear_attn_ops(bh_, t_, dk, dv, chunk, shift))
         out[name] = dict(
-            shape=dict(bh=bh, t=t_, dk=dk, dv=dv, chunk=64, shift=shift, dtype=str(dtype)),
+            shape=dict(bh=bh_, t=t_, dk=dk, dv=dv, chunk=chunk, shift=shift, dtype=str(dtype)),
             max_abs_err=float(err_o.max()), state_max_abs_err=float(err_s.max()),
             max_err_over_sum_abs_terms=float((err_o / mag.clamp_min(1e-30)).max()),
             max_abs_o=float(pf.abs().max()),
-            ms=time_ms(lambda: la_ops.linear_attention_with_state(*args, shift=shift), 10),
+            ms=time_ms(lambda: la_ops.linear_attention_with_state(*args, chunk=chunk,
+                                                                  shift=shift), 10),
             plain_ms=time_ms(plain, 2, warmup=1), bound_ms=bms, bound_by=by)
         if dtype == torch.float32:
             o64, s64 = _scan_fp64(*(a[:2] for a in args), shift=shift)
@@ -1287,10 +1395,15 @@ def main() -> int:
                          max_abs_err=rec_["max_abs_err"],
                          ms=rec_["ms"], plain_ms=rec_["plain_ms"], bound_ms=rec_["bound_ms"],
                          bound_by=rec_["bound_by"], library_ms=rec_["library_ms"]))
+        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin")
+        rows[-1].update({key: rec_["detail"][key] for key in extras
+                         if key in rec_.get("detail", {})})
         wide = checks.get(f"{name} (wide)")  # rows 3-5 at the IVF shapes
         if wide is not None:
             rows[-1]["wide"] = {key: wide[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            rows[-1]["wide"].update({key: wide["detail"][key] for key in extras
+                                     if key in wide.get("detail", {})})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -36,6 +36,20 @@
 // masked in the kernel as the reference's ops pad it (q = k = v = 0,
 // w = 1), so the state is the state after token T - 1.
 //
+// Any chunk.  The tile C is a template (16, 32, 64, 128); the chunk c <= C
+// is a run-time argument.  The block steps c0 by c and loads cn = min(c,
+// T - c0) live rows into the C-row tile; rows cn..C-1 are masked as the
+// ragged chunk is (q = k = v = 0, log w = 0), so lb_C = lb_cn, they add
+// nothing to A, o or the state, and the tile computes exactly the chunk-c
+// recurrence.  The wrapper takes the smallest tile with C >= c, so chunks
+// 16, 32 and 64 run the code they always ran (c == C).  A chunk above 128
+// runs as chunks of 128: the same recurrence with its sums regrouped, so it
+// is held to its plain version at chunk c with the tolerance of every
+// other chunk (fp32 within rtol 1e-4 / atol 1e-4, one bf16 ulp in bf16):
+// both are fp32 evaluations of one function whose terms are grouped
+// differently, as the kernel's sums already are against the plain
+// version's at one chunk.
+//
 // What bounds it on an H100: operations.  At the RWKV6 prefill shape (BH =
 // 256, T = 2048, dk = dv = 64, C = 64) it moves ~0.34 GB (0.1 ms at
 // 3.35 TB/s) but takes ~C^2/2 * dk exponentials and three C x C x 64
@@ -48,7 +62,8 @@
 // warp diverges on the causal mask; wgmma and TMA are for a later version.
 //
 // C entry point (returns cudaGetLastError()):
-//   linear_attn(q, k, v, w, u, bh, t, dk, dv, chunk, shift, dvs, bf16, o, state, stream)
+//   linear_attn(q, k, v, w, u, bh, t, dk, dv, tile, chunk, shift, dvs, bf16, o, state, stream)
+//   (tile in {16, 32, 64, 128}, 1 <= chunk <= tile)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +97,7 @@ linear_attn_kernel(const T* __restrict__ q,  // (BH, T, dk)
                    const T* __restrict__ v,  // (BH, T, dv)
                    const T* __restrict__ w,  // (BH, T, dk)
                    const T* __restrict__ u,  // (BH, 1, dk)
-                   int t_len, int dk, int dv, int shift,
+                   int t_len, int dk, int dv, int chunk, int shift,
                    T* __restrict__ o,        // (BH, T, dv)
                    float* __restrict__ state)  // (BH, dk, dv)
 {
@@ -109,8 +124,8 @@ linear_attn_kernel(const T* __restrict__ q,  // (BH, T, dk)
 
     for (int e = tid; e < dk * DVS; e += kThreads) ss[e] = 0.f;
 
-    for (int c0 = 0; c0 < t_len; c0 += C) {
-        const int cn = min(C, t_len - c0);  // live tokens of this chunk
+    for (int c0 = 0; c0 < t_len; c0 += chunk) {
+        const int cn = min(chunk, t_len - c0);  // live tokens of this chunk (<= C)
         __syncthreads();  // the previous chunk is done with vs, as, diag
         for (int e = tid; e < C * DVS; e += kThreads) {
             const int t = e / DVS;
@@ -266,7 +281,8 @@ linear_attn_kernel(const T* __restrict__ q,  // (BH, T, dk)
 
 template <typename T, int C, int DVS>
 int launch(const void* q, const void* k, const void* v, const void* w, const void* u, int bh,
-           int t, int dk, int dv, int shift, void* o, float* state, cudaStream_t stream) {
+           int t, int dk, int dv, int chunk, int shift, void* o, float* state,
+           cudaStream_t stream) {
     const size_t smem = sizeof(float) * smem_floats(C, dk, DVS);
     auto kern = linear_attn_kernel<T, C, DVS>;
     if (smem > 48 * 1024) {
@@ -277,27 +293,36 @@ int launch(const void* q, const void* k, const void* v, const void* w, const voi
     const dim3 grid(bh, (dv + DVS - 1) / DVS);
     kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(w), static_cast<const T*>(u), t, dk, dv, shift,
+        static_cast<const T*>(w), static_cast<const T*>(u), t, dk, dv, chunk, shift,
         static_cast<T*>(o), state);
     return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
 int launch_c(const void* q, const void* k, const void* v, const void* w, const void* u, int bh,
-             int t, int dk, int dv, int shift, int dvs, void* o, float* state, cudaStream_t st) {
-    if (dvs == 16) return launch<T, C, 16>(q, k, v, w, u, bh, t, dk, dv, shift, o, state, st);
-    if (dvs == 32) return launch<T, C, 32>(q, k, v, w, u, bh, t, dk, dv, shift, o, state, st);
-    if (dvs == 64) return launch<T, C, 64>(q, k, v, w, u, bh, t, dk, dv, shift, o, state, st);
+             int t, int dk, int dv, int chunk, int shift, int dvs, void* o, float* state,
+             cudaStream_t st) {
+    if (chunk < 1 || chunk > C) return (int)cudaErrorInvalidValue;
+#define REPRO_LA(DVS) \
+    return launch<T, C, DVS>(q, k, v, w, u, bh, t, dk, dv, chunk, shift, o, state, st)
+    if (dvs == 16) REPRO_LA(16);
+    if (dvs == 32) REPRO_LA(32);
+    if (dvs == 64) REPRO_LA(64);
+#undef REPRO_LA
     return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, const void* w, const void* u, int bh,
-             int t, int dk, int dv, int chunk, int shift, int dvs, void* o, float* state,
-             cudaStream_t st) {
-    if (chunk == 16) return launch_c<T, 16>(q, k, v, w, u, bh, t, dk, dv, shift, dvs, o, state, st);
-    if (chunk == 32) return launch_c<T, 32>(q, k, v, w, u, bh, t, dk, dv, shift, dvs, o, state, st);
-    if (chunk == 64) return launch_c<T, 64>(q, k, v, w, u, bh, t, dk, dv, shift, dvs, o, state, st);
+             int t, int dk, int dv, int tile, int chunk, int shift, int dvs, void* o,
+             float* state, cudaStream_t st) {
+#define REPRO_LA(C) \
+    return launch_c<T, C>(q, k, v, w, u, bh, t, dk, dv, chunk, shift, dvs, o, state, st)
+    if (tile == 16) REPRO_LA(16);
+    if (tile == 32) REPRO_LA(32);
+    if (tile == 64) REPRO_LA(64);
+    if (tile == 128) REPRO_LA(128);
+#undef REPRO_LA
     return (int)cudaErrorInvalidValue;
 }
 
@@ -308,11 +333,11 @@ extern "C" const char* repro_cuda_error_string(int code) {
 }
 
 extern "C" int linear_attn(const void* q, const void* k, const void* v, const void* w,
-                           const void* u, int bh, int t, int dk, int dv, int chunk, int shift,
-                           int dvs, int bf16, void* o, float* state, void* stream) {
+                           const void* u, int bh, int t, int dk, int dv, int tile, int chunk,
+                           int shift, int dvs, int bf16, void* o, float* state, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (bf16)
-        return launch_t<__nv_bfloat16>(q, k, v, w, u, bh, t, dk, dv, chunk, shift, dvs, o, state,
-                                       st);
-    return launch_t<float>(q, k, v, w, u, bh, t, dk, dv, chunk, shift, dvs, o, state, st);
+        return launch_t<__nv_bfloat16>(q, k, v, w, u, bh, t, dk, dv, tile, chunk, shift, dvs, o,
+                                       state, st);
+    return launch_t<float>(q, k, v, w, u, bh, t, dk, dv, tile, chunk, shift, dvs, o, state, st);
 }

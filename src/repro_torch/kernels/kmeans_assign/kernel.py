@@ -4,17 +4,19 @@ four TPU kernels of ``repro/kernels/kmeans_assign/kernel.py``:
 ``kmeans_assign_batched_kernel`` (grid: chunks of ``block_n`` points x
 codebooks; narrow: the codebook's centroids in shared memory, one point
 per thread in registers; ``wide``: the centroids streamed through shared
-memory as in the fourth, for any width and any ``k``) and ``kmeans_assign_kernel`` (one problem of any
-width and any ``k``: tiles of 256 points, the centroids streamed through
-shared memory in tiles of 32 centroids x 32 dims).  The fourth and the wide
-batched assignment are one CUDA kernel, ``kmeans_assign_streamed_kernel``,
-at one codebook and at ``B``.  Operations bound all
-four on an H100 (see the source's header).
+memory, for any width and any ``k``) and ``kmeans_assign_kernel`` (one
+problem of any width and any ``k``).  The fourth and the wide batched
+assignment are one CUDA kernel, ``kmeans_assign_streamed_kernel``, at one
+codebook and at ``B``: a 3xTF32 tensor-core screen whose candidates within
+the margin :func:`screen_margin` are re-checked in the plain arithmetic, so
+its argmins are the plain version's bit for bit (see the source's header).
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates outputs and scratch, launches on the current stream and raises on
 any CUDA error.  ``stats_launches``, ``pair_hist_launches``,
 ``assign_batched_launches`` and ``assign_launches`` count the launches.
+:func:`kmeans_assign_probe` is the screened kernel with its instruments on
+(re-checks per block, the screen's distances), for the checks only.
 """
 
 from __future__ import annotations
@@ -33,8 +35,23 @@ assign_launches = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
 _PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
-_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P]
-_ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _P, _P]
+_F = ctypes.c_float
+_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P]
+_ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _F, _P, _P, _P]
+_U = 2.0**-24  # unit roundoff of fp32
+SCREEN_BLOCK_POINTS = 128  # points per block of the screened kernel (kBM in the source)
+
+
+def screen_margin(s: int) -> float:
+    """``mu_s``: the screened assignment re-checks centroid ``j`` of point
+    ``p`` when its screen distance lies within ``delta_p = mu_s * (|x_p|^2 +
+    max_j |c_j|^2)`` of the running screen minimum.  ``E_s = (7 s + 20) u``
+    bounds ``|screen - d_plain| / (|x_p|^2 + max_j |c_j|^2)`` for fp32
+    arithmetic with round-to-nearest (the derivation is in the header of
+    ``csrc/kmeans_assign.cu``: 6.003 s + 19.04 at first order); exactness
+    needs the error within ``delta_p / 2``, and a safety factor of 4 covers
+    the tensor cores' accumulation: ``mu_s = 8 E_s``."""
+    return 8.0 * (7 * s + 20) * _U
 
 
 def kmeans_stats(
@@ -90,23 +107,47 @@ def kmeans_pair_assign_hist(
     return assign, counts
 
 
-def kmeans_assign_batched(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
-) -> torch.Tensor:
+def _batched(x, centroids, block_n, wide, rechecks=None, screen=None) -> torch.Tensor:
     global assign_batched_launches
     b, n, s = x.shape
     k = centroids.shape[1]
     dev = x.device
     assign = torch.empty((b, n), dtype=torch.int32, device=dev)
+    # the wide kernel's scratch: every |c|^2, then each codebook's largest
+    norms = torch.empty((b * k + b,), dtype=torch.float32, device=dev) if wide else None
     fn = _build.entry("kmeans_assign", "kmeans_assign_batched", _ASSIGN_BATCHED_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
             x.data_ptr(), centroids.data_ptr(), b, n, k, s, block_n, assign.data_ptr(),
-            int(wide), torch.cuda.current_stream(dev).cuda_stream,
+            int(wide), screen_margin(s), None if norms is None else norms.data_ptr(),
+            None if rechecks is None else rechecks.data_ptr(),
+            None if screen is None else screen.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_assign_batched")
     assign_batched_launches += 1
     return assign
+
+
+def kmeans_assign_batched(
+    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
+) -> torch.Tensor:
+    return _batched(x, centroids, block_n, wide)
+
+
+def kmeans_assign_probe(
+    x: torch.Tensor, centroids: torch.Tensor, *, screen: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The screened kernel on ``x: (B, n, s)``, ``centroids: (B, k, s)`` with
+    its instruments: ``(assign (B, n) int32, re-checked pairs per block
+    (B, blocks) int32, the screen's distances (B, n, k) f32 if screen)``.
+    For the checks: the path never asks for either instrument."""
+    b, n, _ = x.shape
+    k = centroids.shape[1]
+    rechecks = torch.zeros((b, -(-n // SCREEN_BLOCK_POINTS)), dtype=torch.int32, device=x.device)
+    out = torch.empty((b, n, k), dtype=torch.float32, device=x.device) if screen else None
+    assign = _batched(x, centroids, SCREEN_BLOCK_POINTS, True, rechecks, out)
+    return assign, rechecks, out
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -115,11 +156,12 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     k = centroids.shape[0]
     dev = x.device
     assign = torch.empty((n,), dtype=torch.int32, device=dev)
+    norms = torch.empty((k + 1,), dtype=torch.float32, device=dev)
     fn = _build.entry("kmeans_assign", "kmeans_assign", _ASSIGN_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
-            x.data_ptr(), centroids.data_ptr(), n, k, s, assign.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            x.data_ptr(), centroids.data_ptr(), n, k, s, screen_margin(s), norms.data_ptr(),
+            assign.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_assign")
     assign_launches += 1

@@ -5,8 +5,11 @@ columns) walking the chunks in order with its slice of the state in shared
 memory.  Operations bound it on an H100 (see the source's header).
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
-picks the value-column slice, allocates the outputs, launches on the
-current stream and raises on any CUDA error.  ``launches`` counts the
+picks the chunk tile and the value-column slice, allocates the outputs,
+launches on the current stream and raises on any CUDA error.  A chunk
+``c`` runs on the smallest tile of :data:`TILES` that holds it, with ``c``
+live rows a chunk; a chunk above 128 runs as chunks of 128 (the same
+recurrence, regrouped: see the source's header).  ``launches`` counts the
 launches.
 """
 
@@ -21,9 +24,10 @@ from repro_torch.kernels import _build
 launches = 0
 
 SLICE_K = 64  # dims of k per slice (kSliceK in the source)
+TILES = (16, 32, 64, 128)  # the chunk tiles the kernel is built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 
 
 def smem_bytes(chunk: int, dk: int, dvs: int) -> int:
@@ -31,6 +35,12 @@ def smem_bytes(chunk: int, dk: int, dvs: int) -> int:
     tile, the state's slice and two short vectors (``smem_floats``)."""
     ld = SLICE_K + 1
     return 4 * (2 * chunk * ld + (chunk + 1) * ld + chunk * dvs + dk * dvs + chunk + SLICE_K)
+
+
+def chunk_tile(chunk: int) -> int:
+    """The tile a chunk runs on: the smallest of :data:`TILES` holding
+    ``min(chunk, 128)`` rows."""
+    return next(c for c in TILES if c >= min(chunk, TILES[-1]))
 
 
 def value_slice(bh: int, dk: int, dv: int, chunk: int, n_sm: int) -> int:
@@ -52,14 +62,15 @@ def linear_attn(
     bh, t, dk = q.shape
     dv = v.shape[-1]
     dev = q.device
-    dvs = value_slice(bh, dk, dv, chunk, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tile = chunk_tile(chunk)
+    dvs = value_slice(bh, dk, dv, tile, torch.cuda.get_device_properties(dev).multi_processor_count)
     o = torch.empty((bh, t, dv), dtype=q.dtype, device=dev)
     state = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
     fn = _build.entry("linear_attn", "linear_attn", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            bh, t, dk, dv, chunk, shift, dvs, int(q.dtype == torch.bfloat16),
+            bh, t, dk, dv, tile, min(chunk, tile), shift, dvs, int(q.dtype == torch.bfloat16),
             o.data_ptr(), state.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("linear_attn", rc, "linear_attn")

@@ -3,11 +3,13 @@ forward pass and the ``(BH, T, D)`` entry of prefill, which also returns
 the final state.  Each checks its arguments, then dispatches on the device
 of the tensors it was given.
 
-A CPU tensor takes the plain version (:func:`.ref.linear_attn_chunked`,
-``T`` padded to a chunk multiple with ``w = 1``, ``k = q = v = 0``, which
-neither read nor write the state); a CUDA tensor launches the kernel
-(:mod:`.kernel`, which masks the ragged chunk itself), and a failed build or
-launch raises.
+Every ``chunk >= 1`` is taken, as the JAX package takes it.  A CPU tensor
+takes the plain version (:func:`.ref.linear_attn_chunked`, ``T`` padded to a
+chunk multiple with ``w = 1``, ``k = q = v = 0``, which neither read nor
+write the state); a CUDA tensor launches the kernel (:mod:`.kernel`, which
+masks the ragged chunk itself and runs a chunk above 128 as sub-chunks of
+128), and a failed build or launch raises.  Only the card refuses a ``dk``
+whose tiles pass its shared memory.
 
 Where the port differs from the JAX package: there,
 ``linear_attention_with_state`` always runs the chunked jnp version and
@@ -25,10 +27,8 @@ from repro_torch.kernels.linear_attn import kernel
 from repro_torch.kernels.linear_attn.ref import linear_attn_chunked, linear_attn_ref
 
 __all__ = ["linear_attention", "linear_attention_with_state", "linear_attn_ref",
-           "linear_attn_chunked", "CHUNKS"]
+           "linear_attn_chunked"]
 
-#: chunk lengths the kernel is built for (those the JAX package's tests use)
-CHUNKS = (16, 32, 64)
 _MODES = {"rwkv": 1, "gla": 0, "ssd": 0}
 
 
@@ -43,12 +43,10 @@ def _check(qf, kf, vf, wf, u_b, chunk: int, shift: int) -> None:
     check_tensor("u", u_b, qf.dtype, (bh, 1, dk))
     if min(bh, dk, dv) < 1:
         raise ValueError(f"need BH, dk and dv >= 1, got {bh}/{dk}/{dv}")
-    if chunk not in CHUNKS:
-        raise ValueError(f"chunk must be one of {CHUNKS}, got {chunk}")
+    if chunk < 1 or int(chunk) != chunk:
+        raise ValueError(f"chunk must be an int >= 1, got {chunk!r}")
     if shift not in (0, 1):
         raise ValueError(f"shift must be 0 or 1, got {shift}")
-    if kernel.smem_bytes(chunk, dk, 16) > kernel._SMEM_LIMIT:
-        raise ValueError(f"dk={dk} needs more shared memory than a block has")
     same_device(qf, kf, vf, wf, u_b)
 
 
@@ -82,6 +80,9 @@ def linear_attention_with_state(
     if qf.device.type == "cpu":
         return _chunked_padded(qf, kf, vf, wf, u_b, chunk, shift)
     if qf.device.type == "cuda":
+        dk = qf.shape[2]
+        if kernel.smem_bytes(kernel.chunk_tile(chunk), dk, 16) > kernel._SMEM_LIMIT:
+            raise ValueError(f"dk={dk} needs more shared memory than a block of the card has")
         return kernel.linear_attn(qf, kf, vf, wf, u_b, chunk, shift)
     raise ValueError(f"no linear_attention route for device {qf.device}")
 

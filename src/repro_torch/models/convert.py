@@ -10,10 +10,11 @@ from repro_torch.models.layers import Params
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(tree: Params, device: torch.device | str = "cpu") -> Params:
+def params_from_jax(tree: Params, device: torch.device | str = "cuda") -> Params:
     """The reference's parameter tree (nested dicts of arrays, blocks
     stacked on the layer axis as its ``_stack_init`` makes them; any array
-    ``np.asarray`` takes) -> the port's tree on ``device``, leaf for leaf:
+    ``np.asarray`` takes) -> the port's tree on ``device`` (the card unless
+    the caller asks for the CPU), leaf for leaf:
     same keys, shapes, dtypes and values.  Both use ``w: (d_in, d_out)``, so
     nothing is transposed."""
     return {

@@ -77,7 +77,7 @@ def cast_linears(params: Params, dtype: torch.dtype) -> Params:
 
 def init_norm(
     cfg: ModelConfig, d: int | None = None, *, lead: tuple[int, ...] = (),
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Params:
     d = d or cfg.d_model
     p = {"scale": torch.ones((*lead, d), device=device)}

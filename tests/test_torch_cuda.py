@@ -15,9 +15,9 @@ engine's insert / delete / query sequence on the card gives the CPU's
 index exactly and its answers up to fp-distance ties.  The wide variants of
 rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
-within rtol 1e-4 / atol 1e-4 in fp32 and one bf16 ulp in bf16 (sums in
-another order), and the reduced RWKV6 model on the card gives the CPU's
-logits.
+at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
+bf16 ulp in bf16 (sums in another order), and the reduced RWKV6 model on
+the card gives the CPU's logits.
 """
 
 import pytest
@@ -37,6 +37,7 @@ from repro_torch.kernels.kmeans_assign.ref import (
     kmeans_stats_ref,
 )
 from repro_torch.core import sc_linear, subspace
+from repro_torch.core.distances import sqdist_rowwise
 from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
 from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
 from repro_torch.kernels.sc_score import ops as score_ops
@@ -340,15 +341,74 @@ def test_sc_linear_on_the_card_equals_the_cpu(dev, modes_data):
     assert torch.equal(s_card.cpu(), sc_linear.sc_scores_from_subspaces(xs, qs, count))
 
 
-@pytest.mark.parametrize("s,k", [(16, 256), (13, 50), (64, 7)])
+@pytest.mark.parametrize("s,k", [(16, 256), (13, 50), (64, 7), (128, 1024), (130, 300)])
 def test_kmeans_assign_batched_kernel_equals_plain(dev, s, k):
-    x, c = _blobs(8, 8, 20_000, k, s)
+    """Narrow shapes, and the wide ones (s > 64) that take the screened
+    kernel; the plain version runs on the card (the same bits as on the
+    CPU: separate elementwise ops, no contraction) to keep the wide cases
+    short."""
+    x, c = (a.to(dev) for a in _blobs(8, 8, 20_000, k, s))
     before = kernels.launch_counts()["kmeans_assign_batched"]
-    got = kmeans_ops.kmeans_assign_batched(x.to(dev), c.to(dev), block_n=4096)
+    got = kmeans_ops.kmeans_assign_batched(x, c, block_n=4096)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["kmeans_assign_batched"] == before + 1
     assert got.dtype == torch.int32
-    assert torch.equal(got.cpu(), kmeans_assign_batched_ref(x, c, block_n=4096))
+    assert torch.equal(got, kmeans_assign_batched_ref(x, c, block_n=4096))
+
+
+def _screen_case(kind, g):
+    """``(x (n, s), c (k, s))`` on the CPU for the adversarial checks of the
+    screened kernel (rows 6 and 5-wide)."""
+    if kind == "duplicates":  # exact ties: the lowest index must win
+        c = torch.randn(50, 40, generator=g) * 3
+        c[25:] = c[:25]
+        c[7] = c[3]
+        x = c[torch.randint(0, 50, (3000,), generator=g)] + 0.5 * torch.randn(3000, 40, generator=g)
+    elif kind == "mirrored":  # integer points equidistant from c = x +- v
+        x = torch.randint(-20, 21, (2000, 36), generator=g).float()
+        v = torch.randint(-5, 6, (2000, 36), generator=g).float()
+        c = torch.stack([x[:64] + v[:64], x[:64] - v[:64]], 1).reshape(128, 36)
+    elif kind == "integer":
+        x = torch.randint(-30, 31, (4000, 100), generator=g).float()
+        c = torch.randint(-30, 31, (333, 100), generator=g).float()
+    elif kind == "offset":  # |x|^2 >> the distances: every pair within the margin
+        x = 1e3 + torch.randn(1000, 128, generator=g)
+        c = 1e3 + torch.randn(200, 128, generator=g)
+    elif kind == "one":
+        x, c = torch.randn(1, 1, generator=g), torch.randn(1, 1, generator=g)
+    elif kind == "ragged":  # n, k, s off every tile; s % 4 != 0 takes 4-byte copies
+        x, c = torch.randn(1001, 37, generator=g) * 4, torch.randn(77, 37, generator=g) * 4
+    else:  # "unaligned": s % 4 == 0 but rows 4 bytes off a 16-byte boundary
+        x = torch.randn(777 * 64 + 1, generator=g)[1:].view(777, 64)
+        c = torch.randn(70 * 64 + 1, generator=g)[1:].view(70, 64)
+    return x, c
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "mirrored", "integer", "offset", "one", "ragged",
+                                  "unaligned"])
+def test_screened_assign_kernel_equals_plain_on_adversarial_data(dev, kind):
+    """Rows 6 and 5-wide bit-equal to the plain version on ties, equidistant
+    pairs, integer data, a large common offset (which must re-check nearly
+    every pair), n = k = s = 1 and ragged / unaligned shapes; the screen's
+    largest error within a quarter of its margin."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = _screen_case(kind, _gen(40))
+    want = kmeans_assign_ref(x, c)
+    xd, cd = x.to(dev), c.to(dev)
+    assert torch.equal(kmeans_ops.kmeans_assign(xd, cd).cpu(), want)
+    got, rechecks, screen = kmeans_kernel.kmeans_assign_probe(xd[None], cd[None], screen=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want)
+    n, k = x.shape[0], c.shape[0]
+    d = sqdist_rowwise(x, c).double()
+    big = (x.double() ** 2).sum(1) + (c.double() ** 2).sum(1).max()
+    delta = kmeans_kernel.screen_margin(x.shape[1]) * big
+    assert ((screen[0].cpu().double() - d).abs() <= delta[:, None] / 4).all()
+    per_point = int(rechecks.sum()) / n
+    assert 1 <= per_point <= k
+    if kind == "offset":
+        assert per_point >= 0.9 * k
 
 
 @pytest.mark.parametrize("n,s,k", [(20_000, 128, 1024), (5_000, 130, 300), (777, 5, 7), (1, 1, 1)])
@@ -453,6 +513,10 @@ def _assert_o_close(got: torch.Tensor, want: torch.Tensor) -> None:
     (3, 100, 12, 20, 32),    # odd widths of the reference's tests
     (2, 64, 16, 24, 16),
     (2, 96, 96, 40, 32),     # dk past one 64-dim slice
+    (3, 150, 64, 64, 8),     # chunks other than a tile: c live rows of a larger tile
+    (3, 150, 64, 40, 40),
+    (2, 300, 64, 64, 128),   # the 128 tile
+    (2, 450, 32, 64, 200),   # past 128: sub-chunks of 128
 ])
 def test_linear_attn_kernel_equals_plain(dev, dtype, shift, bh, t, dk, dv, chunk):
     from repro_torch.kernels.linear_attn import ops as la_ops

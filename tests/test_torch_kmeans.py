@@ -15,6 +15,10 @@
   versions against the Pallas kernels in interpret mode on integer data
   (exact), and ``kmeans`` / ``kmeans_batched`` at d = 65..128 against the
   JAX package fed its own initial centroids.
+* **The screen of rows 6 and 5-wide** (the card's kernel): its arithmetic
+  emulated in fp64 on adversarial inputs stays within ``delta_p / 8`` of the
+  plain distances, with the margin the wrapper passes, and the one-pass
+  re-check rule on it gives the plain argmins.
 * **Helpers**: the chunking helpers and the paired histogram (the padded
   tail counts nothing), kmeans++ seeding, the argument checks.
 """
@@ -135,6 +139,120 @@ def test_assignment_ties_go_to_the_lowest_index():
     c = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]])
     assert (kmeans_ops.kmeans_assign(x, c) == 0).all()
     assert (kmeans_ops.kmeans_assign_batched(x[None], c[None], block_n=2) == 0).all()
+
+
+# --------------------------------------------------------------------------
+# Rows 6 and 5-wide on the card: the screen's margin, held to its derivation
+# --------------------------------------------------------------------------
+
+
+def _f32(a):
+    return a.astype(np.float32).astype(np.float64)
+
+
+def _tf32(a):
+    """fp32 values (held in fp64) rounded to TF32: nearest, ties away from
+    zero, on 10 mantissa bits (11 significant), as cvt.rna.tf32.f32."""
+    m, e = np.frexp(a)
+    return np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5), e - 11)
+
+
+def _screen_emulated(x, c):
+    """The screened kernel's distances ``(n, k)`` emulated in fp64: the TF32
+    split of both operands; per 8-dim k-step (in each 16 dims, dims 4t, 4t+1
+    and then 4t+2, 4t+3 for t < 4, the kernel's grouping) the small x big,
+    big x small and big x big products (exact), each added to an fp32
+    accumulator with one rounding; fp32 norms summed in dim order; then
+    ``(nx + nc) - 2 x.c``."""
+    xd, cd = x.astype(np.float64), c.astype(np.float64)
+    xb, cb = _tf32(xd), _tf32(cd)
+    xs, cs = _tf32(xd - xb), _tf32(cd - cb)
+    s = x.shape[1]
+    acc = np.zeros((x.shape[0], c.shape[0]))
+    for k16 in range(0, s, 16):
+        for step in (0, 1):
+            dims = [k16 + 4 * t + 2 * step + e for t in range(4) for e in (0, 1)]
+            for a, b in ((xs, cb), (xb, cs), (xb, cb)):
+                for i in (i for i in dims if i < s):
+                    acc = _f32(acc + a[:, i, None] * b[None, :, i])
+    nx, nc = np.zeros(len(x)), np.zeros(len(c))
+    for i in range(s):
+        nx, nc = _f32(nx + _f32(xd[:, i] ** 2)), _f32(nc + _f32(cd[:, i] ** 2))
+    return _f32(_f32(nx[:, None] + nc[None]) - 2.0 * acc)
+
+
+def _adversarial(kind, s, seed):
+    """``(x (48, s), c (40, s))`` float32: values up to 1e4; a common offset of
+    1e3 with a spread of 1; duplicated centroids and centroids mirrored about
+    points (equidistant pairs); integer-valued."""
+    rng = np.random.default_rng(seed)
+    n, k = 48, 40
+    if kind == "uniform_1e4":
+        x, c = rng.uniform(-1e4, 1e4, (n, s)), rng.uniform(-1e4, 1e4, (k, s))
+    elif kind == "offset_1e3":
+        x, c = 1e3 + rng.normal(size=(n, s)), 1e3 + rng.normal(size=(k, s))
+    elif kind == "integer":
+        x, c = rng.integers(-50, 51, (n, s)), rng.integers(-50, 51, (k, s))
+    else:  # duplicated and mirrored: c[2i + 1] = 2 x[i] - c[2i], c[30:] = c[:10]
+        x = rng.normal(size=(n, s)) * 30
+        v = rng.normal(size=(k // 2, s)) * 30
+        x[: k // 2] = np.round(x[: k // 2])  # x +- v exactly in fp32
+        v = np.round(v)
+        c = np.empty((k, s))
+        c[0::2], c[1::2] = x[: k // 2] + v, x[: k // 2] - v
+        c[30:] = c[:10]
+    return x.astype(np.float32), c.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["uniform_1e4", "offset_1e3", "mirrored_duplicates", "integer"])
+@pytest.mark.parametrize("s", [1, 5, 128, 130, 300])
+def test_screen_margin_holds_the_emulated_screen_to_its_derivation(s, kind):
+    """|screen - d_plain| <= delta_p / 8 = E_s (|x_p|^2 + max |c|^2) with the
+    mu_s the wrapper passes (``screen_margin``); and the kernel's one-pass
+    rule on those distances gives the plain version's argmins, ties
+    included: tiles of 64 centroids; after each, the running minimum m
+    takes the tile's and every a_j <= m + delta_p joins the point's list of
+    8 (past 8 it is re-checked at once); at the end the listed a_j still
+    <= m + delta_p are re-checked.  A large common offset re-checks nearly
+    every pair."""
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign.kernel import screen_margin
+
+    x, c = _adversarial(kind, s, seed=s)
+    a = _screen_emulated(x, c)
+    d = sqdist_rowwise(T(x), T(c)).double().numpy()
+    big = (x.astype(np.float64) ** 2).sum(1) + (c.astype(np.float64) ** 2).sum(1).max()
+    delta = screen_margin(s) * big
+    ratio = np.abs(a - d) / delta[:, None]
+    assert (ratio <= 1 / 8).all(), float(ratio.max())
+    # the kernel's rule, tile by tile
+    m = np.full(len(x), np.inf)
+    best = np.full(len(x), -1)
+    bestd = np.full(len(x), np.inf)
+    listed = [[] for _ in x]
+    rechecks = 0
+
+    def recheck(p, j):
+        nonlocal rechecks
+        rechecks += 1
+        if d[p, j] < bestd[p] or (d[p, j] == bestd[p] and j < best[p]):
+            best[p], bestd[p] = j, d[p, j]
+
+    for j0 in range(0, len(c), 64):
+        tile = a[:, j0:j0 + 64]
+        m = np.minimum(m, tile.min(1))
+        for p, jj in zip(*np.nonzero(tile <= (m + delta)[:, None])):
+            if len(listed[p]) < 8:
+                listed[p].append(j0 + jj)
+            else:
+                recheck(p, j0 + jj)
+    for p, js in enumerate(listed):
+        for j in js:
+            if a[p, j] <= m[p] + delta[p]:
+                recheck(p, j)
+    np.testing.assert_array_equal(best, kmeans_ops.kmeans_assign(T(x), T(c)).numpy())
+    if kind == "offset_1e3" and s >= 128:
+        assert rechecks > 0.9 * a.size
 
 
 # --------------------------------------------------------------------------

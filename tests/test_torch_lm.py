@@ -29,6 +29,9 @@ import torch
 from repro.configs import reduced_config as j_reduced_config
 from repro.kernels.linear_attn.kernel import linear_attn_kernel
 from repro.kernels.linear_attn.ops import linear_attention as j_linear_attention
+from repro.kernels.linear_attn.ops import (
+    linear_attention_with_state as j_linear_attention_with_state,
+)
 from repro.kernels.linear_attn.ref import linear_attn_ref as j_scan
 from repro.launch import serve as j_serve
 from repro.models import Model as JModel
@@ -85,6 +88,47 @@ def test_chunked_matches_the_jax_kernel_and_scan(shift, t, chunk, dk, dv):
         np.testing.assert_allclose(ps.numpy(), np.asarray(ks), **TOL)
 
 
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("chunk", [1, 8, 40, 128, 200])
+def test_every_chunk_matches_the_jax_op_and_scan(chunk, shift):
+    """Any chunk >= 1, as the reference's ops take it: both entries at
+    chunks below, between and above the kernel's tiles, T ragged against
+    each, against the reference's ops at the same chunk and its scan;
+    tolerances of :func:`test_chunked_matches_the_jax_kernel_and_scan`."""
+    t, dk, dv = 100, 12, 20
+    q, k, v, w, u = _la_inputs(chunk + shift, 3, t, dk, dv)
+    o, s = la_ops.linear_attention_with_state(T(q), T(k), T(v), T(w), T(u), chunk=chunk,
+                                              shift=shift)
+    assert o.shape == (3, t, dv) and s.shape == (3, dk, dv)
+    jo, js = j_scan(*(jnp.asarray(a) for a in (q, k, v, w, u)), shift=shift)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    ko, ks = j_linear_attention_with_state(*(jnp.asarray(a) for a in (q, k, v, w, u)),
+                                           chunk=chunk, shift=shift)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ko), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(ks), **TOL)
+    mode = "rwkv" if shift else "gla"
+    b4 = [a.reshape(1, 3, t, -1) for a in (q, k, v, w)]
+    want = j_linear_attention(*(jnp.asarray(a) for a in b4), jnp.asarray(u[:, 0]), chunk=chunk,
+                              mode=mode)
+    got = la_ops.linear_attention(*(T(a) for a in b4), T(u[:, 0]), chunk=chunk, mode=mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_a_dk_past_the_cards_shared_memory_is_taken_on_the_cpu():
+    """Shared memory bounds the card's tiles, not the plain version: a dk
+    the kernel refuses still runs on the CPU."""
+    from repro_torch.kernels.linear_attn import kernel as la_kernel
+
+    dk = 3500
+    assert la_kernel.smem_bytes(la_kernel.chunk_tile(16), dk, 16) > la_kernel._SMEM_LIMIT
+    q, k, v, w, u = _la_inputs(11, 1, 20, dk, 4)
+    o, s = la_ops.linear_attention_with_state(T(q), T(k), T(v), T(w), T(u), chunk=16)
+    jo, js = j_scan(*(jnp.asarray(a) for a in (q, k, v, w, u)), shift=1)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+
+
 def test_small_decay_stays_finite():
     """w = 0.2 over a 64-token chunk: the cumulative decay reaches 0.2**64;
     every exponent is a difference of log-decays, so nothing overflows."""
@@ -127,7 +171,7 @@ def _bad_la_calls():
         (ValueError, lambda: op(q, k, v[:1], w, u)),
         (ValueError, lambda: op(q, k, v, w, u[:, :, :4])),
         (ValueError, lambda: op(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)),
-        (ValueError, lambda: op(q, k, v, w, u, chunk=48)),
+        (ValueError, lambda: op(q, k, v, w, u, chunk=0)),
         (ValueError, lambda: op(q, k, v, w, u, shift=2)),
         (ValueError, lambda: la_ops.linear_attention(q[None], k[None], v[None], w[None],
                                                      mode="mamba")),
@@ -157,7 +201,7 @@ def _models(dtype, seed=0):
     cfg = dataclasses.replace(reduced_config("rwkv6-1.6b"), dtype=dtype)
     jmodel = JModel(jcfg)
     jparams = jmodel.init(jax.random.key(seed))
-    return jmodel, jparams, Model(cfg), convert.params_from_jax(jparams)
+    return jmodel, jparams, Model(cfg), convert.params_from_jax(jparams, device="cpu")
 
 
 def _tokens(cfg, b, s, seed):
@@ -175,6 +219,19 @@ def test_params_from_jax_keeps_every_leaf():
         assert node.dtype == torch.float32 and tuple(node.shape) == leaf.shape
         np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
     assert params["blocks"]["time_mix"]["wr"]["w"].shape[0] == model.cfg.n_layers
+
+
+def test_params_from_jax_places_leaves_on_the_device_it_is_given(monkeypatch):
+    """The card by default (entry points run on the card unless the caller
+    asks for the CPU); the device given otherwise."""
+    tree = {"a": np.ones((2, 3), np.float32), "b": {"c": np.zeros(4, np.float32)}}
+    on_cpu = convert.params_from_jax(tree, device="cpu")
+    assert on_cpu["a"].device.type == "cpu" and on_cpu["b"]["c"].device.type == "cpu"
+    seen = []
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, dev: seen.append(str(dev)) or self)
+    convert.params_from_jax(tree)
+    convert.params_from_jax(tree, device="meta")
+    assert seen == ["cuda", "cuda", "meta", "meta"]
 
 
 def test_fp32_prefill_cache_and_decode_match_jax():
