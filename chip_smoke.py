@@ -40,7 +40,10 @@ plain versions, and holds each kernel against its plain PyTorch version at
 the shapes of its path.  The screened assignment (rows 6 and 5-wide) is also
 held to its plain version on adversarial inputs, and at the IVF shapes its
 re-checks per point and its largest screen error over its margin (<= 0.25)
-are reported.
+are reported, and its best distances (row 3's wide variant reads them) must
+equal the plain minimum distance bit for bit.  Row 3 (the Lloyd statistics)
+is held at all three of its shapes (the build's, PQ8x8's and IVF1024's), and
+two launches must give equal bits at each.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
 kernel: its launches on its path, its error against the plain version, its
@@ -153,6 +156,56 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+# the K-means library's users: PQ8x8 codebooks (k = 256, chunks of 4,096) and
+# IVF1024 (faiss trains it on 256 points a list; chunks of 2,048 points give
+# the one-codebook statistics kernel 128 blocks), 20 Lloyd steps each
+PQ_M, PQ_K, IVF_K, LLOYD_ITERS, PQ_BLOCK_N, IVF_BLOCK_N = 8, 256, 1024, 20, 4096, 2048
+
+
+def build_stats_inputs(data, spec, cfg):
+    """Row 3's inputs on the main path: the build's 2 Ns half-subspaces of the
+    data, ``(2Ns, n, s)``, and the build's seeded start, ``(2Ns, sqrt_k, s)``."""
+    import torch
+
+    from repro_torch.core import subspace as sub
+    from repro_torch.core.kmeans import init_random
+
+    h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, data))
+    both = torch.cat([h1, h2]).contiguous()
+    del h1, h2
+    return both, init_random(both, cfg.sqrt_k, torch.Generator().manual_seed(cfg.seed))
+
+
+def pq_inputs(data, seed: int):
+    """PQ8x8's ``(8, n, d / 8)`` sub-vectors and its seeded random start."""
+    import torch
+
+    from repro_torch.core.kmeans import init_random
+
+    n, d = data.shape
+    xs = data.reshape(n, PQ_M, d // PQ_M).transpose(0, 1).contiguous()
+    return xs, init_random(xs, PQ_K, torch.Generator().manual_seed(seed))
+
+
+def ivf_sample(data, seed: int):
+    """IVF1024's training sample: 256 rows a list, at most half the data."""
+    import torch
+
+    n = data.shape[0]
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(seed + 4))
+    return data[pick[:min(256 * IVF_K, n // 2)].to(data.device)].contiguous()
+
+
+def ivf_seeds(data, seed: int):
+    """IVF1024's kmeans++ start: 1,024 centroids seeded from 32,768 rows."""
+    import torch
+
+    from repro_torch.core.kmeans import init_centroids_pp
+
+    return init_centroids_pp(data, IVF_K, sample_n=32 * IVF_K,
+                             generator=torch.Generator().manual_seed(seed + 1))
+
+
 def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     """Each kernel against its plain version on the same inputs, at the main
     path's shapes.  Integers must be equal; floats within the stated
@@ -163,6 +216,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     from repro_torch.core.suco import suco_cell_ranks
     from repro_torch.kernels.gather_rerank import ops as gather_ops
     from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
     from repro_torch.kernels.kmeans_assign.ref import (
         kmeans_pair_assign_hist_ref,
@@ -180,6 +234,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     got = kmeans_ops.kmeans_stats(both, c0, block_n=bn, with_assign=True)
     want = kmeans_stats_ref(both, c0, block_n=bn)
     err_sums = stats_errors("kmeans_stats", both, got, want)
+    same_bits("kmeans_stats", got, kmeans_ops.kmeans_stats(both, c0, block_n=bn, with_assign=True))
     err_in = (got[3].double() - want[3].double()).abs()
     t_ops = 3.0 * b * n * k * s
     bms, by = bound(nbytes(both, c0, *got[1:]), t_ops)
@@ -189,9 +244,8 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
         plain_ms=time_ms(lambda: kmeans_stats_ref(both, c0, block_n=bn), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[b, n, s], k=k, block_n=bn, inertia_max_rel_err=float(
-            (err_in / want[3].double()).max()),
-            # dynamic shared memory per block (centroids, accumulators, one tile)
-            smem_bytes=4 * (k * s + k * (s + 1) + 256 * (s + 2))),
+            (err_in / want[3].double()).max()), equal_bits=True,
+            smem_bytes=kmeans_kernel.stats_smem_bytes(k, s)),
     )
 
     # kmeans_pair_assign_hist: the final assignment with the built centroids
@@ -582,11 +636,11 @@ def screen_probe(x, c, sample: int = 16_384) -> dict:
     from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_batched_ref
 
     b, n, s = x.shape
-    got, rechecks, _ = kmeans_kernel.kmeans_assign_probe(x, c)
+    got, rechecks = kmeans_kernel.kmeans_assign_probe(x, c)[:2]
     if not torch.equal(got, kmeans_assign_batched_ref(x, c, block_n=4096)):
         raise AssertionError("the screened kernel's probe differs from the plain version")
     xs = x[:1, :sample].contiguous()
-    _, _, screen = kmeans_kernel.kmeans_assign_probe(xs, c[:1].contiguous(), screen=True)
+    screen = kmeans_kernel.kmeans_assign_probe(xs, c[:1].contiguous(), screen=True).screen
     d = sqdist_rowwise(xs[0], c[0]).double()
     big = (xs[0].double() ** 2).sum(1) + (c[0].double() ** 2).sum(1).max()
     ratio = float(((screen[0].double() - d).abs()
@@ -635,7 +689,7 @@ def screen_adversarial(dev, seed: int) -> dict:
     out = {}
     for name, (x, c) in cases.items():
         want = kmeans_assign_ref(x, c)
-        got, rechecks, _ = kmeans_kernel.kmeans_assign_probe(x[None], c[None])
+        got, rechecks = kmeans_kernel.kmeans_assign_probe(x[None], c[None])[:2]
         if not (torch.equal(kmeans_ops.kmeans_assign(x, c), want) and torch.equal(got[0], want)):
             raise AssertionError(f"screened assignment ({name}) differs from its plain version")
         out[name] = float(rechecks.sum()) / x.shape[0]
@@ -664,15 +718,12 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
 
     n, d = data.shape
     dev = data.device
-    m_pq, k_pq, k_ivf, iters, bn = 8, 256, 1024, 20, 4096
-    # faiss trains IVF1024 on 256 points per centroid; chunks of 2,048 points
-    # give the one-codebook statistics kernel 128 blocks
-    n_ivf, ivf_bn = min(256 * k_ivf, n // 2), 2048
-    xs = data.reshape(n, m_pq, d // m_pq).transpose(0, 1).contiguous()  # (8, n, 16)
-    c0 = km.init_random(xs, k_pq, torch.Generator().manual_seed(seed))
+    m_pq, k_pq, k_ivf, iters, bn, ivf_bn = (PQ_M, PQ_K, IVF_K, LLOYD_ITERS, PQ_BLOCK_N,
+                                            IVF_BLOCK_N)
+    xs, c0 = pq_inputs(data, seed)  # (8, n, 16)
     init_inertia = kmeans_ops.kmeans_stats(xs, c0, block_n=bn)[3]  # before the counted run
-    pick = torch.randperm(n, generator=torch.Generator().manual_seed(seed + 4))[:n_ivf]
-    sample = data[pick.to(dev)].contiguous()
+    sample = ivf_sample(data, seed)
+    n_ivf = sample.shape[0]
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
@@ -680,9 +731,9 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     pq = km.kmeans_batched(xs, k_pq, iters, block_n=bn, init_centroids=c0)
     torch.cuda.synchronize()
     pq_s = time.perf_counter() - t0
+    pq_stats = kernels.launch_counts()["kmeans_stats"]
     t0 = time.perf_counter()
-    cents = km.init_centroids_pp(data, k_ivf, sample_n=32 * k_ivf,
-                                 generator=torch.Generator().manual_seed(seed + 1))
+    cents = ivf_seeds(data, seed)
     torch.cuda.synchronize()
     pp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -695,7 +746,8 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     ivf_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     check_launched("kmeans_library", launches)
-    if launches["kmeans_stats"] != 2 * iters or launches["kmeans_assign_batched"] != 2 \
+    stats_launches = dict(pq=pq_stats, ivf=launches["kmeans_stats"] - pq_stats)
+    if stats_launches != dict(pq=iters, ivf=iters) or launches["kmeans_assign_batched"] != 2 \
             or launches["kmeans_assign"] != 1:
         raise AssertionError(f"kmeans_library launches: {launches}")
     occupancy = torch.bincount(lists.long(), minlength=k_ivf)
@@ -715,6 +767,13 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     got3 = kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn, with_assign=True)
     want3 = kmeans_stats_ref(x1, c_ivf, block_n=ivf_bn)
     err3 = stats_errors("kmeans_stats (wide)", x1, got3, want3)
+    same_bits("kmeans_stats (wide)", got3,
+              kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn, with_assign=True))
+    # row 3 at PQ8x8's shape, from the training's start
+    got3p = kmeans_ops.kmeans_stats(xs, c0, block_n=bn, with_assign=True)
+    err3p = stats_errors("kmeans_stats (pq)", xs, got3p, kmeans_stats_ref(xs, c0, block_n=bn))
+    same_bits("kmeans_stats (pq)", got3p, kmeans_ops.kmeans_stats(xs, c0, block_n=bn,
+                                                                 with_assign=True))
     ivf_init_inertia = float(want3[3][0])
     if not float(ivf.inertia) < ivf_init_inertia:
         raise AssertionError("IVF1024 training did not lower the inertia of its kmeans++ start")
@@ -740,7 +799,7 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
                                 init_inertia=ivf_init_inertia, final_inertia=float(ivf.inertia),
                                 largest_list=int(ivf_lists.max()),
                                 empty_lists=int((ivf_lists == 0).sum())),
-              launches=launches, plain_equal=True))
+              launches=launches, stats_launches=stats_launches, plain_equal=True))
 
     def cdist_argmin(a, b):
         return torch.cdist(a, b, compute_mode="use_mm_for_euclid_dist").argmin(-1)
@@ -763,7 +822,8 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     probes = {"kmeans_assign": screen_probe(data[None], cents[None]),
               "kmeans_assign_batched (wide)": screen_probe(x1, ivf.centroids[None])}
     adversarial = screen_adversarial(dev, seed)
-    emit(dict(phase="screened_assign", ivf=probes, adversarial=adversarial))
+    emit(dict(phase="screened_assign", ivf=probes, adversarial=adversarial,
+              ivf_best_distance=best_distance_check(x1, c_ivf)))
     for name, args, fn, plain, ops, reps in cases:
         out = fn()
         lib = cdist_argmin(*args)
@@ -781,12 +841,24 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
             detail=detail,
         )
         del lib
-    bms, by = bound(nbytes(x1, c_ivf, *got3[1:]), assign_ops(n_ivf, k_ivf, d))
+    # row 3 wide: its argmins are the screened kernel's, so its bound is
+    # theirs (3xTF32), the fp32 one kept beside it; PQ's is the fp32 one
+    nb3 = nbytes(x1, c_ivf, *got3[1:])
+    bms, by = tc_assign_bound(nb3, n_ivf, k_ivf, d)
     recs["kmeans_stats (wide)"] = dict(
         max_abs_err=err3, ms=time_ms(lambda: kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn), 5),
         plain_ms=time_ms(lambda: kmeans_stats_ref(x1, c_ivf, block_n=ivf_bn), 1, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(shape=list(x1.shape), k=k_ivf, block_n=ivf_bn))
+        detail=dict(shape=list(x1.shape), k=k_ivf, block_n=ivf_bn, equal_bits=True,
+                    launches=stats_launches["ivf"],
+                    fp32_bound_ms=bound(nb3, assign_ops(n_ivf, k_ivf, d))[0]))
+    bms, by = bound(nbytes(xs, c0, *got3p[1:]), assign_ops(n, k_pq, d // m_pq, m_pq))
+    recs["kmeans_stats (pq)"] = dict(
+        max_abs_err=err3p, ms=time_ms(lambda: kmeans_ops.kmeans_stats(xs, c0, block_n=bn), 5),
+        plain_ms=time_ms(lambda: kmeans_stats_ref(xs, c0, block_n=bn), 1, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=list(xs.shape), k=k_pq, block_n=bn, equal_bits=True,
+                    launches=stats_launches["pq"]))
     bms, by = bound(nbytes(halves, c4, *got4), assign_ops(n_ivf, 256, d, 2))
     recs["kmeans_pair_assign_hist (wide)"] = dict(
         max_abs_err=0.0,
@@ -796,6 +868,35 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=list(halves.shape), k=256, cells=256 * 256, block_n=ivf_bn))
     return launches, recs
+
+
+def same_bits(name: str, first, second) -> None:
+    """Fail unless two launches of a kernel gave the same bits."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches gave different bits")
+
+
+def best_distance_check(x, c, chunk: int = 32_768) -> dict:
+    """The screened kernel's d* (row 3 wide reads it for the inertia) at
+    ``x: (1, n, s)``, ``c: (1, k, s)`` against the plain version's minimum
+    distance (``sqdist_rowwise``, the plain assignment's arithmetic), bit for
+    bit, and its argmins against ``kmeans_assign_ref``'s."""
+    import torch
+
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_ref
+
+    probe = kmeans_kernel.kmeans_assign_probe(x, c)
+    dmin = torch.cat([sqdist_rowwise(x[0, i:i + chunk], c[0]).min(-1).values
+                      for i in range(0, x.shape[1], chunk)])
+    if not torch.equal(probe.assign[0], kmeans_assign_ref(x[0], c[0])):
+        raise AssertionError("the screened kernel's argmins differ from kmeans_assign_ref's")
+    if not torch.equal(probe.best[0], dmin):
+        raise AssertionError("the screened kernel's d* differs from the plain minimum distance")
+    return dict(points=x.shape[1], best_equal=True, mean_best=float(dmin.double().mean()))
 
 
 def stats_errors(name: str, x, got, want) -> float:
@@ -1265,8 +1366,6 @@ def main() -> int:
 
     from repro_torch import EnginePolicy, SuCoConfig, SuCoEngine, kernels
     from repro_torch.configs import get_config
-    from repro_torch.core import subspace as sub
-    from repro_torch.core.kmeans import init_random
     from repro_torch.data import gaussian_mixture, make_queries, recall
     from repro_torch.kernels import _build
 
@@ -1363,11 +1462,7 @@ def main() -> int:
     lm_cpu_recheck_phase(dev, args.seed, lm_cfg)
 
     # 9. each kernel against its plain version at its path's shapes
-    spec = engine.index.spec
-    h1, h2 = sub.split_halves_padded(spec, sub.permute(spec, data))
-    both = torch.cat([h1, h2]).contiguous()
-    del h1, h2
-    c0 = init_random(both, cfg.sqrt_k, torch.Generator().manual_seed(cfg.seed))
+    both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
     checks = check_kernels(dev, data, both, c0, engine.index, q64, cfg, engine.tiles_for(64, k))
     del both
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
@@ -1395,15 +1490,18 @@ def main() -> int:
                          max_abs_err=rec_["max_abs_err"],
                          ms=rec_["ms"], plain_ms=rec_["plain_ms"], bound_ms=rec_["bound_ms"],
                          bound_by=rec_["bound_by"], library_ms=rec_["library_ms"]))
-        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin")
+        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin", "equal_bits")
         rows[-1].update({key: rec_["detail"][key] for key in extras
                          if key in rec_.get("detail", {})})
-        wide = checks.get(f"{name} (wide)")  # rows 3-5 at the IVF shapes
-        if wide is not None:
-            rows[-1]["wide"] = {key: wide[key] for key in (
+        # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq")
+        for variant in ("wide", "pq"):
+            other = checks.get(f"{name} ({variant})")
+            if other is None:
+                continue
+            rows[-1][variant] = {key: other[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            rows[-1]["wide"].update({key: wide["detail"][key] for key in extras
-                                     if key in wide.get("detail", {})})
+            rows[-1][variant].update({key: other["detail"][key] for key in (*extras, "launches")
+                                      if key in other.get("detail", {})})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": rows})
     print(smi, flush=True)

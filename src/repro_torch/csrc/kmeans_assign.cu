@@ -19,6 +19,8 @@
 // The last two share kmeans_assign_streamed_kernel: kernel 6 at one
 // codebook, kernel 5 at its wide shapes (s > 64, or a codebook past shared
 // memory).  It is a tensor-core screen with an exact re-check (below).
+// Kernel 3's wide variant takes its argmins, and each point's exact best
+// distance d*, from it too.
 //
 // What bounds the SIMT kernels on an H100: operations.  Each (point,
 // centroid) pair costs 3*s fp32 operations (difference, square, sum) against
@@ -28,28 +30,70 @@
 // 128 lanes x 1.98 GHz), so no kernel built that way runs row 6 (1M x 128,
 // k = 1,024) below ~11.7 ms.
 //
-// The first three take one codebook per grid row (grid: points / block_n x
-// codebooks); the codebook's centroids (both halves' for the pair kernel)
-// sit in shared memory, where every thread reads the same centroid at once
-// (a broadcast); each thread takes one point, holds it in registers (at
-// most 64 dims) and scans the centroids in index order with a strict <, so
-// ties go to the lowest index as with jnp.argmin / torch.argmin.  These
-// narrow instantiations (MAXS 4..64) take s <= 64 and a codebook that fits
-// in shared memory.
+// The narrow variants of the first three take one codebook per grid row
+// (grid: points / block_n x codebooks); the codebook's centroids (both
+// halves' for the pair kernel) sit in shared memory, where every thread
+// reads the same centroid at once (a broadcast); each thread takes one
+// point (the stats kernel two for s <= 16), holds it in registers (at most
+// 64 dims) and scans the centroids in index order with a strict <, so ties
+// go to the lowest index as with jnp.argmin / torch.argmin (nearest(): a
+// centroid read 16 bytes at a time when s is the instantiation's width).
+// These narrow instantiations (MAXS 4..64) take s <= 64 and a codebook that
+// fits in shared memory.
 //
 // Beside the stats and pair kernels sits a wide variant, which the op
 // wrapper picks for any other shape (s > 64, or k*s -- for the pair kernel
-// also k^2 -- past shared memory): it walks its chunk in tiles of 256
-// points, one a thread, and finds each point's centroid with
+// also k^2 -- past shared memory).  The wide pair kernel walks its chunk in
+// tiles of 256 points, one a thread, and finds each point's centroid with
 // nearest_streamed: the centroids stream through shared memory in tiles of
 // 32 centroids x 32 dims, a thread keeps 32 running sums in registers and
 // walks the dim slices in order, so each distance is still summed dim 0, 1,
 // ..., s-1 (padded dims add +0); tiles are visited in index order and a
-// later centroid wins only on a strict <.  The wide stats kernel keeps its
-// per-block partial sums and counts in device memory (only its own block
-// writes them), adding each tile's points in index order as the narrow one
-// does, so both give the same bits; the wide pair kernel adds its k^2
-// histogram straight into device memory with integer atomics.
+// later centroid wins only on a strict <.  It adds its k^2 histogram
+// straight into device memory with integer atomics.  The wide stats variant
+// is described next.
+//
+// Kernel 3, the Lloyd statistics: each point's coordinates are added once.
+//   Per chunk of block_n points (a partial row per centroid), sums[j, t] is
+//   the chunk's points of centroid j added dim t in index order, from +0,
+//   counts[j] their number (exact below 2^24), and the
+//   inertia the sum of their best distances in a fixed tree (block_tree_sums
+//   over each tile of 256 points, the tiles' sums added in order).
+//   * Narrow (kmeans_stats_partial_kernel): points in registers, two a
+//     thread for s <= 16, nearest() reading each centroid coordinate from
+//     shared memory once for both points, 16 bytes at a time when s is the
+//     instantiation's width (those
+//     broadcast reads, not the arithmetic, bounded the one-point loop: 8
+//     reads against 24 operations a pair at s = 8).  Per tile the points are
+//     ranked by (centroid, index) with no atomic deciding an order -- within
+//     a warp, __match_any_sync and the popc of the lower lanes; across warps,
+//     each warp's byte count of each centroid and an exclusive scan over k
+//     of the totals -- and stored in shared memory in that order; thread
+//     (j, t) then adds centroid j's run of points to its shared-memory sum of
+//     dim t (t == s: the count).  O(s) adds a point, and O(k s) loop
+//     overhead and five barriers a tile of 512 (256) points, where the old
+//     kernel scanned the whole tile for every (centroid, dim): k (s + 1)
+//     iterations a point.
+//   * Wide (kmeans_stats_wide_accumulate_kernel): the argmins and d* come
+//     from the screened kernel (its re-check makes both the plain version's
+//     bits); then each sub-chunk of at most kSub = 4,096 points is ranked by
+//     its (centroid, index) keys with a bitonic sort in shared memory (any
+//     k), and each warp walks the ranked points of its run of centroids in
+//     order, lanes over dims and 8 rows in flight, a centroid's sum in
+//     registers: each row of the block's partial is written once, coalesced
+//     (zeros for a centroid with no point), and no device-memory sum is read
+//     back unless a chunk spans several sub-chunks.  Two to eight blocks
+//     share a chunk (each ranks it, each owns a run of centroids) so that
+//     the card holds two blocks a multiprocessor.
+//   Both variants add the same values in the same order from the same
+//   start, so they give the same bits, and so does every run: the ranking
+//   is a function of the assignments alone.  A second kernel sums the
+//   partials over the blocks in block order.
+//   What bounds it: the argmins.  The narrow variant is the SIMT distances
+//   (3 k s fp32 operations a point, issued as separate instructions; the
+//   ranking and adds are O(s + k s / 512) a point); the wide one the screened
+//   kernel's products, then the x rows (read once more) and the partials
+//   (nblk k s floats written and read once by the reduction).
 //
 // Every distance that decides an assignment is summed one dim at a time
 // with __fsub_rn/__fmul_rn/__fadd_rn (no FMA contraction): exactly the
@@ -123,19 +167,25 @@
 //   kernel.  rechecks (null on the path) counts each block's re-checked
 //   pairs; the SCREEN instantiation writes every a to device memory.
 //
+//   best (row 3's wide variant; null elsewhere) takes each point's d*, the
+//   high half of its final key: the distance of a plain re-check, so the
+//   plain version's minimum distance bit for bit.
+//
 // No float atomics, so every result is the same from run to run.  The stats
-// kernel writes per-block partial sums, counts and inertia (each block
-// accumulates its tiles in a fixed order, one thread per (centroid, dim)
-// pair), and a second kernel reduces the partials over the blocks in block
-// order.  The pair kernel's histogram uses integer atomics in shared memory
-// and then in device memory, which are exact; the screened kernel's key
-// atomics take a minimum, which does not depend on their order.
+// kernels write per-block partial sums, counts and inertia in a fixed
+// order (above), and a second kernel reduces the partials over the blocks
+// in block order.  The pair kernel's histogram uses integer atomics in
+// shared memory and then in device memory, which are exact; the screened
+// kernel's key atomics take a minimum, which does not depend on their order.
 //
 // C entry points (each returns cudaGetLastError()):
-//   kmeans_stats(..., wide, stream), kmeans_pair_assign_hist(..., wide, stream),
-//   kmeans_assign_batched(..., wide, mu, norms, rechecks, screen, stream),
+//   kmeans_stats(..., wide, mu, norms, best, stream),
+//   kmeans_pair_assign_hist(..., wide, stream),
+//   kmeans_assign_batched(..., wide, mu, norms, rechecks, screen, best, stream),
 //   kmeans_assign(..., mu, norms, assign, stream).
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -151,40 +201,170 @@ __device__ __forceinline__ void load_point(const float* __restrict__ row, int s,
     for (int t = 0; t < MAXS; ++t) xv[t] = t < s ? row[t] : 0.f;
 }
 
-// Nearest centroid of one point: strict < in index order (lowest index wins
-// ties); each distance summed dim by dim without FMA contraction.
-template <int MAXS>
-__device__ __forceinline__ int nearest(const float (&xv)[MAXS], const float* cs, int k, int s,
-                                       float* best_out) {
-    float best = CUDART_INF_F;
-    int bi = 0;
-    for (int j = 0; j < k; ++j) {
-        const float* cj = cs + j * s;
-        float acc = 0.f;
+constexpr int kWarps = kThreads / 32;
+
+// Points a thread of the narrow stats kernel takes per tile: two where they
+// fit in registers (s <= 16), so that each centroid coordinate read from
+// shared memory serves both -- those reads, not the arithmetic, bound the
+// SIMT distances at small s.
+__host__ __device__ constexpr int stats_pts(int maxs) { return maxs <= 16 ? 2 : 1; }
+
+// Shared memory of the narrow stats kernel: centroids (k*s), accumulators
+// (k*(s+1): each centroid's sums, then its count), the tile's points ranked
+// by centroid (pts*kThreads*s coordinates), the warps' inertia sums
+// (pts*kWarps), the tile's per-centroid offsets (k+1 ints), the scan's warp
+// totals (kWarps ints) and each warp's count of each centroid for each of a
+// thread's points (pts*kWarps*k bytes: at most 32 each).
+// The op wrapper reads it through kmeans_stats_smem_bytes.
+__host__ __device__ inline size_t stats_smem_bytes(int k, int s) {
+    const size_t pts = stats_pts(s);
+    return sizeof(float) * ((size_t)k * s + (size_t)k * (s + 1) + pts * kThreads * s +
+                            pts * kWarps) +
+           sizeof(int) * ((size_t)k + 1 + kWarps) + pts * kWarps * k;
+}
+
+// The sums over the block of PTS values a thread, each in a fixed order: a
+// butterfly in each warp (every lane ends with the same bits, as a + b ==
+// b + a), then the warps' sums in a fixed tree.  Every thread gets the same
+// bits, in v.  red: PTS*kWarps floats of shared memory, free again only
+// after the caller's next __syncthreads.
+template <int PTS>
+__device__ __forceinline__ void block_tree_sums(float (&v)[PTS], float* red) {
 #pragma unroll
-        for (int t = 0; t < MAXS; ++t) {
-            if (t < s) {
-                const float e = __fsub_rn(xv[t], cj[t]);
-                acc = __fadd_rn(acc, __fmul_rn(e, e));
+    for (int q = 0; q < PTS; ++q)
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
+    if ((threadIdx.x & 31) == 0)
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) red[q * kWarps + (threadIdx.x >> 5)] = v[q];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < PTS; ++q) {
+        float w[kWarps];
+#pragma unroll
+        for (int i = 0; i < kWarps; ++i) w[i] = red[q * kWarps + i];
+#pragma unroll
+        for (int h = kWarps / 2; h > 0; h >>= 1)
+#pragma unroll
+            for (int i = 0; i < h; ++i) w[i] = w[2 * i] + w[2 * i + 1];
+        v[q] = w[0];
+    }
+}
+
+// off[j] <- the tile's points whose centroid is below j, for j in [0, k]
+// (off[k]: all of them), from the NV (virtual) warps' counts of each
+// centroid (wcnt[v * k + j]), by the whole block: each thread takes a
+// contiguous run of j.  wsum: kWarps ints of shared memory.  Ends
+// synchronised.
+template <int NV>
+__device__ __forceinline__ void tile_offsets(const unsigned char* wcnt, int k, int* off,
+                                             int* wsum) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int per = (k + 1 + kThreads - 1) / kThreads;
+    const int lo = min(k + 1, tid * per), hi = min(k + 1, lo + per);
+    auto total = [&](int j) {
+        int t = 0;
+        if (j < k)
+#pragma unroll
+            for (int v = 0; v < NV; ++v) t += wcnt[v * k + j];
+        return t;
+    };
+    int local = 0;
+    for (int j = lo; j < hi; ++j) local += total(j);
+    int incl = local;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int run = incl - local;
+    for (int w = 0; w < warp; ++w) run += wsum[w];
+    for (int j = lo; j < hi; ++j) {
+        off[j] = run;
+        run += total(j);
+    }
+    __syncthreads();
+}
+
+// Nearest centroid of each of PTS points in registers against the codebook
+// cs in shared memory: strict < in index order (lowest index wins ties),
+// each distance summed dim by dim without FMA contraction, the plain
+// version's arithmetic.  Each centroid coordinate is read from shared memory
+// once for all PTS points; VEC (s == MAXS): 16 bytes at a time, the rows
+// then lying on 16-byte boundaries.  Call it through nearest().
+template <int MAXS, int PTS, bool VEC>
+__device__ __forceinline__ void nearest_pts(const float (&xv)[PTS][MAXS], const float* cs, int k,
+                                            int s, int (&bi)[PTS], float (&best)[PTS]) {
+#pragma unroll
+    for (int q = 0; q < PTS; ++q) {
+        best[q] = CUDART_INF_F;
+        bi[q] = 0;
+    }
+    for (int j = 0; j < k; ++j) {
+        float acc[PTS];
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) acc[q] = 0.f;
+        if (VEC) {
+            const float4* cj = reinterpret_cast<const float4*>(cs + j * MAXS);
+#pragma unroll
+            for (int t4 = 0; t4 < MAXS / 4; ++t4) {
+                const float4 cv = cj[t4];
+                const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+#pragma unroll
+                    for (int q = 0; q < PTS; ++q) {
+                        const float d = __fsub_rn(xv[q][4 * t4 + e], c4[e]);
+                        acc[q] = __fadd_rn(acc[q], __fmul_rn(d, d));
+                    }
+            }
+        } else {
+            const float* cj = cs + j * s;
+#pragma unroll
+            for (int t = 0; t < MAXS; ++t) {
+                if (t < s) {
+                    const float c = cj[t];
+#pragma unroll
+                    for (int q = 0; q < PTS; ++q) {
+                        const float d = __fsub_rn(xv[q][t], c);
+                        acc[q] = __fadd_rn(acc[q], __fmul_rn(d, d));
+                    }
+                }
             }
         }
-        if (acc < best) {
-            best = acc;
-            bi = j;
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            if (acc[q] < best[q]) {
+                best[q] = acc[q];
+                bi[q] = j;
+            }
         }
     }
-    *best_out = best;
-    return bi;
 }
 
-// Shared memory of the stats kernel: centroids (k*s), accumulators
-// (k*(s+1): sums then the count), and one tile of kThreads points
-// (best distance, coordinates, assignment).
-__host__ __device__ inline size_t stats_smem_bytes(int k, int s) {
-    return sizeof(float) * ((size_t)k * s + (size_t)k * (s + 1) + (size_t)kThreads * (s + 1)) +
-           sizeof(int) * kThreads;
+template <int MAXS, int PTS>
+__device__ __forceinline__ void nearest(const float (&xv)[PTS][MAXS], const float* cs, int k,
+                                        int s, int (&bi)[PTS], float (&best)[PTS]) {
+    if (s == MAXS)
+        nearest_pts<MAXS, PTS, true>(xv, cs, k, s, bi, best);
+    else
+        nearest_pts<MAXS, PTS, false>(xv, cs, k, s, bi, best);
 }
 
+// Lloyd statistics of one chunk of block_n points (grid: chunks x
+// codebooks), narrow: the codebook in shared memory, PTS points a thread in
+// registers.  Per tile of PTS*kThreads points (a thread's points kThreads
+// apart): each point's nearest centroid (strict < in index order); the
+// inertia of each run of kThreads points as block_tree_sums; then the
+// points ranked by (centroid, index) -- within a warp by __match_any_sync
+// and the lower lanes' popc, across warps by each (virtual) warp's count of
+// the centroid in the warps before it, after an exclusive scan over k of
+// the centroids' totals -- and stored in that order; then thread (j, t)
+// adds centroid j's points to its sum of dim t (t == s: the count), in
+// index order.  Each sum thus runs over the chunk's points in index order,
+// as the wide kernel's does: the same bits.
 template <int MAXS>
 __global__ void __launch_bounds__(kThreads)
 kmeans_stats_partial_kernel(const float* __restrict__ x,   // (B, n, s)
@@ -195,57 +375,91 @@ kmeans_stats_partial_kernel(const float* __restrict__ x,   // (B, n, s)
                             float* __restrict__ part_inertia,  // (B, nblk)
                             int* __restrict__ assign)          // (B, n) or null
 {
-    extern __shared__ float smem[];
-    float* cs = smem;                      // k*s
-    float* acc = cs + k * s;               // k*(s+1)
-    float* tbest = acc + k * (s + 1);      // kThreads best distances
-    float* tx = tbest + kThreads;          // kThreads*s coordinates
-    int* ta = reinterpret_cast<int*>(tx + kThreads * s);  // kThreads assignments
+    constexpr int PTS = stats_pts(MAXS);
+    constexpr int kTile = PTS * kThreads;
+    extern __shared__ __align__(16) float smem[];
+    float* cs = smem;                       // k*s
+    float* acc = cs + k * s;                // k*(s+1)
+    float* tx = acc + k * (s + 1);          // kTile*s: the tile's points in ranked order
+    float* red = tx + kTile * s;            // PTS*kWarps
+    int* off = reinterpret_cast<int*>(red + PTS * kWarps);  // k+1: each centroid's first slot
+    int* wsum = off + k + 1;                // kWarps
+    unsigned char* wcnt = reinterpret_cast<unsigned char*>(wsum + kWarps);  // PTS*kWarps*k
 
     const int blk = blockIdx.x;
     const int nblk = gridDim.x;
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
     const long long xoff = (long long)b * n;
 
     for (int u = tid; u < k * s; u += kThreads) cs[u] = c[(long long)b * k * s + u];
     for (int u = tid; u < k * (s + 1); u += kThreads) acc[u] = 0.f;
+    for (int u = tid; u < PTS * kWarps * k; u += kThreads) wcnt[u] = 0;
     __syncthreads();
 
-    float inertia = 0.f;  // thread 0 only
+    float inertia = 0.f;  // the same in every thread
     const int start = blk * block_n;
     const int end = min(start + block_n, n);
-    for (int t0 = start; t0 < end; t0 += kThreads) {
-        const int p = t0 + tid;
-        if (p < end) {
-            float xv[MAXS];
-            load_point<MAXS>(x + (xoff + p) * s, s, xv);
-            float best;
-            const int bi = nearest<MAXS>(xv, cs, k, s, &best);
-            if (assign) assign[xoff + p] = bi;
-            ta[tid] = bi;
-            tbest[tid] = best;
+    for (int t0 = start; t0 < end; t0 += kTile) {
+        float xv[PTS][MAXS];
+        bool live[PTS];
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            const int p = t0 + q * kThreads + tid;
+            live[q] = p < end;
+            if (live[q]) {
+                load_point<MAXS>(x + (xoff + p) * s, s, xv[q]);
+            } else {
+#pragma unroll
+                for (int t = 0; t < MAXS; ++t) xv[q][t] = 0.f;
+            }
+        }
+        int bi[PTS];  // dead points match only each other
+        float best[PTS];
+        nearest<MAXS, PTS>(xv, cs, k, s, bi, best);
+        int lrank[PTS];
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            if (!live[q]) {
+                bi[q] = -1;
+                best[q] = 0.f;
+            } else if (assign) {
+                assign[xoff + t0 + q * kThreads + tid] = bi[q];
+            }
+            const unsigned peers = __match_any_sync(0xffffffffu, bi[q]);
+            lrank[q] = __popc(peers & ((1u << lane) - 1u));
+            if (live[q] && lrank[q] == 0)
+                wcnt[(q * kWarps + warp) * k + bi[q]] = (unsigned char)__popc(peers);
+        }
+        block_tree_sums<PTS>(best, red);  // synchronises: the warps' counts are in
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) inertia += best[q];
+        tile_offsets<PTS * kWarps>(wcnt, k, off, wsum);
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            if (!live[q]) continue;
+            int pos = off[bi[q]] + lrank[q];
+            for (int v = 0; v < q * kWarps + warp; ++v) pos += wcnt[v * k + bi[q]];
 #pragma unroll
             for (int t = 0; t < MAXS; ++t)
-                if (t < s) tx[tid * s + t] = xv[t];
+                if (t < s) tx[pos * s + t] = xv[q][t];
         }
         __syncthreads();
-        const int cnt = min(kThreads, end - t0);  // the tile's points, in order
+        for (int u = tid; u < PTS * kWarps * k; u += kThreads) wcnt[u] = 0;  // for the next tile
         for (int u = tid; u < k * (s + 1); u += kThreads) {
             const int j = u / (s + 1);
             const int t = u - j * (s + 1);
+            const int lo = off[j], hi = off[j + 1];
+            if (lo == hi) continue;
             float a = acc[u];
             if (t < s) {
-                for (int pp = 0; pp < cnt; ++pp)
-                    if (ta[pp] == j) a += tx[pp * s + t];
+                for (int i = lo; i < hi; ++i) a += tx[i * s + t];
             } else {
-                for (int pp = 0; pp < cnt; ++pp)
-                    if (ta[pp] == j) a += 1.f;
+                a += (float)(hi - lo);
             }
             acc[u] = a;
         }
-        if (tid == 0)
-            for (int pp = 0; pp < cnt; ++pp) inertia += tbest[pp];
         __syncthreads();
     }
 
@@ -273,6 +487,7 @@ kmeans_stats_reduce_kernel(const float* __restrict__ part_sums, const float* __r
     for (int u = blockIdx.x * kThreads + threadIdx.x; u < ks + k + 1; u += gridDim.x * kThreads) {
         float a = 0.f;
         if (u < ks) {
+#pragma unroll 8
             for (int blk = 0; blk < nblk; ++blk) a += part_sums[((long long)b * nblk + blk) * ks + u];
             sums[(long long)b * ks + u] = a;
         } else if (u < ks + k) {
@@ -294,7 +509,7 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
                                int* __restrict__ assign,     // (2ns, n)
                                int* __restrict__ counts)     // (ns, k*k), zeroed by the caller
 {
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float smem[];
     float* c1 = smem;                                   // k*s
     float* c2 = c1 + k * s;                             // k*s
     int* hist = reinterpret_cast<int*>(c2 + k * s);     // k*k
@@ -311,15 +526,15 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
     const int start = blockIdx.x * block_n;
     const int end = min(start + block_n, n);
     for (int p = start + tid; p < end; p += kThreads) {
-        float xv[MAXS];
-        float best;
-        load_point<MAXS>(x + ((long long)i * n + p) * s, s, xv);
-        const int a1 = nearest<MAXS>(xv, c1, k, s, &best);
-        load_point<MAXS>(x + ((long long)(ns + i) * n + p) * s, s, xv);
-        const int a2 = nearest<MAXS>(xv, c2, k, s, &best);
-        assign[(long long)i * n + p] = a1;
-        assign[(long long)(ns + i) * n + p] = a2;
-        atomicAdd(&hist[a1 * k + a2], 1);
+        float xv[1][MAXS], best[1];
+        int a1[1], a2[1];
+        load_point<MAXS>(x + ((long long)i * n + p) * s, s, xv[0]);
+        nearest<MAXS, 1>(xv, c1, k, s, a1, best);
+        load_point<MAXS>(x + ((long long)(ns + i) * n + p) * s, s, xv[0]);
+        nearest<MAXS, 1>(xv, c2, k, s, a2, best);
+        assign[(long long)i * n + p] = a1[0];
+        assign[(long long)(ns + i) * n + p] = a2[0];
+        atomicAdd(&hist[a1[0] * k + a2[0]], 1);
     }
     __syncthreads();
     for (int u = tid; u < k * k; u += kThreads)
@@ -333,7 +548,7 @@ kmeans_assign_batched_kernel(const float* __restrict__ x,  // (B, n, s)
                              int n, int k, int s, int block_n,
                              int* __restrict__ assign)     // (B, n)
 {
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float smem[];
     float* cs = smem;  // k*s
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
@@ -343,14 +558,15 @@ kmeans_assign_batched_kernel(const float* __restrict__ x,  // (B, n, s)
     const int start = blockIdx.x * block_n;
     const int end = min(start + block_n, n);
     for (int p = start + tid; p < end; p += kThreads) {
-        float xv[MAXS];
-        float best;
-        load_point<MAXS>(x + ((long long)b * n + p) * s, s, xv);
-        assign[(long long)b * n + p] = nearest<MAXS>(xv, cs, k, s, &best);
+        float xv[1][MAXS], best[1];
+        int bi[1];
+        load_point<MAXS>(x + ((long long)b * n + p) * s, s, xv[0]);
+        nearest<MAXS, 1>(xv, cs, k, s, bi, best);
+        assign[(long long)b * n + p] = bi[0];
     }
 }
 
-constexpr int kTileK = 32;  // centroids per shared-memory tile of the wide stats / pair kernels
+constexpr int kTileK = 32;  // centroids per shared-memory tile of the wide pair kernel
 constexpr int kTileS = 32;  // dims per slice
 
 // Nearest centroid of one point of any width against a codebook of any size,
@@ -525,8 +741,11 @@ centroid_norms_kernel(const float* __restrict__ c, int B, int k, int s,
 // Nearest centroid of every point against its own codebook, any width and
 // any k, bit-equal to the plain version (grid: tiles of kBM points x
 // codebooks).  Kernel 6 is this at B = 1; kernel 5 takes it for its wide
-// shapes.  8 warps in 4 (rows) x 2 (centroid columns), each warp a 32 x 32
-// corner of the kBM x kBN tile as 2 x 4 m16n8k8 products.  rechecks (null on
+// shapes, and row 3's wide variant its argmins.  8 warps in 4 (rows) x 2
+// (centroid columns), each warp a 32 x 32 corner of the kBM x kBN tile as
+// 2 x 4 m16n8k8 products.  best (null but for row 3) takes each point's exact
+// best distance d*, the high half of its (d*, j*) key: a plain re-check's
+// distance, so the plain version's minimum bit for bit.  rechecks (null on
 // the path) takes each block's count of re-checked pairs; SCREEN writes the
 // screen's distances to screen (B, n, k), for the checks.
 template <int VEC, bool SCREEN>
@@ -538,7 +757,8 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
                               int n, int k, int s, float mu,
                               int* __restrict__ assign,        // (B, n)
                               int* __restrict__ rechecks,      // (B, blocks) or null
-                              float* __restrict__ screen)      // (B, n, k) if SCREEN
+                              float* __restrict__ screen,      // (B, n, k) if SCREEN
+                              float* __restrict__ best)        // (B, n) or null
 {
     extern __shared__ __align__(16) float tsm[];
     float* xs = tsm;                           // [2][kBM][kLdS]
@@ -760,8 +980,11 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
         }
     }
     __syncthreads();
-    for (int i = tid; i < kBM; i += kThreads)
-        if (p0 + i < n) assign[(long long)b * n + p0 + i] = (int)(unsigned)(key[i] & 0xffffffffu);
+    for (int i = tid; i < kBM; i += kThreads) {
+        if (p0 + i >= n) continue;
+        assign[(long long)b * n + p0 + i] = (int)(unsigned)(key[i] & 0xffffffffu);
+        if (best) best[(long long)b * n + p0 + i] = __uint_as_float((unsigned)(key[i] >> 32));
+    }
     if (rechecks) {
         for (int o = 16; o > 0; o >>= 1) nre += __shfl_xor_sync(0xffffffffu, nre, o);
         int* red = reinterpret_cast<int*>(tmin);
@@ -778,21 +1001,21 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
 template <int VEC, bool SCREEN>
 int launch_screened_v(const float* x, const float* c, const float* cn, const float* cmax,
                       int B, int n, int k, int s, float mu, int* assign, int* rechecks,
-                      float* screen, cudaStream_t stream) {
+                      float* screen, float* best, cudaStream_t stream) {
     auto kern = kmeans_assign_streamed_kernel<VEC, SCREEN>;
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kScreenSmem);
     if (e != cudaSuccess) return (int)e;
     kern<<<dim3((n + kBM - 1) / kBM, B), kThreads, kScreenSmem, stream>>>(
-        x, c, cn, cmax, n, k, s, mu, assign, rechecks, screen);
+        x, c, cn, cmax, n, k, s, mu, assign, rechecks, screen, best);
     return (int)cudaGetLastError();
 }
 
 // The norms' prologue, then the screened kernel.  norms: B*k + B floats of
 // scratch (||c||^2, then each codebook's largest).  screen non-null takes the
-// SCREEN instantiation.
+// SCREEN instantiation; best non-null takes each point's d*.
 int launch_assign_streamed(const float* x, const float* c, int B, int n, int k, int s, float mu,
-                           float* norms, int* assign, int* rechecks, float* screen,
+                           float* norms, int* assign, int* rechecks, float* screen, float* best,
                            cudaStream_t stream) {
     float* cn = norms;
     float* cmax = norms + (size_t)B * k;
@@ -806,7 +1029,8 @@ int launch_assign_streamed(const float* x, const float* c, int B, int n, int k, 
     const bool vec4 = s % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                       (reinterpret_cast<uintptr_t>(c) & 15) == 0;
 #define REPRO_SCREENED(V, S) \
-    return launch_screened_v<V, S>(x, c, cn, cmax, B, n, k, s, mu, assign, rechecks, screen, stream)
+    return launch_screened_v<V, S>(x, c, cn, cmax, B, n, k, s, mu, assign, rechecks, screen, best, \
+                                   stream)
     if (screen) {
         if (vec4) REPRO_SCREENED(4, true);
         REPRO_SCREENED(1, true);
@@ -817,70 +1041,160 @@ int launch_assign_streamed(const float* x, const float* c, int B, int n, int k, 
 }
 
 // ---- wide variants of kernels 3 and 4: any width s and any k -------------
-// Grid and outputs as the narrow kernels (chunks of block_n points x
+// Kernel 4's wide variant keeps the narrow grid (chunks of block_n points x
 // codebooks); a block walks its chunk in tiles of kThreads points, one a
-// thread, and finds each point's centroid with nearest_streamed.  Kernel 5's
-// wide variant is kmeans_assign_streamed_kernel above.
+// thread, and finds each point's centroid with nearest_streamed.  Kernel
+// 5's wide variant is kmeans_assign_streamed_kernel above; kernel 3's takes
+// its argmins and d* from it, then kmeans_stats_wide_accumulate_kernel.
 
+constexpr int kSub = 4096;  // points the wide stats kernel ranks at once (a power of two)
+constexpr int kRowU = 8;    // rows a warp of the wide stats kernel keeps in flight
+constexpr int kRowQ = 4;    // dims a lane takes per pass: kRowQ * 32 dims a pass
+
+// keys[0..len) ascending, by the whole block (bitonic; len a power of two).
+// Ends synchronised.
+__device__ __forceinline__ void block_bitonic_sort(unsigned long long* keys, int len) {
+    for (int size = 2; size <= len; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            for (int i = threadIdx.x; i < len / 2; i += kThreads) {
+                const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+                const unsigned long long a = keys[lo], b = keys[hi];
+                if ((a > b) == ((lo & size) == 0)) {
+                    keys[lo] = b;
+                    keys[hi] = a;
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// The first i in [0, len) whose key's centroid (high half) is >= j, else len.
+__device__ __forceinline__ int first_key_of(const unsigned long long* keys, int len, int j) {
+    int lo = 0, hi = len;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if ((long long)(keys[mid] >> 32) < j) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
+
+// Lloyd statistics from the screened kernel's argmins and d* (wide: any s,
+// any k; grid: chunks x `groups` x codebooks).  A chunk's inertia is its
+// tiles' block_tree_sums in tile order, as in the narrow kernel.  The
+// block ranks each sub-chunk of <= kSub points by its (centroid, index) key
+// (bitonic), and each warp takes a run of k / (groups * kWarps) centroids:
+// it walks their ranked points in order, lanes over dims, kRowU rows in
+// flight, each centroid's sum in registers, and writes each row of its
+// partial once, coalesced (a centroid with no point: zeros).  A chunk past
+// kSub points carries its sums from sub-chunk to sub-chunk through its own
+// partial rows.  Each sum runs over the chunk's points in index order: the
+// narrow kernel's bits.
 __global__ void __launch_bounds__(kThreads)
-kmeans_stats_partial_wide_kernel(const float* __restrict__ x,   // (B, n, s)
-                                 const float* __restrict__ c,   // (B, k, s)
-                                 int n, int k, int s, int block_n,
-                                 float* __restrict__ part_sums,     // (B, nblk, k, s)
-                                 float* __restrict__ part_counts,   // (B, nblk, k)
-                                 float* __restrict__ part_inertia,  // (B, nblk)
-                                 int* __restrict__ assign)          // (B, n) or null
+kmeans_stats_wide_accumulate_kernel(const float* __restrict__ x,       // (B, n, s)
+                                    const int* __restrict__ assign,    // (B, n)
+                                    const float* __restrict__ best,    // (B, n) d*
+                                    int n, int k, int s, int block_n, int groups,
+                                    float* __restrict__ part_sums,     // (B, nblk, k, s)
+                                    float* __restrict__ part_counts,   // (B, nblk, k)
+                                    float* __restrict__ part_inertia)  // (B, nblk)
 {
-    __shared__ float cs[kTileK][kTileS];
-    __shared__ float tbest[kThreads];
-    __shared__ int ta[kThreads];
-    const int blk = blockIdx.x;
+    __shared__ unsigned long long keys[kSub];
+    __shared__ float red[kWarps];
+    const int blk = blockIdx.x / groups, g = blockIdx.x - blk * groups;
+    const int nblk = gridDim.x / groups;
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
     const long long xoff = (long long)b * n;
-    const float* cb = c + (long long)b * k * s;
-    // this block's partials live in device memory (k*s need not fit in
-    // shared memory); only this block writes them, so no atomics
-    const long long pb = (long long)b * gridDim.x + blk;
-    float* psums = part_sums + pb * k * s;
-    float* pcounts = part_counts + pb * k;
-    for (long long u = tid; u < (long long)k * s; u += kThreads) psums[u] = 0.f;
-    for (int u = tid; u < k; u += kThreads) pcounts[u] = 0.f;
-    __syncthreads();
-
-    float inertia = 0.f;  // thread 0 only
+    const long long pb = (long long)b * nblk + blk;
     const int start = blk * block_n;
     const int end = min(start + block_n, n);
-    for (int t0 = start; t0 < end; t0 += kThreads) {
-        const int p = t0 + tid;
-        const bool live = p < end;
-        float best;
-        const int bi = nearest_streamed(x + (xoff + (live ? p : start)) * s, live, cb, k, s, cs,
-                                        &best);
-        if (live) {
-            if (assign) assign[xoff + p] = bi;
-            ta[tid] = bi;
-            tbest[tid] = best;
+
+    if (g == 0) {
+        float inertia = 0.f;
+        for (int t0 = start; t0 < end; t0 += kThreads) {
+            float v[1] = {t0 + tid < end ? best[xoff + t0 + tid] : 0.f};
+            block_tree_sums<1>(v, red);
+            inertia += v[0];
+            __syncthreads();  // red is read before the next tile writes it
         }
-        __syncthreads();
-        // the tile's points in order, as the narrow kernel: thread t owns dim
-        // t of every centroid (t == s: the counts), so each sum runs over the
-        // points in index order
-        const int cnt = min(kThreads, end - t0);
-        for (int t = tid; t <= s; t += kThreads) {
-            for (int pp = 0; pp < cnt; ++pp) {
-                const int j = ta[pp];
-                if (t < s)
-                    psums[(long long)j * s + t] += x[(xoff + t0 + pp) * s + t];
-                else
-                    pcounts[j] += 1.f;
-            }
-        }
-        if (tid == 0)
-            for (int pp = 0; pp < cnt; ++pp) inertia += tbest[pp];
-        __syncthreads();
+        if (tid == 0) part_inertia[pb] = inertia;
     }
-    if (tid == 0) part_inertia[pb] = inertia;
+
+    const int nw = groups * kWarps, gw = g * kWarps + warp;
+    const int j0 = (int)((long long)k * gw / nw), j1 = (int)((long long)k * (gw + 1) / nw);
+    float* psums = part_sums + pb * k * s;
+    float* pcounts = part_counts + pb * k;
+    for (int c0 = start; c0 < end; c0 += kSub) {
+        const int len = min(kSub, end - c0);
+        int plen = 1;
+        while (plen < len) plen <<= 1;
+        for (int i = tid; i < plen; i += kThreads)
+            keys[i] = i < len ? (unsigned long long)(unsigned)assign[xoff + c0 + i] << 32 | (unsigned)i
+                              : ~0ull;
+        __syncthreads();
+        block_bitonic_sort(keys, plen);
+        const bool first = c0 == start;  // rows are written, not yet carried
+        const int lo = first_key_of(keys, plen, j0), hi = first_key_of(keys, plen, j1);
+        for (int d0 = 0; d0 < s; d0 += 32 * kRowQ) {
+            float acc[kRowQ];
+            int cur = -1, cnt = 0, next = j0;  // next: the first row not yet closed
+            // write row cur (and its count, on the first pass over the dims)
+            auto close = [&]() {
+#pragma unroll
+                for (int q = 0; q < kRowQ; ++q)
+                    if (d0 + lane + 32 * q < s) psums[(long long)cur * s + d0 + lane + 32 * q] = acc[q];
+                if (d0 == 0 && lane == 0) pcounts[cur] = (first ? 0.f : pcounts[cur]) + (float)cnt;
+            };
+            auto zero_rows = [&](int upto) {  // rows next..upto-1 have no point in the chunk
+                for (; next < upto; ++next) {
+#pragma unroll
+                    for (int q = 0; q < kRowQ; ++q)
+                        if (d0 + lane + 32 * q < s) psums[(long long)next * s + d0 + lane + 32 * q] = 0.f;
+                    if (d0 == 0 && lane == 0) pcounts[next] = 0.f;
+                }
+            };
+            for (int i0 = lo; i0 < hi; i0 += kRowU) {
+                float v[kRowU][kRowQ];
+                int aj[kRowU];
+#pragma unroll
+                for (int u = 0; u < kRowU; ++u) {
+                    aj[u] = -1;
+                    if (i0 + u < hi) {
+                        const unsigned long long key = keys[i0 + u];
+                        aj[u] = (int)(key >> 32);
+                        const float* row = x + (xoff + c0 + (int)(unsigned)(key & 0xffffffffu)) * s + d0;
+#pragma unroll
+                        for (int q = 0; q < kRowQ; ++q)
+                            v[u][q] = d0 + lane + 32 * q < s ? __ldg(row + lane + 32 * q) : 0.f;
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < kRowU; ++u) {
+                    if (aj[u] < 0) break;
+                    if (aj[u] != cur) {  // the same for every lane: no divergence
+                        if (cur >= 0) close();
+                        if (first) zero_rows(aj[u]);
+                        cur = aj[u];
+                        next = cur + 1;
+                        cnt = 0;
+#pragma unroll
+                        for (int q = 0; q < kRowQ; ++q)
+                            acc[q] = first || d0 + lane + 32 * q >= s
+                                         ? 0.f : psums[(long long)cur * s + d0 + lane + 32 * q];
+                    }
+#pragma unroll
+                    for (int q = 0; q < kRowQ; ++q) acc[q] += v[u][q];
+                    ++cnt;
+                }
+            }
+            if (cur >= 0) close();
+            if (first) zero_rows(j1);
+        }
+        __syncthreads();  // every warp is done with the keys
+    }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -921,6 +1235,19 @@ cudaError_t allow_smem(K kernel, size_t smem) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The partials summed over the blocks in block order, the k*s + k + 1
+// outputs spread over blocks.
+int launch_stats_reduce(const float* part_sums, const float* part_counts,
+                        const float* part_inertia, int B, int nblk, int k, int s, float* sums,
+                        float* counts, float* inertia, cudaStream_t stream) {
+    const long long outs = (long long)k * s + k + 1;
+    const long long blocks = (outs + kThreads - 1) / kThreads;
+    const int gx = (int)(blocks < 1024 ? blocks : 1024);
+    kmeans_stats_reduce_kernel<<<dim3(gx, B), kThreads, 0, stream>>>(
+        part_sums, part_counts, part_inertia, nblk, k, s, sums, counts, inertia);
+    return (int)cudaGetLastError();
+}
+
 template <int MAXS>
 int launch_stats(const float* x, const float* c, int B, int n, int k, int s,
                  int block_n, float* part_sums, float* part_counts, float* part_inertia,
@@ -933,26 +1260,33 @@ int launch_stats(const float* x, const float* c, int B, int n, int k, int s,
         x, c, n, k, s, block_n, part_sums, part_counts, part_inertia, assign);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    kmeans_stats_reduce_kernel<<<dim3(1, B), kThreads, 0, stream>>>(
-        part_sums, part_counts, part_inertia, nblk, k, s, sums, counts, inertia);
-    return (int)cudaGetLastError();
+    return launch_stats_reduce(part_sums, part_counts, part_inertia, B, nblk, k, s, sums, counts,
+                               inertia, stream);
 }
 
+// The screened kernel's argmins and d* (into assign and best, (B, n) each),
+// then the accumulation over `groups` blocks a chunk: enough blocks for two
+// a multiprocessor, at most 8 a chunk.
 int launch_stats_wide(const float* x, const float* c, int B, int n, int k, int s, int block_n,
-                      float* part_sums, float* part_counts, float* part_inertia, float* sums,
-                      float* counts, float* inertia, int* assign, cudaStream_t stream) {
+                      float mu, float* norms, float* best, float* part_sums, float* part_counts,
+                      float* part_inertia, float* sums, float* counts, float* inertia,
+                      int* assign, cudaStream_t stream) {
+    int e = launch_assign_streamed(x, c, B, n, k, s, mu, norms, assign, nullptr, nullptr, best,
+                                   stream);
+    if (e != (int)cudaSuccess) return e;
+    int dev = 0, sms = 0;
+    cudaError_t ce = cudaGetDevice(&dev);
+    if (ce == cudaSuccess) ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (ce != cudaSuccess) return (int)ce;
     const int nblk = (n + block_n - 1) / block_n;
-    kmeans_stats_partial_wide_kernel<<<dim3(nblk, B), kThreads, 0, stream>>>(
-        x, c, n, k, s, block_n, part_sums, part_counts, part_inertia, assign);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    // k*s may be large: spread the reduction's outputs over blocks
-    const long long outs = (long long)k * s + k + 1;
-    const long long blocks = (outs + kThreads - 1) / kThreads;
-    const int gx = (int)(blocks < 1024 ? blocks : 1024);
-    kmeans_stats_reduce_kernel<<<dim3(gx, B), kThreads, 0, stream>>>(
-        part_sums, part_counts, part_inertia, nblk, k, s, sums, counts, inertia);
-    return (int)cudaGetLastError();
+    const long long chunks = (long long)nblk * B;
+    const int groups = (int)std::min<long long>(8, std::max<long long>(1, (2LL * sms + chunks - 1) / chunks));
+    kmeans_stats_wide_accumulate_kernel<<<dim3(nblk * groups, B), kThreads, 0, stream>>>(
+        x, assign, best, n, k, s, block_n, groups, part_sums, part_counts, part_inertia);
+    ce = cudaGetLastError();
+    if (ce != cudaSuccess) return (int)ce;
+    return launch_stats_reduce(part_sums, part_counts, part_inertia, B, nblk, k, s, sums, counts,
+                               inertia, stream);
 }
 
 template <int MAXS>
@@ -985,16 +1319,26 @@ extern "C" const char* repro_cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// `wide` (chosen by the op wrapper from the shape) takes the streamed
-// variant; otherwise the register/shared-memory one for s <= 64.
+// Shared memory of a narrow statistics block, in bytes (at most INT_MAX):
+// the op wrapper takes the wide variant past the card's limit.
+extern "C" int kmeans_stats_smem_bytes(int k, int s) {
+    return (int)std::min<size_t>(stats_smem_bytes(k, s), INT_MAX);
+}
+
+// `wide` (chosen by the op wrapper from the shape) takes the screened
+// kernel's argmins and d* (mu its margin factor, kernel.screen_margin; norms
+// B*k + B floats and best B*n floats of scratch; assign then not null) and
+// the ranked accumulation; otherwise the register/shared-memory kernel for
+// s <= 64.
 extern "C" int kmeans_stats(const float* x, const float* c, int B, int n, int k,
                             int s, int block_n, float* part_sums, float* part_counts,
                             float* part_inertia, float* sums, float* counts, float* inertia,
-                            int* assign, int wide, void* stream) {
+                            int* assign, int wide, float mu, float* norms, float* best,
+                            void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (wide)
-        return launch_stats_wide(x, c, B, n, k, s, block_n, part_sums, part_counts,
-                                 part_inertia, sums, counts, inertia, assign, st);
+        return launch_stats_wide(x, c, B, n, k, s, block_n, mu, norms, best, part_sums,
+                                 part_counts, part_inertia, sums, counts, inertia, assign, st);
 #define REPRO_STATS(M) \
     return launch_stats<M>(x, c, B, n, k, s, block_n, part_sums, part_counts, part_inertia, \
                            sums, counts, inertia, assign, st)
@@ -1029,14 +1373,15 @@ extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, i
 
 // wide: the screened kernel (block_n then only bounds the plain version's
 // chunks: its blocks take kBM points each); mu is the margin's factor
-// (kernel.screen_margin), norms B*k + B floats of scratch, rechecks and
-// screen null except in the checks.
+// (kernel.screen_margin), norms B*k + B floats of scratch, rechecks, screen
+// and best null except in the checks.
 extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
                                      int block_n, int* assign, int wide, float mu, float* norms,
-                                     int* rechecks, float* screen, void* stream) {
+                                     int* rechecks, float* screen, float* best, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (wide)
-        return launch_assign_streamed(x, c, B, n, k, s, mu, norms, assign, rechecks, screen, st);
+        return launch_assign_streamed(x, c, B, n, k, s, mu, norms, assign, rechecks, screen, best,
+                                      st);
 #define REPRO_ASSIGN(M) return launch_assign_batched<M>(x, c, B, n, k, s, block_n, assign, st)
     if (s <= 4) REPRO_ASSIGN(4);
     if (s <= 8) REPRO_ASSIGN(8);
@@ -1049,6 +1394,6 @@ extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int 
 
 extern "C" int kmeans_assign(const float* x, const float* c, int n, int k, int s, float mu,
                              float* norms, int* assign, void* stream) {
-    return launch_assign_streamed(x, c, 1, n, k, s, mu, norms, assign, nullptr, nullptr,
+    return launch_assign_streamed(x, c, 1, n, k, s, mu, norms, assign, nullptr, nullptr, nullptr,
                                   static_cast<cudaStream_t>(stream));
 }

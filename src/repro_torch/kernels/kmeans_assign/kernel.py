@@ -10,18 +10,23 @@ assignment are one CUDA kernel, ``kmeans_assign_streamed_kernel``, at one
 codebook and at ``B``: a 3xTF32 tensor-core screen whose candidates within
 the margin :func:`screen_margin` are re-checked in the plain arithmetic, so
 its argmins are the plain version's bit for bit (see the source's header).
+The wide statistics take their argmins, and each point's exact best distance,
+from it, then add each point once in (centroid, index) order, as the narrow
+statistics kernel does: both give the same bits.
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates outputs and scratch, launches on the current stream and raises on
 any CUDA error.  ``stats_launches``, ``pair_hist_launches``,
 ``assign_batched_launches`` and ``assign_launches`` count the launches.
 :func:`kmeans_assign_probe` is the screened kernel with its instruments on
-(re-checks per block, the screen's distances), for the checks only.
+(re-checks per block, the screen's distances, each point's best distance),
+for the checks only.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,10 +38,10 @@ assign_batched_launches = 0
 assign_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P]
-_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
 _F = ctypes.c_float
-_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P]
+_STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P]
+_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
+_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P]
 _ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _F, _P, _P, _P]
 _U = 2.0**-24  # unit roundoff of fp32
 SCREEN_BLOCK_POINTS = 128  # points per block of the screened kernel (kBM in the source)
@@ -52,6 +57,12 @@ def screen_margin(s: int) -> float:
     needs the error within ``delta_p / 2``, and a safety factor of 4 covers
     the tensor cores' accumulation: ``mu_s = 8 E_s``."""
     return 8.0 * (7 * s + 20) * _U
+
+
+def stats_smem_bytes(k: int, s: int) -> int:
+    """Shared memory of a narrow statistics block at ``(k, s)``, in bytes, as
+    the source lays it out (at most 2^31 - 1); builds the library if needed."""
+    return _build.entry("kmeans_assign", "kmeans_stats_smem_bytes", [_I, _I])(k, s)
 
 
 def kmeans_stats(
@@ -70,7 +81,12 @@ def kmeans_stats(
     sums = torch.empty((b, k, s), **f32)
     counts = torch.empty((b, k), **f32)
     inertia = torch.empty((b,), **f32)
-    assign = torch.empty((b, n), dtype=torch.int32, device=dev) if with_assign else None
+    # the wide variant's argmins and best distances come from the screened
+    # kernel (norms: its scratch), so it always writes the assignments
+    assign = (torch.empty((b, n), dtype=torch.int32, device=dev)
+              if with_assign or wide else None)
+    norms = torch.empty((b * k + b,), **f32) if wide else None
+    best = torch.empty((b, n), **f32) if wide else None
     fn = _build.entry("kmeans_assign", "kmeans_stats", _STATS_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
@@ -78,11 +94,14 @@ def kmeans_stats(
             part_sums.data_ptr(), part_counts.data_ptr(), part_inertia.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), inertia.data_ptr(),
             None if assign is None else assign.data_ptr(), int(wide),
+            screen_margin(s) if wide else 0.0,
+            None if norms is None else norms.data_ptr(),
+            None if best is None else best.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_stats")
     stats_launches += 1
-    return assign, sums, counts, inertia
+    return (assign if with_assign else None), sums, counts, inertia
 
 
 def kmeans_pair_assign_hist(
@@ -107,7 +126,7 @@ def kmeans_pair_assign_hist(
     return assign, counts
 
 
-def _batched(x, centroids, block_n, wide, rechecks=None, screen=None) -> torch.Tensor:
+def _batched(x, centroids, block_n, wide, rechecks=None, screen=None, best=None) -> torch.Tensor:
     global assign_batched_launches
     b, n, s = x.shape
     k = centroids.shape[1]
@@ -122,6 +141,7 @@ def _batched(x, centroids, block_n, wide, rechecks=None, screen=None) -> torch.T
             int(wide), screen_margin(s), None if norms is None else norms.data_ptr(),
             None if rechecks is None else rechecks.data_ptr(),
             None if screen is None else screen.data_ptr(),
+            None if best is None else best.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_assign_batched")
@@ -135,19 +155,27 @@ def kmeans_assign_batched(
     return _batched(x, centroids, block_n, wide)
 
 
+class Probe(NamedTuple):
+    assign: torch.Tensor  # (B, n) int32
+    rechecks: torch.Tensor  # (B, blocks) int32: re-checked pairs per block
+    screen: torch.Tensor | None  # (B, n, k) f32: the screen's distances, if asked
+    best: torch.Tensor  # (B, n) f32: each point's exact best distance d*
+
+
 def kmeans_assign_probe(
     x: torch.Tensor, centroids: torch.Tensor, *, screen: bool = False
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+) -> Probe:
     """The screened kernel on ``x: (B, n, s)``, ``centroids: (B, k, s)`` with
-    its instruments: ``(assign (B, n) int32, re-checked pairs per block
-    (B, blocks) int32, the screen's distances (B, n, k) f32 if screen)``.
-    For the checks: the path never asks for either instrument."""
+    its instruments on (:class:`Probe`).  For the checks: the path never asks
+    for them (row 3's wide variant asks for ``best`` alone)."""
     b, n, _ = x.shape
     k = centroids.shape[1]
-    rechecks = torch.zeros((b, -(-n // SCREEN_BLOCK_POINTS)), dtype=torch.int32, device=x.device)
-    out = torch.empty((b, n, k), dtype=torch.float32, device=x.device) if screen else None
-    assign = _batched(x, centroids, SCREEN_BLOCK_POINTS, True, rechecks, out)
-    return assign, rechecks, out
+    dev = x.device
+    rechecks = torch.zeros((b, -(-n // SCREEN_BLOCK_POINTS)), dtype=torch.int32, device=dev)
+    out = torch.empty((b, n, k), dtype=torch.float32, device=dev) if screen else None
+    best = torch.empty((b, n), dtype=torch.float32, device=dev)
+    assign = _batched(x, centroids, SCREEN_BLOCK_POINTS, True, rechecks, out, best)
+    return Probe(assign, rechecks, out, best)
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,9 @@ memory for any other shape.  Both give the same results.  The wide
 assignment, which is also :func:`kmeans_assign`'s kernel, ranks the
 centroids on the tensor cores and re-checks every one within its margin in
 the plain arithmetic, so it too gives the plain version's argmins bit for
-bit; its blocks take 128 points each whatever ``block_n``.
+bit; its blocks take 128 points each whatever ``block_n``.  The wide
+statistics take their argmins from it and add each chunk's points in the
+narrow kernel's order: the same bits as the narrow statistics.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ __all__ = [
 #: registers; wider ones take the wide variants.
 MAX_DIM = 64
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
-_THREADS = 256  # threads per block of the kmeans kernels
 
 
 def _check(x, centroids, block_n) -> tuple[int, int, int, int]:
@@ -79,8 +80,8 @@ def kmeans_stats(
         a, sums, counts, inertia = kmeans_stats_ref(x, centroids, block_n=block_n)
         return (a if with_assign else None), sums, counts, inertia
     if x.device.type == "cuda":
-        # centroids, accumulators and one tile of points in shared memory
-        wide = not _fits(s, 4 * (k * s + k * (s + 1) + _THREADS * (s + 2)))
+        # the narrow block's layout is the source's: it states its size
+        wide = not _fits(s, kernel.stats_smem_bytes(k, s))
         return kernel.kmeans_stats(x, centroids, block_n, with_assign, wide)
     raise ValueError(f"no kmeans_stats route for device {x.device}")
 

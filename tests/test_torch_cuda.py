@@ -17,12 +17,17 @@ rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
 at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
 bf16 ulp in bf16 (sums in another order), and the reduced RWKV6 model on
-the card gives the CPU's logits.
+the card gives the CPU's logits.  Row 3 also runs on skewed inputs (one
+centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
+which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
+launches give equal bits and the screened kernel's best distances equal the
+plain minimum.
 """
 
 import pytest
 import torch
 
+from _stats_cases import KINDS, skewed
 from repro_torch import kernels
 from repro_torch.core import suco
 from repro_torch.core.tuning import TileConfig
@@ -157,15 +162,96 @@ def test_wide_kmeans_kernels_equal_plain(dev, s, k):
 
 def test_wide_stats_kernel_gives_the_narrow_bits(dev):
     """At a shape both variants take, the wide statistics kernel adds the
-    same points in the same order as the narrow one: equal bits."""
+    same points in the same order as the narrow one: equal bits, also where
+    a chunk spans several of the wide kernel's 4,096-point sub-chunks and
+    carries its sums from one to the next (block_n 9,000 and 8,192)."""
     from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
 
-    x, c = _blobs(21, 4, 9_000, 50, 8)
-    narrow = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), 2048, True, False)
-    wide = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), 2048, True, True)
+    x, c = _blobs(21, 4, 20_000, 50, 8)
+    for bn in (2048, 9000, 8192):
+        narrow = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), bn, True, False)
+        wide = kmeans_kernel.kmeans_stats(x.to(dev), c.to(dev), bn, True, True)
+        torch.cuda.synchronize()
+        for g, w in zip(wide, narrow):
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+def _assert_stats_match(got, want, x):
+    """A statistics kernel's ``(assign, sums, counts, inertia)`` against the
+    plain version's: assignments and counts equal, sums within 1e-5 * sum
+    |terms| (fp32 sums in another order), inertia within 1e-5 relative."""
+    a, sums, counts, inertia = got
+    b, _, s = x.shape
+    k = sums.shape[1]
+    assert torch.equal(a, want[0]) and torch.equal(counts, want[2])
+    mag = torch.zeros((b * k, s), dtype=torch.float64, device=x.device)
+    mag.index_add_(0, (a.long() + torch.arange(b, device=x.device)[:, None] * k).reshape(-1),
+                   x.abs().double().reshape(-1, s))
+    assert ((sums.double() - want[1].double()).abs() <= 1e-5 * mag.reshape(b, k, s)).all()
+    assert ((inertia.double() - want[3].double()).abs() <= 1e-5 * want[3].double()).all()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("s,k,n,bn", [
+    (1, 50, 3_037, 1_000), (8, 50, 3_037, 1_000), (13, 77, 3_037, 1_000),
+    (16, 256, 3_037, 1_000), (65, 300, 3_037, 1_000), (128, 1024, 3_037, 1_000),
+    (65, 300, 20_000, 9_000), (128, 1024, 20_000, 9_000)])
+@pytest.mark.parametrize("b", [1, 16])
+def test_stats_kernel_variants_equal_plain_on_skewed_data(dev, b, s, k, n, bn, kind, integer):
+    """Row 3, both variants (the narrow one where it fits), against the plain
+    version on the inputs of ``tests/test_torch_kmeans.py``'s skewed cases:
+    every point on one centroid (one bucket fills each tile and chunk), most
+    centroids empty, points over all; k off every multiple of 32 or 64 (but
+    1,024), n off block_n and the 256-point tile.  block_n = 9,000 makes the
+    wide kernel carry a chunk's sums over three 4,096-point sub-chunks (the
+    last ragged), then run a last chunk of 2,000.  Two launches give equal
+    bits, with or without the assignments, and the two variants give the
+    same bits.  The plain version runs on the card (the same bits as on the
+    CPU for the argmins) to keep the wide cases short."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = (torch.from_numpy(a).to(dev) for a in skewed(kind, b, n, k, s, seed=s + k + b,
+                                                          integer=integer))
+    want = kmeans_stats_ref(x, c, block_n=bn)
+    variants = [True] + ([False] if k * s <= 4096 else [])  # the narrow one takes these
+    outs = []
+    for wide in variants:
+        before = kernels.launch_counts()["kmeans_stats"]
+        got = kmeans_kernel.kmeans_stats(x, c, bn, True, wide)
+        again = kmeans_kernel.kmeans_stats(x, c, bn, False, wide)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["kmeans_stats"] == before + 2
+        _assert_stats_match(got, want, x)
+        assert again[0] is None
+        assert all(torch.equal(g, h) for g, h in zip(got[1:], again[1:]))
+        outs.append(got)
+    if len(outs) == 2:
+        assert all(torch.equal(g, w) for g, w in zip(*outs))
+    if kind == "one_takes_all":
+        assert ((got[2] > 0).sum(1) == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["blobs", *KINDS])
+@pytest.mark.parametrize("b,n,s,k", [(1, 20_000, 128, 1024), (3, 5_000, 65, 300), (2, 777, 5, 7)])
+def test_screened_kernel_gives_the_plain_minimum_distance(dev, kind, b, n, s, k):
+    """The screened kernel's d* (row 3's wide variant reads it for the
+    inertia) equals the plain version's minimum distance bit for bit, and
+    its argmins stay the plain version's."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    if kind == "blobs":
+        x, c = (a.to(dev) for a in _blobs(25, b, n, k, s))
+    else:
+        x, c = (torch.from_numpy(a).to(dev) for a in skewed(kind, b, n, k, s, seed=26,
+                                                              integer=False))
+    probe = kmeans_kernel.kmeans_assign_probe(x, c)
+    want = kmeans_assign_batched_ref(x, c, block_n=4096)
+    d = torch.stack([sqdist_rowwise(x[i], c[i]) for i in range(b)])
     torch.cuda.synchronize()
-    for g, w in zip(wide, narrow):
-        assert torch.equal(g.cpu(), w.cpu())
+    assert torch.equal(probe.assign, want)
+    assert torch.equal(probe.best, d.gather(2, want.long()[..., None])[..., 0])
+    assert torch.equal(kmeans_ops.kmeans_assign_batched(x, c, block_n=4096), want)
 
 
 @pytest.mark.parametrize("s,k", [(16, 256), (128, 256)])
@@ -397,7 +483,8 @@ def test_screened_assign_kernel_equals_plain_on_adversarial_data(dev, kind):
     want = kmeans_assign_ref(x, c)
     xd, cd = x.to(dev), c.to(dev)
     assert torch.equal(kmeans_ops.kmeans_assign(xd, cd).cpu(), want)
-    got, rechecks, screen = kmeans_kernel.kmeans_assign_probe(xd[None], cd[None], screen=True)
+    got, rechecks, screen, best = kmeans_kernel.kmeans_assign_probe(xd[None], cd[None],
+                                                                     screen=True)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want)
     n, k = x.shape[0], c.shape[0]
@@ -405,6 +492,7 @@ def test_screened_assign_kernel_equals_plain_on_adversarial_data(dev, kind):
     big = (x.double() ** 2).sum(1) + (c.double() ** 2).sum(1).max()
     delta = kmeans_kernel.screen_margin(x.shape[1]) * big
     assert ((screen[0].cpu().double() - d).abs() <= delta[:, None] / 4).all()
+    assert torch.equal(best[0].cpu(), d.float().gather(1, want.long()[:, None])[:, 0])
     per_point = int(rechecks.sum()) / n
     assert 1 <= per_point <= k
     if kind == "offset":

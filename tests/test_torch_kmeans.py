@@ -15,6 +15,9 @@
   versions against the Pallas kernels in interpret mode on integer data
   (exact), and ``kmeans`` / ``kmeans_batched`` at d = 65..128 against the
   JAX package fed its own initial centroids.
+* **Skewed statistics** (row 3 at the (s, k) of its three shapes on the
+  card): one centroid taking every point, most centroids empty, a ragged
+  last chunk; exact on integer data against the Pallas kernel.
 * **The screen of rows 6 and 5-wide** (the card's kernel): its arithmetic
   emulated in fp64 on adversarial inputs stays within ``delta_p / 8`` of the
   plain distances, with the margin the wrapper passes, and the one-pass
@@ -40,6 +43,7 @@ from repro.kernels.kmeans_assign.ops import kmeans_assign_batched as j_assign_ba
 from repro.kernels.kmeans_assign.ops import kmeans_assign_stats as j_stats
 from repro.kernels.kmeans_assign.ops import kmeans_pair_assign_hist as j_pair_hist
 
+from _stats_cases import KINDS, SHAPES, skewed
 from repro_torch import kernels
 from repro_torch.core import kmeans as pkm
 from repro_torch.data import gaussian_mixture
@@ -280,6 +284,31 @@ def test_wide_stats_and_batched_assign_match_the_jax_kernels(s, k):
                             interpret=True)
     got = kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=700)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("s,k", SHAPES)
+def test_stats_on_skewed_data_match_the_jax_kernel(s, k, kind):
+    """Row 3 at the (s, k) of its three shapes on the card (the build's
+    half-subspaces, PQ8x8, IVF1024) on skewed integer data: every point on
+    one centroid, most centroids empty, points over all of them; n = 700 is
+    off both chunkings (300 here, 256 there), so each has a ragged last
+    chunk.  The card's tests hold both kernel variants to this plain version
+    on the same inputs."""
+    b, n = 2, 700
+    x, c = skewed(kind, b, n, k, s, seed=s + k)
+    ja, jsums, jcounts, jinertia = j_stats(jnp.asarray(x), jnp.asarray(c), bn=256,
+                                           impl="pallas", interpret=True)
+    a, sums, counts, inertia = kmeans_ops.kmeans_stats(T(x), T(c), block_n=300, with_assign=True)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(jsums))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(inertia.numpy(), np.asarray(jinertia))
+    used = (counts > 0).sum(1)
+    if kind == "one_takes_all":
+        assert (used == 1).all() and (counts.max(1).values == n).all()
+    elif kind == "most_empty":
+        assert (used <= 3).all()
 
 
 @pytest.mark.parametrize("s", [16, 65])
