@@ -43,7 +43,10 @@ re-checks per point and its largest screen error over its margin (<= 0.25)
 are reported, and its best distances (row 3's wide variant reads them) must
 equal the plain minimum distance bit for bit.  Row 3 (the Lloyd statistics)
 is held at all three of its shapes (the build's, PQ8x8's and IVF1024's), and
-two launches must give equal bits at each.
+two launches must give equal bits at each.  Row 11 (linear attention) is
+also held with every decay at the clip (1e-6) and with half of them at 1,
+at chunks 64 and 128, both shifts, and two launches at the RWKV6 prefill
+shape must give equal bits.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
 kernel: its launches on its path, its error against the plain version, its
@@ -58,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -70,6 +74,9 @@ sys.path.insert(0, str(ROOT / "src"))
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA cores, fp32 (also taken for 32-bit int ops)
 TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, dense TF32
+#: H100 SXM special-function units: 16 exponentials (or logarithms) a clock
+#: per SM, 132 SMs at the 1.98 GHz boost clock the fp32 rate assumes
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 SOURCES = {
     "sc_score_cells_prefilter_compact": (
         "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:151"),
@@ -350,12 +357,15 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     if not torch.equal(got, sc_score_cells_ref(ranks, cuts, cells)):
         raise AssertionError("sc_score_cells differs from the plain version")
     bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ns * m * cells.shape[1])
+    # the row that moves most between runs: the median of 5 readings, and their spread
+    readings = [time_ms(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 100)
+                for _ in range(5)]
     out["sc_score_cells"] = dict(
-        max_abs_err=0.0,
-        ms=time_ms(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 100),
+        max_abs_err=0.0, ms=statistics.median(readings),
         plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, cells), 20),
         bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(m=m, chunk=cells.shape[1], ns=ns, cells=index.n_cells),
+        detail=dict(m=m, chunk=cells.shape[1], ns=ns, cells=index.n_cells,
+                    ms_readings=readings, ms_spread=max(readings) - min(readings)),
     )
 
     # scores + keep mask: one fused chunk, the threshold of a warm pool
@@ -1092,6 +1102,45 @@ def linear_attn_ops(bh: int, t: int, dk: int, dv: int, chunk: int, shift: int) -
     return bh * total
 
 
+def linear_attn_bound(nbytes_: float, bh: int, t: int, dk: int, dv: int, chunk: int,
+                      shift: int, bf16: bool) -> dict:
+    """Row 11's bound for its factored work (16-token sub-blocks, the
+    kernel's chunking: a chunk above 128 as chunks of 128), counted from
+    these shapes: the larger of the bytes over the memory rate, its 3xTF32
+    products over the tensor cores' TF32 rate (2 operations a multiply-add,
+    3 products each, 2 where v is a bf16 input: the off-diagonal blocks of
+    A, A @ v over the causal pairs, the inter-chunk product and the state
+    update), its exponentials and logarithms over the SFUs' rate (per dim
+    and chunk: the diagonal blocks' terms below their main diagonal, whose
+    exponent is 0, a logarithm, a q and a k factor a token, and the tabled
+    factors between the sub-blocks' references: exp(r_I) and exp(lb_C -
+    r_{J+1}) a block, exp(r_I - r_{J+1}) a pair, exp(lb_C)) and the diagonal
+    blocks' fp32 operations (a subtract, a multiply and an add a term; the
+    bonus, or the main diagonal) over 67 T/s, in ms.  ``fp32_bound_ms`` is
+    the bound of the whole square on the CUDA cores
+    (:func:`linear_attn_ops`)."""
+    c_max = min(chunk, 128)
+    mv = 2 if bf16 else 3
+    tf32 = sfu = fp32 = 0.0
+    for c0 in range(0, t, c_max):
+        c = min(c_max, t - c0)
+        blocks = [min(16, c - b) for b in range(0, c, 16)]
+        nb = len(blocks)
+        pairs = c * (c - 1) / 2 if shift else c * (c + 1) / 2
+        diag = sum(b * (b - 1) / 2 if shift else b * (b + 1) / 2 for b in blocks)
+        below = sum(b * (b - 1) / 2 for b in blocks)  # the diagonal blocks' exponentials
+        tf32 += 2 * (3 * (pairs - diag) * dk + 3 * c * dk * dv + mv * c * dk * dv
+                     + mv * pairs * dv)
+        sfu += (below + 3 * c + 2 * nb + nb * (nb - 1) / 2 + 1) * dk
+        fp32 += 3 * below * dk + (2 * c * dk + 2 * c * dv if shift else 2 * c * dk)
+    terms = dict(bytes=nbytes_ / MEM_BYTES_PER_S * 1e3, tf32=bh * tf32 / TF32_OPS_PER_S * 1e3,
+                 sfu=bh * sfu / SFU_OPS_PER_S * 1e3, fp32=bh * fp32 / FP32_OPS_PER_S * 1e3)
+    by = max(terms, key=terms.get)
+    fp32_ms, fp32_by = bound(nbytes_, linear_attn_ops(bh, t, dk, dv, chunk, shift))
+    return dict(bound_ms=terms[by], bound_by="bytes" if by == "bytes" else "operations",
+                bound_term=by, bound_terms_ms=terms, fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by)
+
+
 def _bf16_ulp(x):
     import torch
 
@@ -1118,6 +1167,48 @@ def _scan_fp64(q, k, v, w, u, shift):
     return torch.stack(outs, 1), s
 
 
+def linear_attn_inputs(g, kind: str, dtype, bh: int, t: int) -> list:
+    """Row 11's inputs ``[q, k, v, w, u]`` drawn from the generator ``g`` on
+    its device: ``"rwkv"`` as RWKV6's time mix makes them (64 x 64, w =
+    exp(-exp(w0 + dd)), w0 = -6), ``"ssd"`` as Mamba2-SSD does (a scalar
+    decay per head and token, dt-scaled values, 64 x 128, no bonus);
+    ``"clip"`` and ``"mixed"`` as ``"rwkv"`` with every decay at the clip
+    (1e-6), or half of them (per token and dim) at 1e-6 and half at 1."""
+    import torch
+
+    dev = g.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    if kind in ("rwkv", "clip", "mixed"):
+        q, k, v = randn(bh, t, 64), randn(bh, t, 64), randn(bh, t, 64)
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(bh, t, 64)))
+        if kind == "clip":
+            w = torch.full_like(w, 1e-6)
+        elif kind == "mixed":
+            w = torch.where(w < w.median(), 1.0, 1e-6)
+        u = 0.1 * randn(bh, 1, 64)
+    else:
+        dt = torch.nn.functional.softplus(randn(bh, t, 1))
+        q, k = randn(bh, t, 64), randn(bh, t, 64)
+        v = randn(bh, t, 128) * dt
+        w = torch.exp(-dt).expand(bh, t, 64)
+        u = torch.zeros(bh, 1, 64, device=dev)
+    return [a.to(dtype).contiguous() for a in (q, k, v, w, u)]
+
+
+def linear_attn_padded(args: list, chunk: int) -> list:
+    """Row 11's inputs ``[q, k, v, w, u]`` padded to whole chunks, as the
+    reference's ops pad them (q = k = v = 0, w = 1), for the plain version."""
+    import torch
+
+    t = args[0].shape[1]
+    tp = -(-t // chunk) * chunk
+    return [torch.nn.functional.pad(a, (0, 0, 0, tp - t), value=1.0 if i == 3 else 0.0)
+            if i < 4 else a for i, a in enumerate(args)]
+
+
 def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
     """Row 11 against its plain version on the same inputs: at the RWKV6
     prefill shape (``bh`` = 8 slots x 32 heads, ``t`` tokens, 64 x 64, bf16,
@@ -1125,7 +1216,9 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
     one decay per head and token), in fp32 at a ragged length, and at
     chunks 8, 40, 128 and 200 (16 heads, 1,000 tokens: ragged against each;
     above 128 the kernel runs sub-chunks of 128) against the plain version
-    at the same chunk.
+    at the same chunk; with every decay at the clip, and half of them at
+    the clip and half at 1, at chunks 64 and 128, both shifts (fp32).  Two
+    launches at the prefill shape must give the same bits.
     Tolerance, for sums taken in another order: the state within rtol 1e-4 /
     atol 1e-4; the outputs within rtol 1e-4 (fp32) or one bf16 ulp (bf16)
     plus 1e-6 * sum |terms| -- ``mag``, the same recurrence over |q|, |k|,
@@ -1140,21 +1233,8 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
 
     g = torch.Generator(dev).manual_seed(seed + 20)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev)
-
     def inputs(kind, dtype, bh_, t_):
-        if kind == "rwkv":  # w = exp(-exp(w0 + dd)), w0 = -6, as the model's
-            q, k, v = randn(bh_, t_, 64), randn(bh_, t_, 64), randn(bh_, t_, 64)
-            w = torch.exp(-torch.exp(-6.0 + 0.5 * randn(bh_, t_, 64)))
-            u = 0.1 * randn(bh_, 1, 64)
-        else:  # Mamba2-SSD: a scalar decay per head and token, dt-scaled values
-            dt = torch.nn.functional.softplus(randn(bh_, t_, 1))
-            q, k = randn(bh_, t_, 64), randn(bh_, t_, 64)
-            v = randn(bh_, t_, 128) * dt
-            w = torch.exp(-dt).expand(bh_, t_, 64)
-            u = torch.zeros(bh_, 1, 64, device=dev)
-        return [a.to(dtype).contiguous() for a in (q, k, v, w, u)]
+        return linear_attn_inputs(g, kind, dtype, bh_, t_)
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = {"rwkv6_prefill": ("rwkv", bf16, bh, t, 1, 64),
@@ -1164,13 +1244,22 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
              "chunk40_bf16_ssd": ("ssd", bf16, 16, 1000, 0, 40),
              "chunk128_fp32": ("rwkv", f32, 16, 1000, 1, 128),
              "chunk200_bf16": ("rwkv", bf16, 16, 1000, 1, 200)}
+    # decays at the clip, where one reference point per chunk would overflow
+    cases.update({f"{kind}_chunk{chunk}_shift{shift}": (kind, f32, 16, 1000, shift, chunk)
+                  for kind in ("clip", "mixed") for chunk in (64, 128) for shift in (1, 0)})
     out = {}
     for name, (kind, dtype, bh_, t_, shift, chunk) in cases.items():
         args = inputs(kind, dtype, bh_, t_)
         o, st = la_ops.linear_attention_with_state(*args, chunk=chunk, shift=shift)
-        tp = -(-t_ // chunk) * chunk
-        padded = [torch.nn.functional.pad(a, (0, 0, 0, tp - t_), value=1.0 if i == 3 else 0.0)
-                  if i < 4 else a for i, a in enumerate(args)]
+        if name == "rwkv6_prefill":  # two launches, the same bits
+            o2, st2 = la_ops.linear_attention_with_state(*args, chunk=chunk, shift=shift)
+            equal_bits = bool(torch.equal(o, o2) and torch.equal(st, st2))
+            del o2, st2
+            if not equal_bits:
+                raise AssertionError("linear_attn: two launches gave different bits")
+        if not (torch.isfinite(o).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"linear_attn ({name}): outputs are not finite")
+        padded = linear_attn_padded(args, chunk)
         plain = lambda: linear_attn_chunked(*padded, chunk=chunk, shift=shift)  # noqa: E731
         po, ps = plain()
         po = po[:, :t_]
@@ -1186,7 +1275,8 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
         if not (ok_o and (err_s <= 1e-4 + 1e-4 * ps.abs()).all()):
             raise AssertionError(f"linear_attn ({name}) outside its tolerance of the plain version")
         dk, dv = args[0].shape[2], args[2].shape[2]
-        bms, by = bound(nbytes(*args, o, st), linear_attn_ops(bh_, t_, dk, dv, chunk, shift))
+        bnd = linear_attn_bound(nbytes(*args, o, st), bh_, t_, dk, dv, chunk, shift,
+                                dtype == torch.bfloat16)
         out[name] = dict(
             shape=dict(bh=bh_, t=t_, dk=dk, dv=dv, chunk=chunk, shift=shift, dtype=str(dtype)),
             max_abs_err=float(err_o.max()), state_max_abs_err=float(err_s.max()),
@@ -1194,7 +1284,7 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
             max_abs_o=float(pf.abs().max()),
             ms=time_ms(lambda: la_ops.linear_attention_with_state(*args, chunk=chunk,
                                                                   shift=shift), 10),
-            plain_ms=time_ms(plain, 2, warmup=1), bound_ms=bms, bound_by=by)
+            plain_ms=time_ms(plain, 2, warmup=1), **bnd)
         if dtype == torch.float32:
             o64, s64 = _scan_fp64(*(a[:2] for a in args), shift=shift)
             out[name]["fp64_witness"] = dict(
@@ -1206,7 +1296,26 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
     main_case = out["rwkv6_prefill"]
     return dict(max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
                 plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
-                bound_by=main_case["bound_by"], library_ms=None, detail=out)
+                bound_by=main_case["bound_by"], library_ms=None,
+                detail=dict(out, fp32_bound_ms=main_case["fp32_bound_ms"],
+                            equal_bits=equal_bits, dk_limits=linear_attn_dk_limits()))
+
+
+def linear_attn_dk_limits() -> dict:
+    """The widest dk the card takes at each chunk tile: the largest whose
+    block, at the narrowest value slice (16), fits in a block's shared
+    memory, from the source's own layout (``kernel.smem_bytes``)."""
+    from repro_torch.kernels.linear_attn import kernel as la_kernel
+
+    limits = {}
+    for tile in la_kernel.TILES:
+        lo, hi = 0, 1 << 16  # smem_bytes(tile, lo) fits, smem_bytes(tile, hi) does not
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            fits = la_kernel.smem_bytes(tile, mid, 16) <= la_kernel._SMEM_LIMIT
+            lo, hi = (mid, hi) if fits else (lo, mid)
+        limits[tile] = lo
+    return limits
 
 
 def _to(tree, dev):

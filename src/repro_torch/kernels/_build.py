@@ -3,8 +3,9 @@ library per ``csrc/*.cu`` source, loaded with ``ctypes``.
 
 Each library is compiled for Hopper (``-gencode arch=compute_90a,
 code=sm_90a``) into ``build/repro_torch/`` at the root of the checkout,
-under a name that carries a hash of its source and flags, so an edited
-source builds anew and an unchanged one is reused.  Nothing is built when a
+under a name that carries a hash of its source, every ``csrc/*.cuh``
+header and the flags, so an edited source or header builds anew and an
+unchanged one is reused.  Nothing is built when a
 module is imported: :func:`load` builds on first use, and
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
 of them.  ``nvcc -Xptxas -v`` reports each kernel's registers, shared
@@ -52,9 +53,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: the name
-    carries a hash of the source and the flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    carries a hash of the source, every ``csrc/*.cuh`` header and the
+    flags, so an edited header builds anew too."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

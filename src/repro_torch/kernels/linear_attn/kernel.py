@@ -2,15 +2,22 @@
 kernel ``linear_attn_kernel`` of ``repro/kernels/linear_attn/kernel.py``:
 chunked gated linear attention, one block per (head, slice of value
 columns) walking the chunks in order with its slice of the state in shared
-memory.  Operations bound it on an H100 (see the source's header).
+memory.  Inside a chunk the intra-chunk scores are cut into 16 x 16
+sub-blocks: the off-diagonal ones factor their decay about the log-decay at
+the end of the sub-block above (both factors <= 1, so nothing overflows
+however small the decay) and run on the tensor cores in 3xTF32 with the
+other products; the diagonal ones keep the per-term exponent on the CUDA
+cores, over their causal half only.  Bytes bound it on an H100 (see the
+source's header).
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 picks the chunk tile and the value-column slice, allocates the outputs,
 launches on the current stream and raises on any CUDA error.  A chunk
 ``c`` runs on the smallest tile of :data:`TILES` that holds it, with ``c``
 live rows a chunk; a chunk above 128 runs as chunks of 128 (the same
-recurrence, regrouped: see the source's header).  ``launches`` counts the
-launches.
+recurrence, regrouped: see the source's header).  :func:`smem_bytes` asks
+the source for its shared-memory layout, so the card's refusal of a wide
+``dk`` follows it.  ``launches`` counts the launches.
 """
 
 from __future__ import annotations
@@ -23,18 +30,17 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-SLICE_K = 64  # dims of k per slice (kSliceK in the source)
 TILES = (16, 32, 64, 128)  # the chunk tiles the kernel is built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 
 
-def smem_bytes(chunk: int, dk: int, dvs: int) -> int:
-    """Shared memory of one block: the q, k and log-decay tiles, the value
-    tile, the state's slice and two short vectors (``smem_floats``)."""
-    ld = SLICE_K + 1
-    return 4 * (2 * chunk * ld + (chunk + 1) * ld + chunk * dvs + dk * dvs + chunk + SLICE_K)
+def smem_bytes(tile: int, dk: int, dvs: int) -> int:
+    """Shared memory of one block at chunk tile ``tile``, in bytes, as the
+    source lays it out (its ``smem_floats``; at most 2^31 - 1); builds the
+    library if needed."""
+    return _build.entry("linear_attn", "linear_attn_smem_bytes", [_I, _I, _I])(tile, dk, dvs)
 
 
 def chunk_tile(chunk: int) -> int:

@@ -593,6 +593,20 @@ def _assert_o_close(got: torch.Tensor, want: torch.Tensor) -> None:
         assert ((g - w).abs() <= _bf16_ulp(torch.maximum(g.abs(), w.abs())) + 1e-4).all()
 
 
+def _decays(kind: str, shape: tuple, g: torch.Generator) -> torch.Tensor:
+    """Decays of the kind ``kind``: ``model`` as the tests always drew them,
+    ``clip`` every decay at the clip (1e-6), ``below_clip`` 1e-9 (clipped to
+    1e-6 by both versions), ``mixed`` w = 1 or 1e-6 at random per token and
+    dim: a sub-block's cumulative log-decay then reaches -884 in 64 tokens,
+    where one reference point per chunk would overflow fp32."""
+    if kind == "model":
+        return torch.exp(-torch.exp(torch.randn(shape, generator=g) - 2))
+    if kind in ("clip", "below_clip"):
+        return torch.full(shape, 1e-6 if kind == "clip" else 1e-9)
+    return torch.where(torch.rand(shape, generator=g) < 0.5, 1.0, 1e-6)
+
+
+@pytest.mark.parametrize("w_kind", ["model", "clip", "mixed"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shift", [0, 1])
 @pytest.mark.parametrize("bh,t,dk,dv,chunk", [
@@ -606,36 +620,52 @@ def _assert_o_close(got: torch.Tensor, want: torch.Tensor) -> None:
     (2, 300, 64, 64, 128),   # the 128 tile
     (2, 450, 32, 64, 200),   # past 128: sub-chunks of 128
 ])
-def test_linear_attn_kernel_equals_plain(dev, dtype, shift, bh, t, dk, dv, chunk):
+def test_linear_attn_kernel_equals_plain(dev, dtype, shift, bh, t, dk, dv, chunk, w_kind):
+    """The kernel against its plain version, with the model's decays and
+    with decays at the clip (all, or mixed with w = 1); a second launch
+    gives the same bits."""
     from repro_torch.kernels.linear_attn import ops as la_ops
 
     g = _gen(30)
     q, k = (torch.randn(bh, t, dk, generator=g).to(dtype) for _ in range(2))
     v = torch.randn(bh, t, dv, generator=g).to(dtype)
-    w = torch.exp(-torch.exp(torch.randn(bh, t, dk, generator=g) - 2)).to(dtype)
+    w = _decays(w_kind, (bh, t, dk), g).to(dtype)
     u = (0.5 * torch.randn(bh, 1, dk, generator=g)).to(dtype)
     want_o, want_s = la_ops.linear_attention_with_state(q, k, v, w, u, chunk=chunk, shift=shift)
     before = kernels.launch_counts()["linear_attn"]
-    got_o, got_s = la_ops.linear_attention_with_state(
-        *(a.to(dev) for a in (q, k, v, w, u)), chunk=chunk, shift=shift)
+    args = [a.to(dev) for a in (q, k, v, w, u)]
+    got_o, got_s = la_ops.linear_attention_with_state(*args, chunk=chunk, shift=shift)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["linear_attn"] == before + 1
     assert got_o.dtype == dtype and got_s.dtype == torch.float32
     _assert_o_close(got_o.cpu(), want_o)
     torch.testing.assert_close(got_s.cpu(), want_s, rtol=1e-4, atol=1e-4)
+    again_o, again_s = la_ops.linear_attention_with_state(*args, chunk=chunk, shift=shift)
+    assert torch.equal(again_o, got_o) and torch.equal(again_s, got_s)
 
 
-def test_linear_attn_kernel_small_decay_stays_finite(dev):
-    """w = 0.2 over chunks of 64: exponents stay differences of log-decays."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("chunk", [16, 64, 128, 200])
+@pytest.mark.parametrize("w_kind", ["0.2", "clip", "below_clip", "mixed"])
+def test_linear_attn_kernel_small_decay_stays_finite(dev, w_kind, chunk, shift, dtype):
+    """Small decays over whole chunks: w = 0.2 (the cumulative decay reaches
+    0.2**64), every decay at the clip (1e-6, or 1e-9 clipped to it), and w
+    = 1 or 1e-6 at random per token and dim.  Every exponent the kernel
+    takes is <= 0 (the sub-blocks' factors too), so o and the state stay
+    finite and within the plain version's tolerance."""
     from repro_torch.kernels.linear_attn import ops as la_ops
 
     g = _gen(31)
-    q, k, v = (torch.randn(2, 128, 16, generator=g) for _ in range(3))
-    w = torch.full_like(q, 0.2)
+    t = 128 if w_kind == "0.2" else 400  # w = 0.2 at 128 tokens: the test's first case
+    q, k, v = (torch.randn(2, t, 16, generator=g) for _ in range(3))
+    w = torch.full_like(q, 0.2) if w_kind == "0.2" else _decays(w_kind, q.shape, g)
     u = torch.randn(2, 1, 16, generator=g)
-    o, s = la_ops.linear_attention_with_state(*(a.to(dev) for a in (q, k, v, w, u)))
+    q, k, v, w, u = (a.to(dtype) for a in (q, k, v, w, u))
+    o, s = la_ops.linear_attention_with_state(*(a.to(dev) for a in (q, k, v, w, u)),
+                                              chunk=chunk, shift=shift)
     assert torch.isfinite(o).all() and torch.isfinite(s).all()
-    want_o, want_s = la_ops.linear_attention_with_state(q, k, v, w, u)
+    want_o, want_s = la_ops.linear_attention_with_state(q, k, v, w, u, chunk=chunk, shift=shift)
     _assert_o_close(o.cpu(), want_o)
     torch.testing.assert_close(s.cpu(), want_s, rtol=1e-4, atol=1e-4)
 

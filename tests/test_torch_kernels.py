@@ -303,6 +303,27 @@ def test_tensors_on_neither_cpu_nor_card_raise():
         kmeans_ops.kmeans_stats(x, torch.empty((4, 3, 2), device="meta"), block_n=8)
 
 
+def test_library_hash_follows_the_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` names a new library for every source, so a
+    stale one is never loaded; another source's edit changes nothing.  The
+    TF32 helpers live in one header that the assignment and linear-attention
+    sources include."""
+    for name in ("kmeans_assign", "linear_attn"):
+        assert '#include "tf32.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n#include "h.cuh"\nint x;\n')
+    (tmp_path / "b.cu").write_text("int y;\n")
+    (tmp_path / "h.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("a")
+    (tmp_path / "b.cu").write_text("int y, z;\n")
+    assert _build.library_path("a") == first
+    (tmp_path / "h.cuh").write_text("#pragma once\n// edited\n")
+    second = _build.library_path("a")
+    assert second != first
+    (tmp_path / "g.cuh").write_text("// a new header\n")
+    assert _build.library_path("a") not in (first, second)
+
+
 def test_build_names_libraries_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
     paths = {name: _build.library_path(name) for name in _build.SOURCES}
     assert paths == {name: _build.library_path(name) for name in _build.SOURCES}

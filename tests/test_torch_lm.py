@@ -121,7 +121,8 @@ def test_a_dk_past_the_cards_shared_memory_is_taken_on_the_cpu():
     from repro_torch.kernels.linear_attn import kernel as la_kernel
 
     dk = 3500
-    assert la_kernel.smem_bytes(la_kernel.chunk_tile(16), dk, 16) > la_kernel._SMEM_LIMIT
+    # the state's slice alone, dk rows of 16 + 8 floats, is past the limit
+    assert 4 * dk * (16 + 8) > la_kernel._SMEM_LIMIT
     q, k, v, w, u = _la_inputs(11, 1, 20, dk, 4)
     o, s = la_ops.linear_attention_with_state(T(q), T(k), T(v), T(w), T(u), chunk=16)
     jo, js = j_scan(*(jnp.asarray(a) for a in (q, k, v, w, u)), shift=1)
@@ -139,6 +140,75 @@ def test_small_decay_stays_finite():
     jo, js = j_scan(*(jnp.asarray(a) for a in (q, k, v, w, u)), shift=1)
     np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
     np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+
+
+def _subblock_model(q, k, v, w, u, *, chunk, shift, per_chunk_reference=False):
+    """A plain model of the CUDA kernel's sub-block factoring (the kernel
+    itself runs only on the card): per chunk, A's 16 x 16 diagonal blocks
+    take the per-term exponent exp(lbq_t - lb_j); an off-diagonal block (I,
+    J), J < I, is (q_I exp(lbq_I - r_I)) @ (k_J exp(r_I - lb_J))^T with r_I
+    = lb at row 16 I - 1, or, with ``per_chunk_reference``, r = 0 for the
+    whole chunk.  fp32 throughout; T a multiple of ``chunk``."""
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    lw = torch.log(torch.clamp(w, 1e-6, 1.0))
+    s = torch.zeros(bh, dk, dv)
+    ids = torch.arange(16)
+    diag_mask = ids[None, :] <= ids[:, None] - shift
+    outs = []
+    for c0 in range(0, t, chunk):
+        qb, kb, vb = q[:, c0:c0 + chunk], k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        lb = torch.cumsum(lw[:, c0:c0 + chunk], dim=1)
+        lbq = torch.cat([torch.zeros_like(lb[:, :1]), lb[:, :-1]], dim=1) if shift else lb
+        a = torch.zeros(bh, chunk, chunk)
+        for bi in range(chunk // 16):
+            rows = slice(16 * bi, 16 * bi + 16)
+            decay = torch.exp(lbq[:, rows, None, :] - lb[:, None, rows, :])
+            a[:, rows, rows] = torch.where(
+                diag_mask, torch.einsum("btk,bjk,btjk->btj", qb[:, rows], kb[:, rows], decay), 0.0)
+            if bi == 0:
+                continue
+            r = torch.zeros_like(lb[:, 0]) if per_chunk_reference else lb[:, 16 * bi - 1]
+            cols = slice(0, 16 * bi)
+            q_f = qb[:, rows] * torch.exp(lbq[:, rows] - r[:, None])
+            k_f = kb[:, cols] * torch.exp(r[:, None] - lb[:, cols])
+            a[:, rows, cols] = q_f @ k_f.transpose(1, 2)
+        o = (qb * torch.exp(lbq)) @ s + a @ vb
+        if shift:
+            o = o + (qb * u * kb).sum(-1, keepdim=True) * vb
+        s = torch.exp(lb[:, -1])[:, :, None] * s + (kb * torch.exp(lb[:, -1:] - lb)).transpose(1, 2) @ vb
+        outs.append(o)
+    return torch.cat(outs, dim=1), s
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_subblock_reference_point_is_safe_at_the_clip(shift):
+    """w = 1e-6 everywhere, chunk 64: lb reaches -884 inside a chunk, yet
+    the sub-block model's factors are all <= 1 and it equals the port's
+    chunked plain version and the JAX op within ``TOL``."""
+    q, k, v, _, u = _la_inputs(40 + shift, 3, 128, 16, 24)
+    w = np.full_like(q, 1e-6)
+    o, s = _subblock_model(*(T(a) for a in (q, k, v, w, u)), chunk=64, shift=shift)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    po, ps = linear_attn_chunked(*(T(a) for a in (q, k, v, w, u)), chunk=64, shift=shift)
+    np.testing.assert_allclose(o.numpy(), po.numpy(), **TOL)
+    np.testing.assert_allclose(s.numpy(), ps.numpy(), **TOL)
+    jo, js = j_linear_attention_with_state(*(jnp.asarray(a) for a in (q, k, v, w, u)), chunk=64,
+                                           shift=shift)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_one_reference_per_chunk_overflows_at_the_clip(shift):
+    """The same model with r = 0 for the whole chunk: exp(r - lb) reaches
+    e^884 and A is inf or nan -- why the kernel takes its reference per
+    sub-block."""
+    q, k, v, _, u = _la_inputs(40 + shift, 3, 128, 16, 24)
+    w = np.full_like(q, 1e-6)
+    o, _ = _subblock_model(*(T(a) for a in (q, k, v, w, u)), chunk=64, shift=shift,
+                           per_chunk_reference=True)
+    assert not torch.isfinite(o).all()
 
 
 @pytest.mark.parametrize("shift", [0, 1])

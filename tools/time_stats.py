@@ -4,8 +4,8 @@ the three shapes its paths give it, and the three trainings that launch it.
 
     python3 tools/time_stats.py [--src DIR] [--label NAME] [--seed S]
 
-``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
-this checkout's), so one command can time two checkouts in turns (parent,
+The options are the card timers' (``tools/_ab.py``): ``--src`` times another
+checkout's ``src``, so one command can time two checkouts in turns (parent,
 change, change, parent), each in its own process.  The inputs are
 ``chip_smoke.py``'s, from its own helpers: ``gaussian_mixture`` at SIFT1M's
 shape (n = 1M, d = 128) from ``--seed``, then
@@ -27,58 +27,28 @@ steps) and IVF1024 Lloyd training (20 steps).  Prints one JSON line with
 
 from __future__ import annotations
 
-import argparse
 import json
-import statistics
-import subprocess
 import sys
-import time
-from pathlib import Path
+from functools import partial
 
-ROOT = Path(__file__).resolve().parents[1]
+import _ab
+
 REPS = 10  # launches timed per shape
 WALL_REPS = 5  # end-to-end readings per training
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=str(ROOT / "src"),
-                    help="the src directory whose repro_torch is timed")
-    ap.add_argument("--label", default="", help="a name for the tree, echoed in the output")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke  # puts this checkout's src on the path ...
-
-    sys.path.insert(0, str(Path(args.src).resolve()))  # ... behind the timed tree's
-
+    args, chip_smoke, out = _ab.start(__doc__, "time_stats")
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("time_stats: needs a CUDA card")
     from repro_torch.core import kmeans as km
     from repro_torch.core.suco import SuCoConfig, build_index
     from repro_torch.data import gaussian_mixture
     from repro_torch.kernels.kmeans_assign import ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True).stdout.strip().splitlines()[0]
     data = torch.from_numpy(gaussian_mixture(1_000_000, 128, args.seed)).to(dev)
     cfg = SuCoConfig()
-
-    def wall(fn) -> dict:
-        times = []
-        for _ in range(WALL_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return dict(median=statistics.median(times), readings=times)
-
     both, c_build = chip_smoke.build_stats_inputs(data, build_index(data, cfg).spec, cfg)
     xs, c_pq = chip_smoke.pq_inputs(data, args.seed)
     sample = chip_smoke.ivf_sample(data, args.seed)
@@ -87,31 +57,23 @@ def main() -> int:
               "pq": (xs, c_pq, chip_smoke.PQ_BLOCK_N),
               "ivf": (sample[None], c_ivf[None], chip_smoke.IVF_BLOCK_N)}
 
-    out = dict(label=args.label, src=args.src, nvidia_smi=smi, shapes={}, end_to_end_s={})
+    out.update(shapes={}, end_to_end_s={})
     for name, (x, c, bn) in shapes.items():
         first = ops.kmeans_stats(x, c, block_n=bn, with_assign=True)
         second = ops.kmeans_stats(x, c, block_n=bn, with_assign=True)
-        for _ in range(2):
-            ops.kmeans_stats(x, c, block_n=bn)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            ops.kmeans_stats(x, c, block_n=bn)
-        end.record()
-        torch.cuda.synchronize()
         out["shapes"][name] = dict(
-            shape=list(x.shape), k=c.shape[1], block_n=bn, ms=start.elapsed_time(end) / REPS,
+            shape=list(x.shape), k=c.shape[1], block_n=bn,
+            ms=chip_smoke.time_ms(partial(ops.kmeans_stats, x, c, block_n=bn), REPS),
             equal_bits=all(torch.equal(a, b) for a, b in zip(first, second)))
     iters = chip_smoke.LLOYD_ITERS
     out["end_to_end_s"] = dict(
-        build=wall(lambda: build_index(data, cfg)),
-        pq_training=wall(lambda: km.kmeans_batched(xs, chip_smoke.PQ_K, iters,
-                                                   block_n=chip_smoke.PQ_BLOCK_N,
-                                                   init_centroids=c_pq)),
-        ivf_training=wall(lambda: km.kmeans(sample, chip_smoke.IVF_K, iters,
-                                            block_n=chip_smoke.IVF_BLOCK_N,
-                                            init_centroids=c_ivf)))
+        build=_ab.wall(lambda: build_index(data, cfg), WALL_REPS),
+        pq_training=_ab.wall(lambda: km.kmeans_batched(xs, chip_smoke.PQ_K, iters,
+                                                       block_n=chip_smoke.PQ_BLOCK_N,
+                                                       init_centroids=c_pq), WALL_REPS),
+        ivf_training=_ab.wall(lambda: km.kmeans(sample, chip_smoke.IVF_K, iters,
+                                                block_n=chip_smoke.IVF_BLOCK_N,
+                                                init_centroids=c_ivf), WALL_REPS))
     print(json.dumps(out), flush=True)
     return 0
 
