@@ -77,6 +77,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, dense TF32
 #: H100 SXM special-function units: 16 exponentials (or logarithms) a clock
 #: per SM, 132 SMs at the 1.98 GHz boost clock the fp32 rate assumes
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+FENCE = 4  # uncounted spin kernels at each end of a device_ms trace
+RETAKES = 10  # device_ms traces taken again, at most, for kernels the tracer lost
 SOURCES = {
     "sc_score_cells_prefilter_compact": (
         "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:151"),
@@ -152,6 +154,69 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, n: int = 5, warmup: int = 2) -> dict:
+    """The device's own time for one call of ``fn``: the kernels' time under
+    ``torch.profiler`` over at least 10 calls, per call; the median of ``n``
+    such readings, every reading, the device events a call launches, the
+    events the tracer lost and the traces taken again.  For a short kernel
+    this differs from :func:`time_ms`, whose events over back-to-back calls
+    read how fast the host issues them.
+
+    The tracer can lose kernels: a few of a trace, mostly its first or
+    last, and now and then all of them.  So each trace opens and closes
+    with ``FENCE`` spin kernels that are not counted; each kernel name
+    counts at its mean time for the launches a call that its count rounds
+    to; and a trace that shows fewer launches a call than the most any
+    trace showed is taken again (``RETAKES`` times at most) before it
+    fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = max(reps, 10)
+
+    def fence():
+        for _ in range(FENCE):
+            torch.cuda._sleep(1000)
+
+    def trace() -> list[tuple[float, int, int]]:
+        """(mean us, count, launches a call) of each kernel name."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fence()
+            for _ in range(reps):
+                fn()
+            fence()
+            torch.cuda.synchronize()
+        return [(e.self_device_time_total / e.count, e.count, round(e.count / reps))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+
+    for _ in range(warmup):
+        fn()
+    traces, retakes = [trace() for _ in range(n)], 0
+    most = max(sum(k for _, _, k in t) for t in traces)
+    for i in range(n):
+        while sum(k for _, _, k in traces[i]) < most:
+            if retakes == RETAKES or most < 1:
+                raise RuntimeError(f"device_ms: a trace kept missing kernels ({most} a call)")
+            traces[i], retakes = trace(), retakes + 1
+    readings = [sum(mean * k for mean, _, k in t) / 1e3 for t in traces]
+    lost = sum(k * reps - count for t in traces for _, count, k in t)
+    return dict(ms=statistics.median(readings), readings=readings, events_per_call=most,
+                events_lost=lost, retakes=retakes)
+
+
+def timed(fn, reps: int) -> dict:
+    """A kernel row's times: ``ms`` on the device clock (:func:`device_ms`),
+    ``call_ms`` by CUDA events over ``reps`` back-to-back calls
+    (:func:`time_ms`), and the device readings."""
+    dev = device_ms(fn, reps)
+    return dict(ms=dev["ms"], call_ms=time_ms(fn, reps), ms_readings=dev["readings"],
+                device_events_per_call=dev["events_per_call"],
+                device_events_lost=dev["events_lost"], device_retakes=dev["retakes"])
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the
     memory rate and operations over the peak rate, in ms."""
@@ -213,14 +278,21 @@ def ivf_seeds(data, seed: int):
                              generator=torch.Generator().manual_seed(seed + 1))
 
 
+def cell_score_inputs(index, q):
+    """The query state rows 1, 7 and 8 read: each query's cell ranks and
+    activation cutoffs at alpha = 0.05, ``(ranks (Ns, m, K), cuts (Ns, m))``."""
+    from repro_torch.core import subspace as sub
+    from repro_torch.core.suco import suco_cell_ranks
+
+    return suco_cell_ranks(index, q, sub.collision_count(index.cell_ids.shape[1], 0.05))
+
+
 def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     """Each kernel against its plain version on the same inputs, at the main
     path's shapes.  Integers must be equal; floats within the stated
     tolerance.  Returns per-kernel records for the ``kernels`` line."""
     import torch
 
-    from repro_torch.core import subspace as sub
-    from repro_torch.core.suco import suco_cell_ranks
     from repro_torch.kernels.gather_rerank import ops as gather_ops
     from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
     from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
@@ -247,7 +319,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(both, c0, *got[1:]), t_ops)
     out["kmeans_stats"] = dict(
         max_abs_err=err_sums,
-        ms=time_ms(lambda: kmeans_ops.kmeans_stats(both, c0, block_n=bn), 10),
+        **timed(lambda: kmeans_ops.kmeans_stats(both, c0, block_n=bn), 10),
         plain_ms=time_ms(lambda: kmeans_stats_ref(both, c0, block_n=bn), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[b, n, s], k=k, block_n=bn, inertia_max_rel_err=float(
@@ -264,7 +336,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(both, cents, *got), 3.0 * b * n * k * s)
     out["kmeans_pair_assign_hist"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: kmeans_ops.kmeans_pair_assign_hist(both, cents, block_n=bn), 10),
+        **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(both, cents, block_n=bn), 10),
         plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(both, cents, block_n=bn), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[b, n, s], k=k, block_n=bn,
@@ -274,7 +346,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     # sc_score compact: one chunk of the 64-query batch, with and without a
     # tombstone mask; the threshold of a warm pool (score > Ns/2 survives)
     m = q64.shape[0]
-    ranks, cuts = suco_cell_ranks(index, q64, sub.collision_count(n, 0.05))
+    ranks, cuts = cell_score_inputs(index, q64)
     chunk = tiles.block_n
     cells = index.cell_ids[:, :chunk]
     thr = torch.full((m,), cfg.n_subspaces // 2, dtype=torch.int32, device=dev)
@@ -288,7 +360,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(ranks, cuts, cells, thr, *got), 2.0 * cfg.n_subspaces * m * chunk)
     out["sc_score_cells_prefilter_compact"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: score_ops.sc_scores_cells_prefilter_compact(
+        **timed(lambda: score_ops.sc_scores_cells_prefilter_compact(
             ranks, cuts, cells, thr, chunk, cap=cap), 50),
         plain_ms=time_ms(lambda: sc_score_cells_prefilter_compact_ref(
             ranks, cuts, cells, thr, chunk, cap=cap), 10),
@@ -311,7 +383,7 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(ids, q64, got) + rows, 3.0 * m * cap * d)
     out["gather_rerank"] = dict(
         max_abs_err=float(err.max()),
-        ms=time_ms(lambda: gather_ops.gather_rerank_block(ids, data, q64), 50),
+        **timed(lambda: gather_ops.gather_rerank_block(ids, data, q64), 50),
         plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, data, q64), 20),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(m=m, candidates=cap, d=d),
@@ -328,17 +400,19 @@ def dist_ops(m: int, n: int, s: int) -> float:
 
 def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     """The kernels of the query modes and SC-Linear against their plain
-    versions at their paths' shapes: the scores-only kernel at m = 64 over
-    one streaming chunk of 4096 points, the keep-mask kernel over one fused
-    chunk, and the pairwise and fused-score kernels at m = 64 over all n
-    points of one subspace (of all Ns).  Every output must be equal."""
+    versions at their paths' shapes: the scores-only kernel at m = 1, 8 and
+    64 over one streaming chunk of 4096 points and over all n (the dense
+    mode), the
+    keep-mask kernel over one fused chunk, and the pairwise and fused-score
+    kernels at m = 64 over all n points of one subspace (of all Ns).  Every
+    output must be equal."""
     import torch
 
     from repro_torch.core import subspace as sub
     from repro_torch.core.collision import kth_smallest
-    from repro_torch.core.suco import suco_cell_ranks
     from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
     from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
+    from repro_torch.kernels.sc_score import kernel as score_kernel
     from repro_torch.kernels.sc_score import ops as score_ops
     from repro_torch.kernels.sc_score.ref import (
         sc_score_cells_prefilter_ref,
@@ -349,24 +423,61 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     out = {}
     n = data.shape[0]
     m, ns = q64.shape[0], cfg.n_subspaces
-    ranks, cuts = suco_cell_ranks(index, q64, sub.collision_count(n, 0.05))
+    ranks, cuts = cell_score_inputs(index, q64)
 
-    # scores only: one streaming chunk
-    cells = index.cell_ids[:, :4096]
+    # scores only: one streaming chunk, timed as the streaming query launches
+    # it (each launch the next chunk of the index, its cell ids not in L2);
+    # then the dense mode's one launch over all n columns
+    chunk = 4096
+    cells = index.cell_ids[:, :chunk]
     got = score_ops.sc_scores_cells(ranks, cuts, cells)
     if not torch.equal(got, sc_score_cells_ref(ranks, cuts, cells)):
         raise AssertionError("sc_score_cells differs from the plain version")
-    bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ns * m * cells.shape[1])
-    # the row that moves most between runs: the median of 5 readings, and their spread
-    readings = [time_ms(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 100)
-                for _ in range(5)]
+    turn = [0]
+
+    def stream():
+        lo = turn[0] % (n // chunk) * chunk
+        turn[0] += 1
+        return score_ops.sc_scores_cells(ranks, cuts, index.cell_ids[:, lo:lo + chunk])
+
+    props = torch.cuda.get_device_properties(ranks.device)
+    one = score_kernel.smem_bytes(ns, index.n_cells, 1)
+
+    def plan(m_: int, bc: int) -> dict:
+        q_, tile_ = score_kernel.tiling(one, props.shared_memory_per_block_optin,
+                                        props.multi_processor_count, m_, bc)
+        return dict(q=q_, tile=tile_, smem_bytes=q_ * one)
+
+    full = index.cell_ids
+    # the batches of 1 and 8 queries the query modes also serve run other Q
+    # instantiations of both passes: each over a streaming chunk and all n
+    batches = {}
+    for mb in (1, 8):
+        ranks_b, cuts_b = cell_score_inputs(index, q64[:mb])
+        for cols in (cells, full):
+            if not torch.equal(score_ops.sc_scores_cells(ranks_b, cuts_b, cols),
+                               sc_score_cells_ref(ranks_b, cuts_b, cols)):
+                raise AssertionError(f"sc_score_cells at m = {mb} over {cols.shape[1]} columns "
+                                     "differs from the plain version")
+        batches[mb] = dict(chunk=plan(mb, chunk), dense=plan(mb, n))
+    bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ns * m * chunk)
     out["sc_score_cells"] = dict(
-        max_abs_err=0.0, ms=statistics.median(readings),
+        max_abs_err=0.0, **timed(stream, 100),
         plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, cells), 20),
         bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(m=m, chunk=cells.shape[1], ns=ns, cells=index.n_cells,
-                    ms_readings=readings, ms_spread=max(readings) - min(readings)),
-    )
+        detail=dict(m=m, chunk=chunk, ns=ns, cells=index.n_cells, **plan(m, chunk),
+                    batches_checked=batches))
+    got = score_ops.sc_scores_cells(ranks, cuts, full)
+    if not torch.equal(got, sc_score_cells_ref(ranks, cuts, full)):
+        raise AssertionError("sc_score_cells (dense) differs from the plain version")
+    same_bits("sc_score_cells (dense)", (got,), (score_ops.sc_scores_cells(ranks, cuts, full),))
+    bms, by = bound(nbytes(ranks, cuts, full, got), 2.0 * ns * m * n)
+    out["sc_score_cells (dense)"] = dict(
+        max_abs_err=0.0, **timed(lambda: score_ops.sc_scores_cells(ranks, cuts, full), 10),
+        plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, full), 2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(m=m, n=n, ns=ns, cells=index.n_cells, **plan(m, n), equal_bits=True))
+    del got
 
     # scores + keep mask: one fused chunk, the threshold of a warm pool
     cells = index.cell_ids[:, : tiles.block_n]
@@ -382,7 +493,7 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
                     (2.0 * ns + 1) * m * cells.shape[1])
     out["sc_score_cells_prefilter"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr), 100),
+        **timed(lambda: score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr), 100),
         plain_ms=time_ms(lambda: sc_score_cells_prefilter_ref(ranks, cuts, cells, thr), 20),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(m=m, chunk=cells.shape[1], ns=ns, kept=float(got_k.float().mean())),
@@ -401,7 +512,7 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(qs[0], xs[0], got), dist_ops(m, n, s))
     out["pairwise_sqdist"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: pairwise_ops.pairwise_sqdist(qs[0], xs[0]), 20),
+        **timed(lambda: pairwise_ops.pairwise_sqdist(qs[0], xs[0]), 20),
         plain_ms=time_ms(lambda: pairwise_sqdist_ref(qs[0], xs[0]), 3, warmup=1),
         bound_ms=bms, bound_by=by,
         # torch.cdist through its matmul form, squared: one PyTorch call (and
@@ -432,7 +543,7 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     bms, by = bound(nbytes(qs, xs, tau, got), ns * (dist_ops(m, n, s) + 2.0 * m * n))
     out["sc_score"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: score_ops.sc_scores_fused(qs, xs, tau), 10),
+        **timed(lambda: score_ops.sc_scores_fused(qs, xs, tau), 10),
         plain_ms=time_ms(lambda: sc_score_ref(qs, xs, tau), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(ns=ns, m=m, n=n, s=s, collision_count=count,
@@ -441,11 +552,22 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     return out
 
 
+def port_kernel_names() -> set[str]:
+    """The ``__global__`` functions of the imported port's ``csrc/*.cu``."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    pat = re.compile(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\s*\(")
+    return {k for src in _build.CSRC.glob("*.cu") for k in pat.findall(src.read_text())}
+
+
 def profile_batch(fn) -> dict:
     """One call of ``fn`` (a served batch) under ``torch.profiler``: wall
     time, the device's busy time (the device events' own time summed;
     operator events, whose device time repeats their kernels', are left out)
-    and idle share, and the kernels taking the most device time."""
+    and idle share, the kernels taking the most device time, and the port's
+    own kernels with their time and launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -464,10 +586,13 @@ def profile_batch(fn) -> dict:
     ]
     busy_us = sum(t for _, t, _ in kernels_)
     top = sorted(kernels_, key=lambda r: -r[1])[:8]
+    names = port_kernel_names()
+    port = [r for r in kernels_ if any(f"::{k}{c}" in r[0] for k in names for c in "(<")]
     return dict(
         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
         device_idle_share=1.0 - busy_us / wall_us if busy_us else None,
         top=[dict(name=name[:60], ms=t / 1e3, calls=c) for name, t, c in top],
+        port_kernels=[dict(name=name[:60], ms=t / 1e3, calls=c) for name, t, c in port],
     )
 
 
@@ -511,8 +636,8 @@ def serve_times(fn, reps: int = 5) -> tuple[list[float], object]:
 
 def query_modes_phase(data, index, q64, answers: dict, k: int) -> dict:
     """The dense and streaming modes (``block_n`` = 4096) through engines
-    over the main path's index, batches of 1, 8 and 64, each answer held
-    against the fused answer ``answers[m]``; then one streaming batch under
+    over the main path's index, batches of 1, 8 and 64, each answer bitwise
+    equal to the fused answer ``answers[m]``; then one streaming batch under
     the profiler.  Returns the path's launches (both modes)."""
     import numpy as np
     import torch
@@ -537,6 +662,9 @@ def query_modes_phase(data, index, q64, answers: dict, k: int) -> dict:
                            **same_answers(res, [t.cpu() for t in answers[m]]))
             if rows[m]["host_syncs_per_batch"] != 0:
                 raise AssertionError(f"the {mode} mode synchronised with the host")
+            if not rows[m]["bitwise_equal_fused"]:
+                raise AssertionError(f"the {mode} mode's answer at m = {m} differs from the "
+                                     "fused query's")
         counts = kernels.launch_counts()
         total = counts if total is None else {n_: total[n_] + c for n_, c in counts.items()}
         # torch's own record of synchronising calls, over one more batch
@@ -846,7 +974,7 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
             detail.update(probes[name], fp32_bound_ms=bms)
             bms, by = tc_assign_bound(nbytes(*args, out), n_, args[1].shape[-2], s_, b_)
         recs[name] = dict(
-            max_abs_err=0.0, ms=time_ms(fn, reps), plain_ms=time_ms(plain, 1, warmup=1),
+            max_abs_err=0.0, **timed(fn, reps), plain_ms=time_ms(plain, 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: cdist_argmin(*args), 3),
             detail=detail,
         )
@@ -856,7 +984,7 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     nb3 = nbytes(x1, c_ivf, *got3[1:])
     bms, by = tc_assign_bound(nb3, n_ivf, k_ivf, d)
     recs["kmeans_stats (wide)"] = dict(
-        max_abs_err=err3, ms=time_ms(lambda: kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn), 5),
+        max_abs_err=err3, **timed(lambda: kmeans_ops.kmeans_stats(x1, c_ivf, block_n=ivf_bn), 5),
         plain_ms=time_ms(lambda: kmeans_stats_ref(x1, c_ivf, block_n=ivf_bn), 1, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=list(x1.shape), k=k_ivf, block_n=ivf_bn, equal_bits=True,
@@ -864,7 +992,7 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
                     fp32_bound_ms=bound(nb3, assign_ops(n_ivf, k_ivf, d))[0]))
     bms, by = bound(nbytes(xs, c0, *got3p[1:]), assign_ops(n, k_pq, d // m_pq, m_pq))
     recs["kmeans_stats (pq)"] = dict(
-        max_abs_err=err3p, ms=time_ms(lambda: kmeans_ops.kmeans_stats(xs, c0, block_n=bn), 5),
+        max_abs_err=err3p, **timed(lambda: kmeans_ops.kmeans_stats(xs, c0, block_n=bn), 5),
         plain_ms=time_ms(lambda: kmeans_stats_ref(xs, c0, block_n=bn), 1, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=list(xs.shape), k=k_pq, block_n=bn, equal_bits=True,
@@ -872,7 +1000,7 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     bms, by = bound(nbytes(halves, c4, *got4), assign_ops(n_ivf, 256, d, 2))
     recs["kmeans_pair_assign_hist (wide)"] = dict(
         max_abs_err=0.0,
-        ms=time_ms(lambda: kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn), 5),
+        **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn), 5),
         plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(halves, c4, block_n=ivf_bn), 1,
                          warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -1282,7 +1410,7 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
             max_abs_err=float(err_o.max()), state_max_abs_err=float(err_s.max()),
             max_err_over_sum_abs_terms=float((err_o / mag.clamp_min(1e-30)).max()),
             max_abs_o=float(pf.abs().max()),
-            ms=time_ms(lambda: la_ops.linear_attention_with_state(*args, chunk=chunk,
+            **timed(lambda: la_ops.linear_attention_with_state(*args, chunk=chunk,
                                                                   shift=shift), 10),
             plain_ms=time_ms(plain, 2, warmup=1), **bnd)
         if dtype == torch.float32:
@@ -1295,7 +1423,7 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
         del o, st, po, ps, padded, args, mag
     main_case = out["rwkv6_prefill"]
     return dict(max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
-                plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+                call_ms=main_case["call_ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
                 bound_by=main_case["bound_by"], library_ms=None,
                 detail=dict(out, fp32_bound_ms=main_case["fp32_bound_ms"],
                             equal_bits=equal_bits, dk_limits=linear_attn_dk_limits()))
@@ -1597,18 +1725,21 @@ def main() -> int:
                          path=path,
                          launches_by_path={p_: c[name] for p_, c in launches_by_path.items()},
                          max_abs_err=rec_["max_abs_err"],
-                         ms=rec_["ms"], plain_ms=rec_["plain_ms"], bound_ms=rec_["bound_ms"],
-                         bound_by=rec_["bound_by"], library_ms=rec_["library_ms"]))
+                         ms=rec_["ms"], call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
+                         bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
+                         library_ms=rec_["library_ms"]))
         extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin", "equal_bits")
         rows[-1].update({key: rec_["detail"][key] for key in extras
                          if key in rec_.get("detail", {})})
-        # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq")
-        for variant in ("wide", "pq"):
+        # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
+        # over all n columns ("dense")
+        for variant in ("wide", "pq", "dense"):
             other = checks.get(f"{name} ({variant})")
             if other is None:
                 continue
             rows[-1][variant] = {key: other[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
             rows[-1][variant].update({key: other["detail"][key] for key in (*extras, "launches")
                                       if key in other.get("detail", {})})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))

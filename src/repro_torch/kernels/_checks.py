@@ -22,17 +22,18 @@ def check_tensor(
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    got = t.shape  # a torch.Size, itself a tuple
     if isinstance(shape, int):
-        if t.dim() != shape:
-            raise ValueError(f"{name} must have {shape} dims, got shape {tuple(t.shape)}")
-    elif tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+        if len(got) != shape:
+            raise ValueError(f"{name} must have {shape} dims, got shape {tuple(got)}")
+    elif got != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(got)}")
     if rows_only:
-        if t.shape[-1] > 1 and t.stride(-1) != 1:
+        if got[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name} must have contiguous rows (unit last stride)")
     elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    return tuple(t.shape)
+    return got
 
 
 def same_device(*tensors: torch.Tensor | None) -> torch.device:

@@ -82,12 +82,12 @@ def sc_scores_cells(
     """Chunked SuCo collision scores ``-> (m, bc)`` int32: point j collides
     with query q in subspace i iff ``ranks[i, q, cells[i, j]] <= cuts[i, q]``."""
     _check_cells(ranks, cuts, cells)
-    same_device(ranks, cuts, cells)
-    if ranks.device.type == "cpu":
+    dev = same_device(ranks, cuts, cells)
+    if dev.type == "cpu":
         return sc_score_cells_ref(ranks, cuts, cells)
-    if ranks.device.type == "cuda":
+    if dev.type == "cuda":
         return kernel.sc_score_cells(ranks, cuts, cells)
-    raise ValueError(f"no sc_score_cells route for device {ranks.device}")
+    raise ValueError(f"no sc_score_cells route for device {dev}")
 
 
 def sc_scores_cells_prefilter(
@@ -102,12 +102,12 @@ def sc_scores_cells_prefilter(
     the data, which this op cannot know about."""
     m = _check_cells(ranks, cuts, cells)[1]
     check_tensor("thr", thr, torch.int32, (m,))
-    same_device(ranks, cuts, cells, thr)
-    if ranks.device.type == "cpu":
+    dev = same_device(ranks, cuts, cells, thr)
+    if dev.type == "cpu":
         return sc_score_cells_prefilter_ref(ranks, cuts, cells, thr)
-    if ranks.device.type == "cuda":
+    if dev.type == "cuda":
         return kernel.sc_score_cells_prefilter(ranks, cuts, cells, thr)
-    raise ValueError(f"no sc_score_cells_prefilter route for device {ranks.device}")
+    raise ValueError(f"no sc_score_cells_prefilter route for device {dev}")
 
 
 def sc_scores_cells_prefilter_compact(

@@ -348,6 +348,111 @@ def test_sc_score_cells_and_prefilter_kernels_equal_plain(dev, m, bc):
     assert got_k.dtype == torch.bool and torch.equal(got_k.cpu(), want_k)
 
 
+# (Ns, K, m, bc, cuts, ranks): Ns 1, 3 and 300 outside the unrolled set
+# (4, 8, 16), K from one cell to 65,536 (Q = 2 at Ns = 8, Q = 1
+# at Ns = 16), every query tile and its ragged last group (m = 7, 65);
+# cuts mixed, all -1 (nothing active) or >= K (all active); ranks aligned
+# or one int off 16 bytes
+CELL_CASES = [
+    (8, 2500, 64, 4096, "mixed", "aligned"),
+    (8, 2500, 65, 70_000, "mixed", "aligned"),
+    (8, 2500, 1, 1, "mixed", "aligned"),
+    (8, 2500, 7, 5, "none", "aligned"),
+    (8, 2500, 64, 4096, "all", "offset"),
+    (1, 1, 7, 4096, "mixed", "aligned"),
+    (1, 31, 65, 5, "mixed", "offset"),
+    (3, 31, 64, 70_000, "mixed", "aligned"),
+    (3, 2500, 1, 4096, "all", "aligned"),
+    (16, 2500, 65, 4096, "mixed", "offset"),
+    (16, 31, 1, 70_000, "none", "aligned"),
+    (8, 65_536, 7, 4096, "mixed", "aligned"),
+    (8, 65_536, 64, 5, "mixed", "offset"),
+    (16, 65_536, 65, 1, "mixed", "aligned"),
+    (4, 2500, 8, 70_000, "mixed", "aligned"),
+    (8, 2500, 1, 4096, "mixed", "aligned"),  # the query modes' batches of 1 and 8
+    (8, 2500, 5, 4096, "mixed", "offset"),
+    (8, 2500, 6, 70_000, "mixed", "aligned"),
+    (8, 2500, 7, 5, "mixed", "aligned"),
+    (8, 2500, 8, 4096, "mixed", "aligned"),
+    (8, 2500, 8, 70_000, "mixed", "offset"),
+    (300, 31, 5, 70, "all", "aligned"),  # more hits than a byte counter holds
+]
+
+
+@pytest.mark.parametrize("ns,k_cells,m,bc,cut_kind,layout", CELL_CASES)
+def test_cells_kernels_equal_plain_over_bitmap_widths_and_query_tiles(
+        dev, ns, k_cells, m, bc, cut_kind, layout):
+    """Rows 7 and 8 against their plain versions on the card: cell ids a
+    column slice at an odd offset (rows not 16-byte aligned), ranks
+    contiguous but (``offset``) one int past a 16-byte boundary, and two
+    launches give equal bits."""
+    g = torch.Generator(dev).manual_seed(ns * 7 + m)
+    ranks = torch.randint(0, k_cells, (ns * m * k_cells + 1,), generator=g, device=dev,
+                          dtype=torch.int32)
+    ranks = ranks[1:] if layout == "offset" else ranks[:-1]
+    ranks = ranks.view(ns, m, k_cells)
+    assert (ranks.data_ptr() % 16 != 0) == (layout == "offset")
+    cuts = {"mixed": torch.randint(-1, k_cells + 2, (ns, m), generator=g, device=dev,
+                                   dtype=torch.int32),
+            "none": torch.full((ns, m), -1, dtype=torch.int32, device=dev),
+            "all": torch.full((ns, m), k_cells, dtype=torch.int32, device=dev)}[cut_kind]
+    cells = torch.randint(0, k_cells, (ns, bc + 40), generator=g, device=dev,
+                          dtype=torch.int32)[:, 13:13 + bc]
+    thr = torch.randint(-1, ns + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    counts0 = kernels.launch_counts()
+    got = score_ops.sc_scores_cells(ranks, cuts, cells)
+    got_s, got_k = score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr)
+    again = score_ops.sc_scores_cells(ranks, cuts, cells)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["sc_score_cells"] == counts0["sc_score_cells"] + 2
+    assert counts["sc_score_cells_prefilter"] == counts0["sc_score_cells_prefilter"] + 1
+    want = sc_score_cells_ref(ranks, cuts, cells)
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(got_s, want) and torch.equal(got_k, want > thr[:, None])
+    if cut_kind != "mixed":
+        assert torch.equal(want, torch.full_like(want, 0 if cut_kind == "none" else ns))
+
+
+def test_cells_tiling_agrees_with_the_source(dev):
+    """The source's ``sc_score_smem_bytes`` is Q times one query's bitmap,
+    as ``kernel.tiling`` assumes; the Q it picks launches, and where shared
+    memory held it back, twice that Q is refused by the C entry; where one
+    query's bitmap does not fit, the op refuses on the card."""
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    for ns, k_cells in [(1, 1), (3, 31), (8, 2500), (16, 2500), (8, 65_536), (16, 65_536)]:
+        one = score_kernel.smem_bytes(ns, k_cells, 1)
+        assert one == 4 * ns * -(-k_cells // 32)
+        for q in score_kernel.QUERY_TILES:
+            assert score_kernel.smem_bytes(ns, k_cells, q) == q * one
+        m = 64
+        q, tile = score_kernel.tiling(one, limit, props.multi_processor_count, m, 4096)
+        ranks = torch.zeros((ns, m, k_cells), dtype=torch.int32, device=dev)
+        cuts = torch.zeros((ns, m), dtype=torch.int32, device=dev)
+        cells = torch.zeros((ns, 4096), dtype=torch.int32, device=dev)
+        bitmap = torch.empty((m * ns * -(-k_cells // 32),), dtype=torch.int32, device=dev)
+        scores = torch.empty((m, 4096), dtype=torch.int32, device=dev)
+        fn = score_kernel._build.entry("sc_score", "sc_score_cells", score_kernel._CELLS_ARGTYPES)
+
+        def launch(q_):
+            return fn(ranks.data_ptr(), cuts.data_ptr(), cells.data_ptr(), cells.stride(0),
+                      ns, m, k_cells, 4096, q_, tile, bitmap.data_ptr(), scores.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
+
+        assert launch(q) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(scores, torch.full_like(scores, ns))
+        if q < 16:
+            assert 2 * q * one > limit and launch(2 * q) != 0
+    with pytest.raises(ValueError, match="one query's bitmap"):
+        score_ops.sc_scores_cells(torch.zeros((64, 1, 65_536), dtype=torch.int32, device=dev),
+                                  torch.zeros((64, 1), dtype=torch.int32, device=dev),
+                                  torch.zeros((64, 3), dtype=torch.int32, device=dev))
+
+
 @pytest.mark.parametrize("m,n,s", [(1, 1, 3), (33, 1000, 16), (64, 4099, 3), (5, 300, 130)])
 def test_pairwise_and_fused_score_kernels_equal_plain_exactly(dev, m, n, s):
     """Both kernels sum in the plain versions' fixed order: the distances are

@@ -30,6 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gather_rerank import ops as gather_ops
 from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
 from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
+from repro_torch.kernels.sc_score import kernel as score_kernel
 from repro_torch.kernels.sc_score import ops as score_ops
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -103,6 +104,68 @@ def test_sc_scores_cells_and_prefilter_match_jax_exactly(seed, pallas):
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
     assert torch.equal(got_s, got)
+
+
+H100_SMS = 132  # the card's SM count and shared memory a block may use
+H100_SMEM = 232_448
+
+
+def _bitmap_bytes(ns, k_cells):
+    """One query's bitmap: Ns rows of ceil(K/32) words (``csrc/sc_score.cu``'s
+    ``sc_score_smem_bytes`` at q = 1, held to this on the card)."""
+    return 4 * ns * -(-k_cells // 32)
+
+
+@pytest.mark.parametrize("ns,k_cells", [(1, 1), (3, 31), (8, 2500), (16, 2500), (8, 65_536),
+                                        (16, 65_536), (8, 200_000), (64, 65_536)])
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 64, 65])
+def test_sc_score_tiling_fits_shared_memory(ns, k_cells, m):
+    """The sweep's Q and tile: Q queries' bitmaps fit in shared memory, Q is
+    the widest of the query tiles that fits and is no wider than m rounded up
+    to a power of two; the tile is 1 to MAX_TILE columns."""
+    one = _bitmap_bytes(ns, k_cells)
+    for bc in (1, 5, 4096, 70_000):
+        if one > H100_SMEM:
+            with pytest.raises(ValueError, match="one query's bitmap"):
+                score_kernel.tiling(one, H100_SMEM, H100_SMS, m, bc)
+            continue
+        q, tile = score_kernel.tiling(one, H100_SMEM, H100_SMS, m, bc)
+        assert q in score_kernel.QUERY_TILES and q * one <= H100_SMEM
+        assert q == 1 or q < 2 * m
+        assert q == 16 or 2 * q * one > H100_SMEM or q >= m
+        assert 1 <= tile <= score_kernel.MAX_TILE
+
+
+def test_sc_score_tiling_refuses_exactly_where_one_bitmap_no_longer_fits():
+    assert score_kernel.tiling(H100_SMEM, H100_SMEM, H100_SMS, 64, 4096)[0] == 1
+    assert score_kernel.tiling(H100_SMEM // 2, H100_SMEM, H100_SMS, 64, 4096)[0] == 2
+    with pytest.raises(ValueError, match="one query's bitmap"):
+        score_kernel.tiling(H100_SMEM + 1, H100_SMEM, H100_SMS, 1, 4096)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("bc", [4096, 1_000_000])
+def test_sc_score_tiling_gives_two_blocks_an_sm(m, bc):
+    """At the streaming (4,096 columns) and dense (n = 1M) shapes of the
+    default index (Ns = 8, K = 2,500), every SM gets two sweep blocks."""
+    q, tile = score_kernel.tiling(_bitmap_bytes(8, 2500), H100_SMEM, H100_SMS, m, bc)
+    assert q == min(m, 16)
+    assert -(-m // q) * -(-bc // tile) >= 2 * H100_SMS
+
+
+def test_sc_scores_cells_on_the_cpu_take_any_bitmap_width():
+    """Only the card refuses a bitmap past its shared memory: the plain
+    version scores any K."""
+    g = torch.Generator().manual_seed(3)
+    ns, m, k_cells = 64, 2, 65_536
+    assert _bitmap_bytes(ns, k_cells) > H100_SMEM
+    ranks = torch.randint(0, k_cells, (ns, m, k_cells), generator=g, dtype=torch.int32)
+    cuts = torch.randint(-1, k_cells + 1, (ns, m), generator=g, dtype=torch.int32)
+    cells = torch.randint(0, k_cells, (ns, 9), generator=g, dtype=torch.int32)
+    got = score_ops.sc_scores_cells(ranks, cuts, cells)
+    want = (torch.gather(ranks, 2, cells.long()[:, None].expand(ns, m, 9))
+            <= cuts[:, :, None]).sum(0)
+    assert torch.equal(got, want.int())
 
 
 def test_sc_scores_fused_matches_the_jax_kernel_on_integer_data():
