@@ -37,7 +37,13 @@ and, with the same weights and the card's tokens, on the CPU.
 It checks recall@10 against an exact k-NN, answers 8 queries of the fused
 (before and after mutation) and SC-Linear paths again on the CPU with the
 plain versions, and holds each kernel against its plain PyTorch version at
-the shapes of its path.  The screened assignment (rows 6 and 5-wide) is also
+the shapes of its path.  Row 1 (the fused query's chunk kernel) is held on
+the arguments the fused batches of 1, 8 and 64 queries gave it (each
+batch's first chunk, thr = -1 and its slots overflowing, and its second,
+with and without a tombstone mask, two launches to equal bits) and timed
+over each batch's chunks in turn; rows 1 and 7 also at an index width whose
+one-query bitmap is past shared memory (Ns = 16, sqrt_k = 341: the L2
+route).  The screened assignment (rows 6 and 5-wide) is also
 held to its plain version on adversarial inputs, and at the IVF shapes its
 re-checks per point and its largest screen error over its margin (<= 0.25)
 are reported, and its best distances (row 3's wide variant reads them) must
@@ -287,7 +293,76 @@ def cell_score_inputs(index, q):
     return suco_cell_ranks(index, q, sub.collision_count(index.cell_ids.shape[1], 0.05))
 
 
-def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
+def fused_compact_calls(engine, q, k: int) -> list[dict]:
+    """The arguments row 1 (``sc_scores_cells_prefilter_compact``) takes on
+    each chunk of one fused batch, in order: ``engine.query(q, k)`` served
+    once with the op wrapped to record them (``thr`` is -1 on the first
+    chunk, then the warm pool's minimum)."""
+    from repro_torch.core import suco
+
+    op, calls = suco.sc_scores_cells_prefilter_compact, []
+
+    def record(ranks, cuts, cells, thr, limit, keep_cols=None, *, cap):
+        calls.append(dict(ranks=ranks, cuts=cuts, cells=cells, thr=thr.clone(), limit=limit,
+                          keep_cols=keep_cols, cap=cap))
+        return op(ranks, cuts, cells, thr, limit, keep_cols, cap=cap)
+
+    suco.sc_scores_cells_prefilter_compact = record
+    try:
+        engine.query(q, k)
+    finally:
+        suco.sc_scores_cells_prefilter_compact = op
+    return calls
+
+
+def replay_compact(chunks: list[dict]) -> list:
+    """Row 1 over recorded chunks (:func:`fused_compact_calls`), in order:
+    each chunk's ``(scores, surv_cols, surv_scores, count)``."""
+    from repro_torch.kernels.sc_score import ops
+
+    return [ops.sc_scores_cells_prefilter_compact(
+        c["ranks"], c["cuts"], c["cells"], c["thr"], c["limit"], c["keep_cols"], cap=c["cap"])
+        for c in chunks]
+
+
+def sweep_plan(index, m: int, bc: int, ns: int | None = None, k_cells: int | None = None) -> dict:
+    """The chunk-score sweep a launch over ``bc`` columns for ``m`` queries
+    takes on this card (``kernel.plan``): Q, the column tile, the tiles,
+    the bitmap's route (``bitmap_route``) and the shared memory a block
+    uses; at the index's width unless ``ns`` and ``k_cells`` are given."""
+    import torch
+
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    ns = index.cell_ids.shape[0] if ns is None else ns
+    k_cells = index.n_cells if k_cells is None else k_cells
+    one = score_kernel.smem_bytes(ns, k_cells, 1)
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    p = score_kernel.plan(one, m, bc, props.shared_memory_per_block_optin,
+                          props.multi_processor_count)
+    return dict(q=p.q, tile=p.tile, tiles=p.tiles, bitmap_route="l2" if p.l2 else "shared",
+                smem_bytes=0 if p.l2 else p.q * one)
+
+
+def l2_route_inputs(dev, ns: int, sqrt_k: int, m: int, bc: int):
+    """Chunk-score inputs at an index width whose one-query bitmap is past a
+    block's shared memory (Ns = 16 at sqrt_k = 341: 232,576 bytes): random
+    ranks, cuts, cell ids (a column slice) and warm-pool thresholds, from a
+    fixed seed."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(ns * sqrt_k + m)
+    k_cells = sqrt_k**2
+    ranks = torch.randint(0, k_cells, (ns, m, k_cells), generator=g, device=dev,
+                          dtype=torch.int32)
+    cuts = torch.randint(-1, k_cells // 8, (ns, m), generator=g, device=dev, dtype=torch.int32)
+    cells = torch.randint(0, k_cells, (ns, bc + 40), generator=g, device=dev,
+                          dtype=torch.int32)[:, 13:13 + bc]
+    thr = torch.randint(1, ns // 2 + 1, (m,), generator=g, device=dev, dtype=torch.int32)
+    return ranks, cuts, cells, thr
+
+
+def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int) -> dict:
     """Each kernel against its plain version on the same inputs, at the main
     path's shapes.  Integers must be equal; floats within the stated
     tolerance.  Returns per-kernel records for the ``kernels`` line."""
@@ -305,6 +380,8 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
     from repro_torch.kernels.sc_score.ref import sc_score_cells_prefilter_compact_ref
 
     out = {}
+    index, tiles = engine.index, engine.tiles_for(64, top_k)
+    fused = {m_: fused_compact_calls(engine, q64[:m_], top_k) for m_ in (1, 8, 64)}
     b, n, s = both.shape
     k = cfg.sqrt_k
     bn = cfg.block_n
@@ -343,31 +420,86 @@ def check_kernels(dev, data, both, c0, index, q64, cfg, tiles) -> dict:
                     smem_bytes=4 * (2 * k * s + k * k)),  # both codebooks + histogram
     )
 
-    # sc_score compact: one chunk of the 64-query batch, with and without a
-    # tombstone mask; the threshold of a warm pool (score > Ns/2 survives)
+    # sc_score compact (row 1) on the fused batches' own inputs: each batch of
+    # 1, 8 and 64 queries served once with the op's arguments recorded; its
+    # first chunk (thr = -1: every live column survives, count > cap) and its
+    # second (the warm pool's minimum), with and without a tombstone mask
     m = q64.shape[0]
-    ranks, cuts = cell_score_inputs(index, q64)
-    chunk = tiles.block_n
-    cells = index.cell_ids[:, :chunk]
-    thr = torch.full((m,), cfg.n_subspaces // 2, dtype=torch.int32, device=dev)
-    keep = torch.rand(chunk, device=dev, generator=torch.Generator(dev).manual_seed(0)) > 0.1
-    cap = tiles.survivor_cap
-    for kc in (keep, None):
-        got = score_ops.sc_scores_cells_prefilter_compact(ranks, cuts, cells, thr, chunk, kc, cap=cap)
-        want = sc_score_cells_prefilter_compact_ref(ranks, cuts, cells, thr, chunk, kc, cap=cap)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("sc_score compact differs from the plain version")
-    bms, by = bound(nbytes(ranks, cuts, cells, thr, *got), 2.0 * cfg.n_subspaces * m * chunk)
+    ns = cfg.n_subspaces
+    batches = {}
+    for m_, chunks in fused.items():
+        bc = chunks[0]["cells"].shape[1]
+        keep = torch.rand(bc, device=dev, generator=torch.Generator(dev).manual_seed(m_)) > 0.1
+        counts = []
+        for c in chunks[:2]:
+            for kc in (None, keep):
+                args = (c["ranks"], c["cuts"], c["cells"], c["thr"], c["limit"], kc)
+                got = score_ops.sc_scores_cells_prefilter_compact(*args, cap=c["cap"])
+                want = sc_score_cells_prefilter_compact_ref(*args, cap=c["cap"])
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"sc_score compact at m = {m_} differs from the plain "
+                                         "version")
+                same_bits(f"sc_score compact at m = {m_}", got,
+                          score_ops.sc_scores_cells_prefilter_compact(*args, cap=c["cap"]))
+                counts.append(int(got[3].max()))
+        batches[m_] = dict(chunks=len(chunks), chunk=bc, cap=chunks[0]["cap"],
+                           most_survivors=dict(first=counts[0], first_masked=counts[1],
+                                               warm=counts[2], warm_masked=counts[3]),
+                           **sweep_plan(engine.index, m_, bc))
+    if batches[64]["most_survivors"]["first"] <= batches[64]["cap"]:
+        raise AssertionError("the first chunk did not overflow its slots")
+
+    def replay_bound(chunks) -> tuple[float, str]:
+        """Row 1's bound per launch over a batch's chunks."""
+        per = [bound(nbytes(c["ranks"], c["cuts"], c["cells"], c["thr"], c["keep_cols"])
+                     + 4 * (c["cells"].shape[1] + 2 * c["cap"] + 1) * c["thr"].shape[0],
+                     2.0 * ns * c["thr"].shape[0] * c["cells"].shape[1]) for c in chunks]
+        return sum(t for t, _ in per) / len(per), per[0][1]
+
+    in_path = {}
+    for m_ in (1, 64):  # a batch's chunks replayed in order, per launch
+        chunks = fused[m_]
+        t = timed(lambda chunks=chunks: replay_compact(chunks), 10)
+        bms, by = replay_bound(chunks)
+        in_path[str(m_)] = dict(ms=t["ms"] / len(chunks), call_ms=t["call_ms"] / len(chunks),
+                                bound_ms=bms, bound_by=by, launches_per_batch=len(chunks),
+                                ms_readings=[r / len(chunks) for r in t["ms_readings"]],
+                                device_events_lost=t["device_events_lost"],
+                                device_retakes=t["device_retakes"])
+
+    # the L2 route: an index width whose one-query bitmap is past shared memory
+    l2 = l2_route_inputs(dev, 16, 341, 8, tiles.block_n)
+    plan_l2 = sweep_plan(None, 8, tiles.block_n, ns=16, k_cells=341**2)
+    args = (*l2, tiles.block_n, None)
+    got = score_ops.sc_scores_cells_prefilter_compact(*args, cap=tiles.survivor_cap)
+    want = sc_score_cells_prefilter_compact_ref(*args, cap=tiles.survivor_cap)
+    if plan_l2["bitmap_route"] != "l2" or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("sc_score compact on the L2 route differs from the plain version")
+    l2_rec = dict(ns=16, sqrt_k=341, m=8, chunk=tiles.block_n, **plan_l2, ms=device_ms(
+        lambda: score_ops.sc_scores_cells_prefilter_compact(*args, cap=tiles.survivor_cap),
+        20)["ms"])
+    del l2, got, want
+
+    # the kernel table's shape: the 64-query batch's first chunk at the
+    # threshold of a warm pool (score > Ns/2 survives)
+    c = fused[64][0]
+    chunk, cap = c["cells"].shape[1], c["cap"]
+    thr = torch.full((m,), ns // 2, dtype=torch.int32, device=dev)
+    args = (c["ranks"], c["cuts"], c["cells"], thr, chunk, None)
+    got = score_ops.sc_scores_cells_prefilter_compact(*args, cap=cap)
+    if not all(torch.equal(g, w) for g, w in zip(
+            got, sc_score_cells_prefilter_compact_ref(*args, cap=cap))):
+        raise AssertionError("sc_score compact differs from the plain version")
+    bms, by = bound(nbytes(c["ranks"], c["cuts"], c["cells"], thr, *got), 2.0 * ns * m * chunk)
     out["sc_score_cells_prefilter_compact"] = dict(
         max_abs_err=0.0,
-        **timed(lambda: score_ops.sc_scores_cells_prefilter_compact(
-            ranks, cuts, cells, thr, chunk, cap=cap), 50),
-        plain_ms=time_ms(lambda: sc_score_cells_prefilter_compact_ref(
-            ranks, cuts, cells, thr, chunk, cap=cap), 10),
+        **timed(lambda: score_ops.sc_scores_cells_prefilter_compact(*args, cap=cap), 50),
+        plain_ms=time_ms(lambda: sc_score_cells_prefilter_compact_ref(*args, cap=cap), 10),
         bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(m=m, chunk=chunk, cap=cap, ns=cfg.n_subspaces, cells=index.n_cells,
-                    smem_bytes=4 * cfg.n_subspaces * -(-index.n_cells // 32),  # the bitmap
-                    mean_survivors=float(got[3].float().mean())),
+        detail=dict(m=m, chunk=chunk, cap=cap, ns=ns, cells=engine.index.n_cells,
+                    **sweep_plan(engine.index, m, chunk),
+                    mean_survivors=float(got[3].float().mean()), equal_bits=True,
+                    in_path=in_path, batches_checked=batches, l2_route=l2_rec),
     )
 
     # gather_rerank: a compaction buffer of candidates per query
@@ -412,7 +544,6 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     from repro_torch.core.collision import kth_smallest
     from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
     from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
-    from repro_torch.kernels.sc_score import kernel as score_kernel
     from repro_torch.kernels.sc_score import ops as score_ops
     from repro_torch.kernels.sc_score.ref import (
         sc_score_cells_prefilter_ref,
@@ -440,13 +571,8 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
         turn[0] += 1
         return score_ops.sc_scores_cells(ranks, cuts, index.cell_ids[:, lo:lo + chunk])
 
-    props = torch.cuda.get_device_properties(ranks.device)
-    one = score_kernel.smem_bytes(ns, index.n_cells, 1)
-
     def plan(m_: int, bc: int) -> dict:
-        q_, tile_ = score_kernel.tiling(one, props.shared_memory_per_block_optin,
-                                        props.multi_processor_count, m_, bc)
-        return dict(q=q_, tile=tile_, smem_bytes=q_ * one)
+        return sweep_plan(index, m_, bc)
 
     full = index.cell_ids
     # the batches of 1 and 8 queries the query modes also serve run other Q
@@ -478,6 +604,17 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(m=m, n=n, ns=ns, cells=index.n_cells, **plan(m, n), equal_bits=True))
     del got
+
+    # the L2 route: an index width whose one-query bitmap is past shared memory
+    l2 = l2_route_inputs(dev, 16, 341, 8, chunk)[:3]
+    plan_l2 = sweep_plan(None, 8, chunk, ns=16, k_cells=341**2)
+    if plan_l2["bitmap_route"] != "l2" or not torch.equal(score_ops.sc_scores_cells(*l2),
+                                                     sc_score_cells_ref(*l2)):
+        raise AssertionError("sc_score_cells on the L2 route differs from the plain version")
+    out["sc_score_cells"]["detail"]["l2_route"] = dict(
+        ns=16, sqrt_k=341, m=8, chunk=chunk, **plan_l2,
+        ms=device_ms(lambda: score_ops.sc_scores_cells(*l2), 20)["ms"])
+    del l2
 
     # scores + keep mask: one fused chunk, the threshold of a warm pool
     cells = index.cell_ids[:, : tiles.block_n]
@@ -594,6 +731,17 @@ def profile_batch(fn) -> dict:
         top=[dict(name=name[:60], ms=t / 1e3, calls=c) for name, t, c in top],
         port_kernels=[dict(name=name[:60], ms=t / 1e3, calls=c) for name, t, c in port],
     )
+
+
+def compact_in_profile(prof: dict) -> dict:
+    """Row 1 in a profiled fused batch (:func:`profile_batch`): its passes'
+    device time over the batch, its launches (one compaction pass each) and
+    the time per launch."""
+    passes = ("sc_bitmap_kernel", "sc_sweep_kernel", "sc_compact_kernel")
+    rows = [r for r in prof["port_kernels"] if any(f"::{k}" in r["name"] for k in passes)]
+    ms = sum(r["ms"] for r in rows)
+    launches = sum(r["calls"] for r in rows if "::sc_compact_kernel" in r["name"])
+    return dict(ms=ms, launches=launches, ms_per_launch=ms / launches if launches else None)
 
 
 def same_answers(card, cpu, rtol=2e-5) -> dict:
@@ -1675,8 +1823,8 @@ def main() -> int:
     check_launched("main_path", launches)
 
     # where a served batch's time goes: device busy share and the top kernels
-    emit(dict(phase="profile", **{str(m): profile_batch(lambda m=m: engine.query(q64[:m], k))
-                                  for m in (1, 64)}))
+    profiles = {m: profile_batch(lambda m=m: engine.query(q64[:m], k)) for m in (1, 64)}
+    emit(dict(phase="profile", **{str(m): p_ for m, p_ in profiles.items()}))
 
     # 4. the dense and streaming query modes over the same index
     launches_by_path = dict(main_path=launches)
@@ -1700,7 +1848,7 @@ def main() -> int:
 
     # 9. each kernel against its plain version at its path's shapes
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
-    checks = check_kernels(dev, data, both, c0, engine.index, q64, cfg, engine.tiles_for(64, k))
+    checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k)
     del both
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
     checks.update(library_checks)
@@ -1728,9 +1876,13 @@ def main() -> int:
                          ms=rec_["ms"], call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
                          bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
                          library_ms=rec_["library_ms"]))
-        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin", "equal_bits")
+        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin", "equal_bits",
+                  "q", "tile", "bitmap_route", "smem_bytes", "l2_route", "in_path")
         rows[-1].update({key: rec_["detail"][key] for key in extras
                          if key in rec_.get("detail", {})})
+        if name == "sc_score_cells_prefilter_compact":  # its time in the profiled batches
+            for m, p_ in profiles.items():
+                rows[-1]["in_path"][str(m)]["profile"] = compact_in_profile(p_)
         # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
         # over all n columns ("dense")
         for variant in ("wide", "pq", "dense"):

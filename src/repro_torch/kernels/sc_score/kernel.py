@@ -2,15 +2,17 @@
 
 ``csrc/sc_score.cu`` replaces the TPU kernels ``sc_score_cells_kernel``,
 ``sc_score_cells_prefilter_kernel`` and
-``sc_score_cells_prefilter_compact_kernel``.  The first two are two
-launches from one C entry point: a bitmap pass that reads the ranks once
-into device memory (the activated sets, Q queries' bits side by side), then
-a sweep in which a block serves Q queries and a tile of columns from that
-bitmap in shared memory.  :func:`tiling` picks Q and the tile from one
-query's bitmap bytes (the source's ``sc_score_smem_bytes``), the card's
-shared memory and its SM count.  The compaction is a block per query, the
-activated set as a bitmap in shared memory and a block-wide scan for the
-survivor slots.  Bytes bound them on an H100.  ``sc_score_fused`` of
+``sc_score_cells_prefilter_compact_kernel``.  Each is launched from one C
+entry point: a bitmap pass that reads the ranks once into device memory
+(the activated sets, Q queries' bits side by side), then a sweep in which a
+block serves Q queries and a tile of columns from that bitmap, copied into
+shared memory or, where one query's bitmap does not fit there, read from
+L2; the compaction adds each tile's survivor counts to the sweep and a
+third pass, a warp per (query, tile), that places each tile's survivors
+after the earlier tiles' by ballots.  :func:`tiling` picks the
+route, Q and the tile from one query's bitmap bytes (the source's
+``sc_score_smem_bytes``), the card's shared memory and its SM count.
+Bytes bound them on an H100.  ``sc_score_fused`` of
 ``csrc/pairwise_l2.cu`` replaces ``sc_score_kernel``: SIMT distance tiles,
 counted over the subspaces in registers; operations bound it.  (See the
 sources' headers.)
@@ -19,7 +21,7 @@ The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates the outputs and scratch, launches on the current stream and
 raises on any CUDA error.  ``launches`` (the compact kernel),
 ``cells_launches``, ``prefilter_launches`` and ``fused_launches`` count the
-launches (one for the two passes of rows 7 and 8).
+launches (one for the passes of one C entry point).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,29 +42,33 @@ fused_launches = 0
 
 QUERY_TILES = (16, 8, 4, 2, 1)  # queries a sweep block may serve (Q), widest first
 MAX_TILE = 2048  # columns of a sweep block at most: 256 threads x 8
+SHARED, L2 = "shared", "l2"  # where a sweep block reads its bitmap from
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_CELLS_ARGTYPES = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P]
-_PREFILTER_ARGTYPES = [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_ARGTYPES = [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P, _P, _P]
+_CELLS_ARGTYPES = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+_PREFILTER_ARGTYPES = [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _FUSED_ARGTYPES = [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _P, _P]
 
 
-def tiling(bitmap_bytes: int, smem_limit: int, n_sm: int, m: int, bc: int) -> tuple[int, int]:
-    """``(Q, tile)`` of the chunk-score sweep: a block serves ``Q`` queries
-    (whose bitmaps take ``Q * bitmap_bytes`` of shared memory, one query's
-    being ``bitmap_bytes``) and ``tile`` columns.  ``Q`` is the widest of
-    :data:`QUERY_TILES` that fits in ``smem_limit`` and is no wider than
-    ``m`` rounded up to a power of two; ``tile`` (at most :data:`MAX_TILE`)
-    gives the launch at least two blocks on each of ``n_sm`` SMs wherever
-    ``bc`` has that many columns for each group of ``Q`` queries.  Raises
-    where one query's bitmap does not fit."""
-    if bitmap_bytes > smem_limit:
-        raise ValueError(
-            f"one query's bitmap takes {bitmap_bytes} bytes of shared memory, more than the "
-            f"{smem_limit} a block may use")
-    q = next(q for q in QUERY_TILES if q * bitmap_bytes <= smem_limit and (q < 2 * m or q == 1))
+def tiling(bitmap_bytes: int, smem_limit: int, n_sm: int, m: int, bc: int
+           ) -> tuple[int, int, str]:
+    """``(Q, tile, route)`` of the chunk-score sweep: a block serves ``Q``
+    queries and ``tile`` columns.  On the :data:`SHARED` route the block
+    copies its queries' bitmaps (``Q * bitmap_bytes``, one query's being
+    ``bitmap_bytes``) into shared memory, and ``Q`` is the widest of
+    :data:`QUERY_TILES` that fits in ``smem_limit``; where one query's
+    bitmap does not fit, the route is :data:`L2` (the sweep reads the
+    bitmap from device memory) and shared memory does not limit ``Q``.
+    Either way ``Q`` is no wider than ``m`` rounded up to a power of two.
+    ``tile`` (at most :data:`MAX_TILE`) gives the launch at least two blocks
+    on each of ``n_sm`` SMs wherever ``bc`` has that many columns for each
+    group of ``Q`` queries."""
+    route = SHARED if bitmap_bytes <= smem_limit else L2
+    q = next(q for q in QUERY_TILES
+             if (route == L2 or q * bitmap_bytes <= smem_limit) and (q < 2 * m or q == 1))
     tiles = -(-2 * n_sm // -(-m // q))  # column tiles for two blocks an SM
-    return q, min(MAX_TILE, max(1, bc // tiles))
+    return q, min(MAX_TILE, max(1, bc // tiles)), route
 
 
 def smem_bytes(ns: int, k_cells: int, q: int) -> int:
@@ -70,13 +77,34 @@ def smem_bytes(ns: int, k_cells: int, q: int) -> int:
     return _build.entry("sc_score", "sc_score_smem_bytes", [_I, _I, _I])(ns, k_cells, q)
 
 
+class Plan(NamedTuple):
+    """A launch's sweep: ``q`` queries and ``tile`` columns a block, its
+    bitmap route (``l2`` true for :data:`L2`), the bitmap's words and the
+    column tiles."""
+    q: int
+    tile: int
+    l2: bool
+    words: int
+    tiles: int
+
+
+def plan(bitmap_bytes: int, m: int, bc: int, smem_limit: int, n_sm: int) -> Plan:
+    """The sweep of a launch over ``bc`` columns for ``m`` queries, one
+    query's bitmap taking ``bitmap_bytes``, on a card with ``n_sm`` SMs and
+    ``smem_limit`` bytes of shared memory a block: :func:`tiling`'s choice,
+    the bitmap pass's words (``ceil(m/Q)`` groups of ``Q`` queries'
+    bitmaps) and the ``ceil(bc / tile)`` column tiles whose survivors the
+    compaction counts."""
+    q, tile, route = tiling(bitmap_bytes, smem_limit, n_sm, m, bc)
+    return Plan(q, tile, route == L2, -(-m // q) * q * bitmap_bytes // 4, -(-bc // tile))
+
+
 @functools.lru_cache(maxsize=256)
-def _plan(index: int, ns: int, m: int, k_cells: int, bc: int) -> tuple[int, int, int]:
-    """``(Q, tile, bitmap words)`` of a launch on card ``index``."""
+def _plan(index: int, ns: int, m: int, k_cells: int, bc: int) -> Plan:
+    """The sweep of a launch on card ``index``."""
     props = torch.cuda.get_device_properties(index)
-    q, tile = tiling(smem_bytes(ns, k_cells, 1), props.shared_memory_per_block_optin,
-                     props.multi_processor_count, m, bc)
-    return q, tile, -(-m // q) * q * ns * -(-k_cells // 32)
+    return plan(smem_bytes(ns, k_cells, 1), m, bc, props.shared_memory_per_block_optin,
+                props.multi_processor_count)
 
 
 def _on(dev: torch.device):
@@ -92,14 +120,14 @@ def sc_score_cells(ranks: torch.Tensor, cuts: torch.Tensor, cells: torch.Tensor)
     ns, m, k_cells = ranks.shape
     bc = cells.shape[1]
     dev = ranks.device
-    q, tile, words = _plan(dev.index, ns, m, k_cells, bc)
+    plan = _plan(dev.index, ns, m, k_cells, bc)
     scores = torch.empty((m, bc), dtype=torch.int32, device=dev)
-    bitmap = torch.empty((words,), dtype=torch.int32, device=dev)
+    bitmap = torch.empty((plan.words,), dtype=torch.int32, device=dev)
     fn = _build.entry("sc_score", "sc_score_cells", _CELLS_ARGTYPES)
     with _on(dev):
         rc = fn(
             ranks.data_ptr(), cuts.data_ptr(), cells.data_ptr(), cells.stride(0),
-            ns, m, k_cells, bc, q, tile, bitmap.data_ptr(), scores.data_ptr(),
+            ns, m, k_cells, bc, plan.q, plan.tile, plan.l2, bitmap.data_ptr(), scores.data_ptr(),
             torch._C._cuda_getCurrentRawStream(dev.index),
         )
     _build.check("sc_score", rc, "sc_score_cells")
@@ -114,15 +142,16 @@ def sc_score_cells_prefilter(
     ns, m, k_cells = ranks.shape
     bc = cells.shape[1]
     dev = ranks.device
-    q, tile, words = _plan(dev.index, ns, m, k_cells, bc)
+    plan = _plan(dev.index, ns, m, k_cells, bc)
     scores = torch.empty((m, bc), dtype=torch.int32, device=dev)
     keep = torch.empty((m, bc), dtype=torch.bool, device=dev)  # one byte, written 0 / 1
-    bitmap = torch.empty((words,), dtype=torch.int32, device=dev)
+    bitmap = torch.empty((plan.words,), dtype=torch.int32, device=dev)
     fn = _build.entry("sc_score", "sc_score_cells_prefilter", _PREFILTER_ARGTYPES)
     with _on(dev):
         rc = fn(
             ranks.data_ptr(), cuts.data_ptr(), cells.data_ptr(), cells.stride(0), thr.data_ptr(),
-            ns, m, k_cells, bc, q, tile, bitmap.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+            ns, m, k_cells, bc, plan.q, plan.tile, plan.l2, bitmap.data_ptr(), scores.data_ptr(),
+            keep.data_ptr(),
             torch._C._cuda_getCurrentRawStream(dev.index),
         )
     _build.check("sc_score", rc, "sc_score_cells_prefilter")
@@ -161,18 +190,21 @@ def sc_score_compact(
     ns, m, k_cells = ranks.shape
     bc = cells.shape[1]
     dev = ranks.device
+    plan = _plan(dev.index, ns, m, k_cells, bc)
     scores = torch.empty((m, bc), dtype=torch.int32, device=dev)
     surv_cols = torch.empty((m, cap), dtype=torch.int32, device=dev)
     surv_scores = torch.empty((m, cap), dtype=torch.int32, device=dev)
     count = torch.empty((m,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((plan.words + m * plan.tiles,), dtype=torch.int32, device=dev)
     fn = _build.entry("sc_score", "sc_score_compact", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = fn(
             ranks.data_ptr(), cuts.data_ptr(), cells.data_ptr(), cells.stride(0),
             thr.data_ptr(), None if keep_cols is None else keep_cols.data_ptr(),
-            ns, m, k_cells, bc, limit, cap,
+            ns, m, k_cells, bc, max(0, min(limit, bc)), cap, plan.q, plan.tile, plan.l2,
+            scratch.data_ptr(), scratch[plan.words:].data_ptr(),  # the bitmap, the tile counts
             scores.data_ptr(), surv_cols.data_ptr(), surv_scores.data_ptr(),
-            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            count.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index),
         )
     _build.check("sc_score", rc, "sc_score_compact")
     launches += 1

@@ -416,9 +416,11 @@ def test_cells_kernels_equal_plain_over_bitmap_widths_and_query_tiles(
 
 def test_cells_tiling_agrees_with_the_source(dev):
     """The source's ``sc_score_smem_bytes`` is Q times one query's bitmap,
-    as ``kernel.tiling`` assumes; the Q it picks launches, and where shared
-    memory held it back, twice that Q is refused by the C entry; where one
-    query's bitmap does not fit, the op refuses on the card."""
+    as ``kernel.tiling`` assumes; the Q it picks launches on the shared
+    route, and where shared memory held it back, twice that Q is refused by
+    the C entry; the L2 route gives the same scores at any Q; where one
+    query's bitmap does not fit, the op answers on the card (L2 route) and
+    equals the plain version."""
     from repro_torch.kernels.sc_score import kernel as score_kernel
 
     props = torch.cuda.get_device_properties(dev)
@@ -429,7 +431,8 @@ def test_cells_tiling_agrees_with_the_source(dev):
         for q in score_kernel.QUERY_TILES:
             assert score_kernel.smem_bytes(ns, k_cells, q) == q * one
         m = 64
-        q, tile = score_kernel.tiling(one, limit, props.multi_processor_count, m, 4096)
+        q, tile, route = score_kernel.tiling(one, limit, props.multi_processor_count, m, 4096)
+        assert route == score_kernel.SHARED
         ranks = torch.zeros((ns, m, k_cells), dtype=torch.int32, device=dev)
         cuts = torch.zeros((ns, m), dtype=torch.int32, device=dev)
         cells = torch.zeros((ns, 4096), dtype=torch.int32, device=dev)
@@ -437,9 +440,10 @@ def test_cells_tiling_agrees_with_the_source(dev):
         scores = torch.empty((m, 4096), dtype=torch.int32, device=dev)
         fn = score_kernel._build.entry("sc_score", "sc_score_cells", score_kernel._CELLS_ARGTYPES)
 
-        def launch(q_):
+        def launch(q_, l2=0):
+            scores.fill_(-7)
             return fn(ranks.data_ptr(), cuts.data_ptr(), cells.data_ptr(), cells.stride(0),
-                      ns, m, k_cells, 4096, q_, tile, bitmap.data_ptr(), scores.data_ptr(),
+                      ns, m, k_cells, 4096, q_, tile, l2, bitmap.data_ptr(), scores.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
 
         assert launch(q) == 0
@@ -447,10 +451,109 @@ def test_cells_tiling_agrees_with_the_source(dev):
         assert torch.equal(scores, torch.full_like(scores, ns))
         if q < 16:
             assert 2 * q * one > limit and launch(2 * q) != 0
-    with pytest.raises(ValueError, match="one query's bitmap"):
-        score_ops.sc_scores_cells(torch.zeros((64, 1, 65_536), dtype=torch.int32, device=dev),
-                                  torch.zeros((64, 1), dtype=torch.int32, device=dev),
-                                  torch.zeros((64, 3), dtype=torch.int32, device=dev))
+        assert launch(16, l2=1) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(scores, torch.full_like(scores, ns))
+    ranks = torch.zeros((64, 1, 65_536), dtype=torch.int32, device=dev)
+    cuts = torch.zeros((64, 1), dtype=torch.int32, device=dev)
+    cells = torch.zeros((64, 3), dtype=torch.int32, device=dev)
+    assert score_kernel.smem_bytes(64, 65_536, 1) > limit
+    got = score_ops.sc_scores_cells(ranks, cuts, cells)
+    assert torch.equal(got, sc_score_cells_ref(ranks, cuts, cells))
+    assert torch.equal(got, torch.full_like(got, 64))
+
+
+def _compact_case(dev, seed, ns, k_cells, m, bc, thr_kind, offset=13):
+    """Row 1's inputs on the card: ranks and cuts (``warm``: few cells
+    active and thresholds of a warm pool, few survivors; ``first``: the
+    first chunk's thr = -1, every live column survives; ``mixed``: cuts
+    anywhere), and the cell ids a column slice at ``offset``."""
+    g = torch.Generator(dev).manual_seed(seed)
+    ranks = torch.randint(0, k_cells, (ns, m, k_cells), generator=g, device=dev,
+                          dtype=torch.int32)
+    hi = k_cells // 8 if thr_kind == "warm" else k_cells + 2
+    cuts = torch.randint(-1, max(hi, 1), (ns, m), generator=g, device=dev, dtype=torch.int32)
+    cells = torch.randint(0, k_cells, (ns, bc + offset + 40), generator=g, device=dev,
+                          dtype=torch.int32)[:, offset:offset + bc]
+    if thr_kind == "first":
+        thr = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    else:
+        thr = torch.randint(1 if thr_kind == "warm" else -1, ns // 2 + 1, (m,), generator=g,
+                            device=dev, dtype=torch.int32)
+    keep = torch.rand(bc, generator=g, device=dev) > 0.1
+    return ranks, cuts, cells, thr, keep
+
+
+# (m, bc, limit, thr, cap): the query tiles Q = 1 ... 16 over the fused
+# query's chunks (65,536 columns at m = 1, 27,136 at m = 64); limit < bc; a
+# last tile shorter than the tile; chunks narrower than a block (5 columns,
+# 1 column); the first chunk (thr = -1: count >> cap, slots full); cap above
+# the count (empty slots 0 / -1)
+COMPACT_CASES = [
+    (1, 65_536, 65_536, "warm", 1024),
+    (5, 27_136, 27_136, "warm", 4352),
+    (8, 27_136, 27_000, "warm", 4352),
+    (16, 27_137, 27_137, "warm", 512),
+    (64, 27_136, 27_136, "warm", 4352),
+    (64, 27_136, 27_136, "first", 4352),
+    (8, 65_536, 60_000, "first", 1024),
+    (16, 5, 3, "first", 16),
+    (64, 1, 1, "mixed", 64),
+    (8, 4096, 4096, "mixed", 4096),
+    (1, 4096, 4096, "first", 8192),
+]
+
+
+@pytest.mark.parametrize("tomb", [False, True])
+@pytest.mark.parametrize("m,bc,limit,thr_kind,cap", COMPACT_CASES)
+def test_compact_kernel_equals_plain_over_query_tiles(dev, m, bc, limit, thr_kind, cap, tomb):
+    """Row 1 (bitmap pass, sweep with tile counts, compaction across tiles)
+    bit for bit against its plain version, once a launch, and two launches
+    give equal bits."""
+    ns, k_cells = 8, 2500
+    ranks, cuts, cells, thr, keep = _compact_case(dev, m * 31 + bc, ns, k_cells, m, bc, thr_kind)
+    kc = keep if tomb else None
+    before = kernels.launch_counts()["sc_score_cells_prefilter_compact"]
+    got = score_ops.sc_scores_cells_prefilter_compact(ranks, cuts, cells, thr, limit, kc, cap=cap)
+    again = score_ops.sc_scores_cells_prefilter_compact(ranks, cuts, cells, thr, limit, kc, cap=cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sc_score_cells_prefilter_compact"] == before + 2
+    want = sc_score_cells_prefilter_compact_ref(ranks, cuts, cells, thr, limit, kc, cap=cap)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == torch.int32
+        assert torch.equal(a, b) and torch.equal(a, c)
+    count = got[3]
+    if thr_kind == "first":
+        live = limit if kc is None else int(kc[:limit].sum())
+        assert torch.equal(count, torch.full_like(count, live))
+    if cap > int(count.max()):  # empty slots hold column 0 and score -1
+        empty = torch.arange(cap, device=dev)[None, :] >= count[:, None]
+        assert (got[1][empty] == 0).all() and (got[2][empty] == -1).all()
+
+
+# the smallest index widths whose query bitmap is past a block's shared
+# memory: Ns = 16 at sqrt_k = 341, Ns = 8 at sqrt_k = 483
+@pytest.mark.parametrize("ns,sqrt_k", [(16, 341), (8, 483)])
+@pytest.mark.parametrize("m", [1, 8])
+def test_l2_route_rows_1_7_8_equal_plain(dev, ns, sqrt_k, m):
+    """Where one query's bitmap does not fit in shared memory, rows 1, 7 and
+    8 sweep from the bitmap in L2 and equal their plain versions."""
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    k_cells, bc = sqrt_k**2, 4096
+    assert score_kernel._plan(dev.index, ns, m, k_cells, bc).l2
+    ranks, cuts, cells, thr, keep = _compact_case(dev, ns + m, ns, k_cells, m, bc, "mixed")
+    assert torch.equal(score_ops.sc_scores_cells(ranks, cuts, cells),
+                       sc_score_cells_ref(ranks, cuts, cells))
+    got_s, got_k = score_ops.sc_scores_cells_prefilter(ranks, cuts, cells, thr)
+    want_s, want_k = sc_score_cells_prefilter_ref(ranks, cuts, cells, thr)
+    assert torch.equal(got_s, want_s) and torch.equal(got_k, want_k)
+    for kc in (keep, None):
+        got = score_ops.sc_scores_cells_prefilter_compact(ranks, cuts, cells, thr, bc - 9, kc,
+                                                          cap=512)
+        want = sc_score_cells_prefilter_compact_ref(ranks, cuts, cells, thr, bc - 9, kc, cap=512)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m,n,s", [(1, 1, 3), (33, 1000, 16), (64, 4099, 3), (5, 300, 130)])

@@ -120,27 +120,38 @@ def _bitmap_bytes(ns, k_cells):
                                         (16, 65_536), (8, 200_000), (64, 65_536)])
 @pytest.mark.parametrize("m", [1, 2, 7, 8, 64, 65])
 def test_sc_score_tiling_fits_shared_memory(ns, k_cells, m):
-    """The sweep's Q and tile: Q queries' bitmaps fit in shared memory, Q is
-    the widest of the query tiles that fits and is no wider than m rounded up
-    to a power of two; the tile is 1 to MAX_TILE columns."""
+    """The sweep's route, Q and tile: on the shared route Q queries' bitmaps
+    fit in shared memory and Q is the widest of the query tiles that fits;
+    where one query's bitmap does not fit, the route is L2 and Q is the
+    widest at all; either way Q is no wider than m rounded up to a power of
+    two, and the tile is 1 to MAX_TILE columns."""
     one = _bitmap_bytes(ns, k_cells)
     for bc in (1, 5, 4096, 70_000):
-        if one > H100_SMEM:
-            with pytest.raises(ValueError, match="one query's bitmap"):
-                score_kernel.tiling(one, H100_SMEM, H100_SMS, m, bc)
-            continue
-        q, tile = score_kernel.tiling(one, H100_SMEM, H100_SMS, m, bc)
-        assert q in score_kernel.QUERY_TILES and q * one <= H100_SMEM
+        q, tile, route = score_kernel.tiling(one, H100_SMEM, H100_SMS, m, bc)
+        assert q in score_kernel.QUERY_TILES
         assert q == 1 or q < 2 * m
-        assert q == 16 or 2 * q * one > H100_SMEM or q >= m
         assert 1 <= tile <= score_kernel.MAX_TILE
+        if one > H100_SMEM:
+            assert route == score_kernel.L2
+            assert q == 16 or q >= m
+            continue
+        assert route == score_kernel.SHARED and q * one <= H100_SMEM
+        assert q == 16 or 2 * q * one > H100_SMEM or q >= m
 
 
 def test_sc_score_tiling_refuses_exactly_where_one_bitmap_no_longer_fits():
-    assert score_kernel.tiling(H100_SMEM, H100_SMEM, H100_SMS, 64, 4096)[0] == 1
-    assert score_kernel.tiling(H100_SMEM // 2, H100_SMEM, H100_SMS, 64, 4096)[0] == 2
-    with pytest.raises(ValueError, match="one query's bitmap"):
-        score_kernel.tiling(H100_SMEM + 1, H100_SMEM, H100_SMS, 1, 4096)
+    """Shared memory holds back Q while one query's bitmap fits; one byte
+    past that, the sweep no longer refuses but takes the L2 route, with Q
+    limited by m alone."""
+    assert score_kernel.tiling(H100_SMEM, H100_SMEM, H100_SMS, 64, 4096)[::2] == (1, "shared")
+    assert score_kernel.tiling(H100_SMEM // 2, H100_SMEM, H100_SMS, 64, 4096)[::2] == (2, "shared")
+    assert score_kernel.tiling(H100_SMEM + 1, H100_SMEM, H100_SMS, 1, 4096)[::2] == (1, "l2")
+    assert score_kernel.tiling(H100_SMEM + 1, H100_SMEM, H100_SMS, 64, 4096)[::2] == (16, "l2")
+    # the smallest index shapes past the card: Ns = 16 at sqrt_k = 341, Ns = 8 at 483
+    for ns, sqrt_k in ((16, 341), (8, 483)):
+        assert _bitmap_bytes(ns, sqrt_k**2) > H100_SMEM >= _bitmap_bytes(ns, (sqrt_k - 1) ** 2)
+        assert score_kernel.tiling(_bitmap_bytes(ns, sqrt_k**2), H100_SMEM, H100_SMS, 8,
+                                   4096)[::2] == (8, "l2")
 
 
 @pytest.mark.parametrize("m", [1, 8, 64])
@@ -148,14 +159,56 @@ def test_sc_score_tiling_refuses_exactly_where_one_bitmap_no_longer_fits():
 def test_sc_score_tiling_gives_two_blocks_an_sm(m, bc):
     """At the streaming (4,096 columns) and dense (n = 1M) shapes of the
     default index (Ns = 8, K = 2,500), every SM gets two sweep blocks."""
-    q, tile = score_kernel.tiling(_bitmap_bytes(8, 2500), H100_SMEM, H100_SMS, m, bc)
-    assert q == min(m, 16)
+    q, tile, route = score_kernel.tiling(_bitmap_bytes(8, 2500), H100_SMEM, H100_SMS, m, bc)
+    assert q == min(m, 16) and route == "shared"
     assert -(-m // q) * -(-bc // tile) >= 2 * H100_SMS
 
 
+# (Ns, K, m, bc): the fused query's chunks at m = 1 (65,536 columns), 8 and 64
+# (27,136), a ragged chunk, one column, a chunk below one tile, and the L2 route
+_PLAN_CASES = [(8, 2500, 1, 65_536), (8, 2500, 8, 65_536), (8, 2500, 64, 27_136),
+               (8, 2500, 64, 27_137), (8, 2500, 5, 1), (8, 2500, 16, 200),
+               (16, 116_281, 8, 27_136), (8, 233_289, 1, 4096)]
+
+
+@pytest.mark.parametrize("ns,k_cells,m,bc", _PLAN_CASES)
+def test_sc_score_compact_tile_plan(ns, k_cells, m, bc):
+    """Row 1's plan: the tiles cover the chunk, the last one possibly short;
+    the bitmap scratch is the bitmap pass's words; and placing each tile's
+    survivors after the earlier tiles' counts, as the compaction pass does,
+    gives the plain version's slots: the first ``cap`` survivors in column
+    order."""
+    one = _bitmap_bytes(ns, k_cells)
+    p = score_kernel.plan(one, m, bc, H100_SMEM, H100_SMS)
+    assert (p.tiles - 1) * p.tile < bc <= p.tiles * p.tile
+    assert p.words == -(-m // p.q) * p.q * ns * -(-k_cells // 32)
+    assert p.l2 == (one > H100_SMEM)
+    if bc >= 2 * H100_SMS * -(-m // p.q):
+        assert -(-m // p.q) * p.tiles >= 2 * H100_SMS
+    g = torch.Generator().manual_seed(bc)
+    scores = torch.randint(-1, ns + 1, (m, bc), generator=g, dtype=torch.int32)
+    thr = torch.randint(-1, ns, (m,), generator=g, dtype=torch.int32)
+    flags = scores > thr[:, None]
+    counts = torch.stack([flags[:, t * p.tile:(t + 1) * p.tile].sum(1) for t in range(p.tiles)], 1)
+    base = torch.cumsum(counts, 1) - counts
+    cap = max(1, bc // 3)
+    cols = torch.zeros((m, cap), dtype=torch.int32)
+    for q in range(m):
+        for t in range(p.tiles):
+            if base[q, t] >= cap:
+                continue
+            j = torch.nonzero(flags[q, t * p.tile:(t + 1) * p.tile])[:, 0] + t * p.tile
+            slots = base[q, t] + torch.arange(j.numel())
+            cols[q, slots[slots < cap]] = j[slots < cap].int()
+    for q in range(m):  # the plain version's slots: the first cap survivors in order
+        want = torch.nonzero(flags[q])[:cap, 0].int()
+        assert torch.equal(cols[q, :want.numel()], want)
+        assert not cols[q, want.numel():].any()
+
+
 def test_sc_scores_cells_on_the_cpu_take_any_bitmap_width():
-    """Only the card refuses a bitmap past its shared memory: the plain
-    version scores any K."""
+    """The plain version scores any K: here one query's bitmap is past the
+    card's shared memory, where the card takes its L2 route."""
     g = torch.Generator().manual_seed(3)
     ns, m, k_cells = 64, 2, 65_536
     assert _bitmap_bytes(ns, k_cells) > H100_SMEM

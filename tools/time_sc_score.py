@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the chunk-score op (rows 7 and 8 of the kernel table) on the card's
-own clock at the shapes its paths give it, and the query batches that
-launch it.
+"""Time the chunk-score ops (rows 1, 7 and 8 of the kernel table) on the
+card's own clock at the shapes their paths give them, and the query batches
+that launch them.
 
     python3 tools/time_sc_score.py [--src DIR] [--label NAME] [--seed S]
                                    [--batches]
@@ -18,20 +18,29 @@ each launch the next chunk as the streaming query takes them
 (``stream_<m>``), over the first chunk again and again (``stream_64_same``:
 its cell ids stay in L2) and over all n columns, the dense mode's one
 launch (``dense_<m>``); row 8 (``sc_scores_cells_prefilter``) at m = 64
-over one fused chunk (``prefilter_64``).
+over one fused chunk (``prefilter_64``).  Row 1
+(``sc_scores_cells_prefilter_compact``) replays the chunks of one fused
+batch of m = 1, 8 and 64 queries in order, each with the arguments the
+fused query passed it (``chip_smoke.fused_compact_calls``: ``thr`` -1 on
+the first chunk, then the warm pool's minimum): ``compact_<m>`` is one
+batch's chunks, ``compact_<m>_first`` the first chunk alone and
+``compact_<m>_warm`` the second alone; ``compact_64_table`` is
+``chip_smoke.py``'s old table shape (the first chunk again and again at
+``thr`` = Ns / 2).
 
 Per shape: ``ms``, the device time of one call (``chip_smoke.device_ms``:
 the profiler's kernel time over ``REPS`` calls, the median of 5 readings,
 every reading kept), ``call_ms`` (CUDA events around ``REPS`` back-to-back
 calls, the median of 5 readings: how fast the host issues the op), the
 device events one call launches, whether two launches gave
-equal bits, and a fingerprint of the scores that two trees must share.
-With ``--batches``, a streaming and a dense batch of 64 queries
-(``suco_query``, k = 10): ``WALL_REPS`` readings on the host clock ending
-in a synchronise, and one batch under the profiler (device busy, idle
-share, top kernels).  Prints the tree's ``-Xptxas -v`` lines for
-``csrc/sc_score.cu`` and one JSON line with ``nvidia-smi``'s name and power
-limit.  Needs a CUDA card.
+equal bits, and a fingerprint of the outputs that two trees must share.
+With ``--batches``, fused batches of 1, 8 and 64 queries through the
+engine (``SuCoEngine.query``, k = 10) and a streaming and a dense batch of
+64 (``suco_query``): ``WALL_REPS`` readings on the host clock ending in a
+synchronise, and one batch under the profiler (device busy, idle share,
+top kernels, the port's kernels).  Prints the tree's ``-Xptxas -v`` lines
+for ``csrc/sc_score.cu`` and one JSON line with ``nvidia-smi``'s name and
+power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ import sys
 
 import _ab
 
-REPS = {"stream": 100, "dense": 10, "prefilter": 50}  # calls a reading
+REPS = {"stream": 100, "dense": 10, "prefilter": 50, "compact": 10, "chunk": 50}
 CHUNK = 4096  # the streaming query's chunk
 WALL_REPS = 5  # batches timed on the host clock
 
@@ -54,9 +63,19 @@ def fingerprint(t) -> int:
     return int((flat * (torch.arange(flat.numel(), device=t.device) % 7919 + 1)).sum())
 
 
+def chunk_record(chunks: list[dict], outs: list) -> dict:
+    """What the fused batch gave row 1: chunk width, slots, and per chunk
+    the threshold's range and the survivor count's mean and most."""
+    counts = outs[3::4]
+    return dict(chunks=len(chunks), bc=chunks[0]["cells"].shape[1], cap=chunks[0]["cap"],
+                thr=[[int(c["thr"].min()), int(c["thr"].max())] for c in chunks],
+                count_mean=[float(t.float().mean()) for t in counts],
+                count_max=[int(t.max()) for t in counts])
+
+
 def main() -> int:
     args, chip_smoke, out = _ab.start(__doc__, "time_sc_score", {
-        "--batches": "also time a streaming and a dense batch of 64 queries"})
+        "--batches": "also time fused batches of 1, 8 and 64 and a streaming and a dense batch of 64"})
     import torch
 
     from repro_torch import EnginePolicy, SuCoEngine
@@ -72,8 +91,8 @@ def main() -> int:
     index = build_index(data, SuCoConfig())
     ranks, cuts = chip_smoke.cell_score_inputs(index, q64)
     cells = index.cell_ids
-    fused_chunk = SuCoEngine(data, index, EnginePolicy(alpha=0.05, beta=0.02),
-                             device=dev).tiles_for(64, 10).block_n
+    engine = SuCoEngine(data, index, EnginePolicy(alpha=0.05, beta=0.02), device=dev)
+    fused_chunk = engine.tiles_for(64, 10).block_n
     thr = torch.full((64,), cells.shape[0] // 2, dtype=torch.int32, device=dev)
 
     chunks = cells.shape[1] // CHUNK
@@ -94,6 +113,18 @@ def main() -> int:
     calls["stream_64_same"] = ("stream", lambda: ops.sc_scores_cells(ranks, cuts, cells[:, :CHUNK]))
     calls["prefilter_64"] = ("prefilter", lambda: ops.sc_scores_cells_prefilter(
         ranks, cuts, cells[:, :fused_chunk], thr))
+    fused = {m: chip_smoke.fused_compact_calls(engine, q64[:m], 10) for m in (1, 8, 64)}
+
+    def replay(chunks):
+        """Row 1 over recorded chunks: every output of every chunk, in order."""
+        return [t for outs in chip_smoke.replay_compact(chunks) for t in outs]
+
+    for m, rec in fused.items():
+        calls[f"compact_{m}"] = ("compact", lambda c=rec: replay(c))
+        calls[f"compact_{m}_first"] = ("chunk", lambda c=rec[:1]: replay(c))
+        calls[f"compact_{m}_warm"] = ("chunk", lambda c=rec[1:2]: replay(c))
+    table = dict(fused[64][0], thr=thr, limit=fused_chunk)
+    calls["compact_64_table"] = ("chunk", lambda: replay([table]))
 
     out.update(n=cells.shape[1], ns=cells.shape[0], cells=ranks.shape[2],
                fused_chunk=fused_chunk, shapes={})
@@ -104,6 +135,10 @@ def main() -> int:
         second = fn()
         if isinstance(first, torch.Tensor):
             first, second = (first,), (second,)
+        prints = [fingerprint(t) for t in first]
+        if kind == "compact":  # one per output, summed over the chunks
+            out["shapes"][f"{name}_chunks"] = chunk_record(fused[int(name[8:])], first)
+            prints = [sum(prints[i::4]) for i in range(4)]
         dev_t = chip_smoke.device_ms(fn, REPS[kind])
         calls_t = _ab.readings(chip_smoke, fn, REPS[kind], 5)
         out["shapes"][name] = dict(
@@ -112,11 +147,17 @@ def main() -> int:
             retakes=dev_t["retakes"],
             call_ms=calls_t["ms"], call_ms_readings=calls_t["readings"], reps=REPS[kind],
             equal_bits=all(torch.equal(a, b) for a, b in zip(first, second)),
-            fingerprint=[fingerprint(t) for t in first])
+            fingerprint=prints)
         del first, second
     out["ptxas"] = _build.ptxas_report("sc_score")
     if args.batches:
         out["batches"] = {}
+        for m in (1, 8, 64):
+            def served(m=m):
+                return engine.query(q64[:m], 10)
+
+            out["batches"][f"fused_{m}"] = dict(wall_s=_ab.wall(served, WALL_REPS),
+                                                profile=chip_smoke.profile_batch(served))
         for mode in ("streaming", "dense"):
             def batch(mode=mode):
                 return suco_query(data, index, q64, k=10, alpha=0.05, beta=0.02, mode=mode,
