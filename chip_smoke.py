@@ -52,7 +52,13 @@ is held at all three of its shapes (the build's, PQ8x8's and IVF1024's), and
 two launches must give equal bits at each.  Row 11 (linear attention) is
 also held with every decay at the clip (1e-6) and with half of them at 1,
 at chunks 64 and 128, both shifts, and two launches at the RWKV6 prefill
-shape must give equal bits.
+shape must give equal bits.  Row 9 (SC-Linear's SC-score kernel: a 3xTF32
+screen with an exact re-check near each threshold) is held at SC-Linear's
+shape, its thresholds from row 10's distances, to its plain version and to
+the collisions of those distances, on two launches, and at m = 1, 8 and 64
+on both its copy widths; its probe reports the re-checks per (pair,
+subspace) and its largest screen error over its margin (<= 0.25).  Row
+10's output there must keep the fingerprint it had before row 9's redesign.
 
 Output: one JSON line per phase; then a ``{"kernels": [...]}`` line (per
 kernel: its launches on its path, its error against the plain version, its
@@ -84,6 +90,10 @@ TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, dense TF32
 #: per SM, 132 SMs at the 1.98 GHz boost clock the fp32 rate assumes
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FENCE = 4  # uncounted spin kernels at each end of a device_ms trace
+#: row 10's output at SC-Linear's first subspace (m = 64, n = 1M, s = 16) from
+#: the parent of the SC-score kernel's redesign, by ``--seed`` (its
+#: ``time_sc_linear.py`` run): the redesign left row 10's code as it was
+PARENT_PAIRWISE_FINGERPRINT = {0: -4702138040020805353}
 RETAKES = 10  # device_ms traces taken again, at most, for kernels the tracer lost
 SOURCES = {
     "sc_score_cells_prefilter_compact": (
@@ -99,7 +109,7 @@ SOURCES = {
     "sc_score_cells_prefilter": (
         "src/repro_torch/csrc/sc_score.cu", "src/repro/kernels/sc_score/kernel.py:218"),
     "sc_score": (
-        "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/sc_score/kernel.py:303"),
+        "src/repro_torch/csrc/sc_score_fused.cu", "src/repro/kernels/sc_score/kernel.py:303"),
     "pairwise_sqdist": (
         "src/repro_torch/csrc/pairwise_l2.cu", "src/repro/kernels/pairwise_l2/kernel.py:49"),
     "kmeans_assign_batched": (
@@ -232,6 +242,18 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def fingerprint(t) -> int:
+    """A position-weighted sum of an integer tensor's entries (a float
+    tensor's bits, as int32): two trees whose outputs share it give the same
+    bits, barring a collision."""
+    import torch
+
+    if t.is_floating_point():
+        t = t.view(torch.int32)
+    flat = t.flatten().long()
+    return int((flat * (torch.arange(flat.numel(), device=t.device) % 7919 + 1)).sum())
 
 
 # the K-means library's users: PQ8x8 codebooks (k = 256, chunks of 4,096) and
@@ -530,7 +552,26 @@ def dist_ops(m: int, n: int, s: int) -> float:
     return m * n * (2.0 * s + 4) + (m + n) * 2.0 * s
 
 
-def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
+def sc_linear_inputs(data, q, ns: int):
+    """Row 9's inputs on SC-Linear's path: the ``Ns`` contiguous subspace
+    views of the data and the queries (strided, no copy) and each query's
+    threshold, the ``count``-th smallest of row 10's distances (alpha =
+    0.05): ``(qs, xs, tau, count)``."""
+    import torch
+
+    from repro_torch.core import subspace as sub
+    from repro_torch.core.collision import kth_smallest
+    from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
+
+    spec = sub.contiguous_spec(data.shape[1], ns)
+    xs, qs = sub.split_padded(spec, data), sub.split_padded(spec, q)
+    count = sub.collision_count(data.shape[0], 0.05)
+    tau = torch.stack([kth_smallest(pairwise_ops.pairwise_sqdist(qs[i], xs[i]), count)
+                       for i in range(ns)])
+    return qs, xs, tau, count
+
+
+def check_query_kernels(dev, data, index, q64, cfg, tiles, seed: int) -> dict:
     """The kernels of the query modes and SC-Linear against their plain
     versions at their paths' shapes: the scores-only kernel at m = 1, 8 and
     64 over one streaming chunk of 4096 points and over all n (the dense
@@ -541,15 +582,10 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     import torch
 
     from repro_torch.core import subspace as sub
-    from repro_torch.core.collision import kth_smallest
     from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
     from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
     from repro_torch.kernels.sc_score import ops as score_ops
-    from repro_torch.kernels.sc_score.ref import (
-        sc_score_cells_prefilter_ref,
-        sc_score_cells_ref,
-        sc_score_ref,
-    )
+    from repro_torch.kernels.sc_score.ref import sc_score_cells_prefilter_ref, sc_score_cells_ref
 
     out = {}
     n = data.shape[0]
@@ -662,12 +698,38 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
                          - got).abs().max())),
     )
     del q0, x0
+    out["pairwise_sqdist"]["detail"].update(
+        fingerprint=fingerprint(got), parent_fingerprint=PARENT_PAIRWISE_FINGERPRINT.get(seed))
+    if out["pairwise_sqdist"]["detail"]["parent_fingerprint"] not in (None, fingerprint(got)):
+        raise AssertionError("pairwise_sqdist's output differs from the parent tree's")
+    del got
+    out["sc_score"] = check_sc_score(dev, data, q64, ns)
+    return out
 
-    # fused scores: SC-Linear's own thresholds, from the pairwise kernel's
-    # distances; the counts must be those distances' collisions exactly
-    count = sub.collision_count(n, 0.05)
-    tau = torch.stack([kth_smallest(pairwise_ops.pairwise_sqdist(qs[i], xs[i]), count)
-                       for i in range(ns)])
+
+def check_sc_score(dev, data, q64, ns: int) -> dict:
+    """Row 9 (the SC-score kernel: a 3xTF32 screen with an exact re-check
+    near each threshold) at SC-Linear's path shape, the thresholds taken
+    from row 10's distances (``sc_linear_inputs``): its counts equal the
+    plain version's and the collisions of row 10's distances, bit for bit,
+    and two launches give equal bits; every instantiation the op can pick
+    (16-byte copies on the path's aligned views, 4-byte copies on a copy of
+    the data one float off) at m = 1, 8 and 64 equals the plain version; the
+    probe instantiation gives the same counts, its re-checks per (pair,
+    subspace), and its largest |d~ - d_plain| / delta over every pair, which
+    must be <= 0.25 (the margin allows 0.5).  The bound is the bytes (x read
+    once, the counts written once), beside the 3xTF32 products' and the
+    plain fp32 arithmetic's."""
+    import torch
+
+    from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
+    from repro_torch.kernels.pairwise_l2.ref import _sq_norms
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+    from repro_torch.kernels.sc_score import ops as score_ops
+    from repro_torch.kernels.sc_score.ref import sc_score_ref
+
+    qs, xs, tau, count = sc_linear_inputs(data, q64, ns)
+    m, n, s = qs.shape[1], xs.shape[1], xs.shape[2]
     got = score_ops.sc_scores_fused(qs, xs, tau)
     if not torch.equal(got, sc_score_ref(qs, xs, tau)):
         raise AssertionError("sc_score differs from the plain version")
@@ -677,16 +739,67 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles) -> dict:
     if not torch.equal(got, on_path):
         raise AssertionError("sc_score disagrees with the collisions of pairwise_sqdist")
     del on_path
-    bms, by = bound(nbytes(qs, xs, tau, got), ns * (dist_ops(m, n, s) + 2.0 * m * n))
-    out["sc_score"] = dict(
+    same_bits("sc_score", (got,), (score_ops.sc_scores_fused(qs, xs, tau),))
+
+    # every instantiation the op picks: both copy widths at m = 1, 8, 64
+    wide = torch.empty((n, data.shape[1] + 1), device=dev)
+    wide[:, 1:] = data
+    qwide = torch.empty((m, data.shape[1] + 1), device=dev)
+    qwide[:, 1:] = q64
+    qs1, xs1 = sc_linear_inputs(wide[:, 1:], qwide[:, 1:], ns)[:2]
+    instantiations = []
+    for vec, (q_, x_) in ((4, (qs, xs)), (1, (qs1, xs1))):
+        if score_kernel.fused_vec(q_, x_) != vec:
+            raise AssertionError(f"the views meant for vec = {vec} take another copy width")
+        for mb in (1, 8, 64):
+            t_ = tau[:, :mb].contiguous()
+            got_b = score_ops.sc_scores_fused(q_[:, :mb], x_, t_)
+            plain = got if mb == m else sc_score_ref(q_[:, :mb], x_, t_)
+            if not (torch.equal(got_b, plain) and torch.equal(got_b, got[:mb])):
+                raise AssertionError(f"sc_score (vec = {vec}, m = {mb}) differs from the plain "
+                                     "version")
+            instantiations.append(dict(vec=vec, m=mb, equal=True))
+    del got_b
+
+    # the probe: re-checks, and the screen's error against its margin
+    probe = score_kernel.sc_score_fused_probe(qs1, xs1, tau)
+    if not torch.equal(probe.scores, got):
+        raise AssertionError("the probe (vec = 1) differs from the path's counts")
+    del probe, qs1, xs1, wide, qwide
+    probe = score_kernel.sc_score_fused_probe(qs, xs, tau)
+    if not torch.equal(probe.scores, got):
+        raise AssertionError("the probe differs from the path's counts")
+    mu, eta = score_kernel.fused_screen_margin(s), score_kernel.fused_screen_floor(s)
+    ratio = 0.0
+    for i in range(ns):
+        t = (_sq_norms(qs[i])[:, None] + _sq_norms(xs[i])[None, :]).double()
+        err = (probe.screen[i].double() - pairwise_ops.pairwise_sqdist(qs[i], xs[i]).double()).abs()
+        ratio = max(ratio, float((err / (mu * t + eta)).max()))
+        del t, err
+    rechecks = int(probe.rechecks.sum())
+    del probe
+    if not ratio <= 0.25:
+        raise AssertionError(f"sc_score's screen error {ratio} of its margin, above 0.25")
+    if rechecks < ns * m:
+        raise AssertionError("sc_score re-checked fewer pairs than its thresholds' ties")
+
+    size = nbytes(qs, xs, tau, got)
+    t_bytes = size / MEM_BYTES_PER_S * 1e3
+    t_tc = 3 * 2.0 * m * n * ns * s / TF32_OPS_PER_S * 1e3
+    bms, by = (t_bytes, "bytes") if t_bytes >= t_tc else (t_tc, "operations")
+    return dict(
         max_abs_err=0.0,
         **timed(lambda: score_ops.sc_scores_fused(qs, xs, tau), 10),
         plain_ms=time_ms(lambda: sc_score_ref(qs, xs, tau), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(ns=ns, m=m, n=n, s=s, collision_count=count,
-                    mean_score=float(got.float().mean())),
+                    mean_score=float(got.float().mean()), equal_bits=True,
+                    tf32_bound_ms=t_tc, fp32_bound_ms=bound(size, ns * (dist_ops(m, n, s)
+                                                                       + 2.0 * m * n))[0],
+                    rechecks_per_pair=rechecks / (ns * m * n), rechecks=rechecks,
+                    screen_err_over_margin=ratio, margin_mu=mu, margin_eta=eta,
+                    instantiations=instantiations, fingerprint=fingerprint(got)),
     )
-    return out
 
 
 def port_kernel_names() -> set[str]:
@@ -1850,7 +1963,8 @@ def main() -> int:
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
     checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k)
     del both
-    checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k)))
+    checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k),
+                                      args.seed))
     checks.update(library_checks)
     checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
@@ -1876,8 +1990,10 @@ def main() -> int:
                          ms=rec_["ms"], call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
                          bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
                          library_ms=rec_["library_ms"]))
-        extras = ("fp32_bound_ms", "rechecks_per_point", "screen_err_over_margin", "equal_bits",
-                  "q", "tile", "bitmap_route", "smem_bytes", "l2_route", "in_path")
+        extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point", "rechecks_per_pair",
+                  "screen_err_over_margin", "equal_bits", "instantiations", "fingerprint",
+                  "parent_fingerprint", "q", "tile", "bitmap_route", "smem_bytes", "l2_route",
+                  "in_path")
         rows[-1].update({key: rec_["detail"][key] for key in extras
                          if key in rec_.get("detail", {})})
         if name == "sc_score_cells_prefilter_compact":  # its time in the profiled batches

@@ -1,42 +1,33 @@
-// Pairwise squared L2 distances, and SC-scores from raw subspace vectors.
+// Pairwise squared L2 distances.
 //
-// Replaces two TPU kernels:
+// Replaces pairwise_sqdist_kernel (src/repro/kernels/pairwise_l2/kernel.py):
+// out[a,b] = max(||q_a||^2 + ||x_b||^2 - 2 q_a.x_b, 0), fp32, for q (m, d),
+// x (n, d).  SC-Linear's subspace scan runs it once per subspace, at d = s =
+// 16 for SIFT's 128 dims in 8 subspaces, and takes each query's threshold
+// from its distances; csrc/sc_score_fused.cu then counts the collisions.
 //
-// * pairwise_sqdist_kernel (src/repro/kernels/pairwise_l2/kernel.py):
-//   out[a,b] = max(||q_a||^2 + ||x_b||^2 - 2 q_a.x_b, 0), fp32, for
-//   q (m, d), x (n, d).  SC-Linear's subspace scan runs it once per
-//   subspace, at d = s = 16 for SIFT's 128 dims in 8 subspaces.
-// * sc_score_kernel (src/repro/kernels/sc_score/kernel.py):
-//   s[a,b] = sum_i [dist(qs[i,a], xs[i,b]) <= tau[i,a]] for qs (Ns, m, s),
-//   xs (Ns, n, s), tau (Ns, m), with dist the same clamped identity.  As
-//   the TPU kernel keeps its output tile across the subspace grid axis,
-//   one block loops over the Ns subspaces and keeps its int32 tile in
-//   registers: the (Ns, m, n) distances never reach device memory.
+// Every distance comes from one device function, tile_sqdist: the norms and
+// the cross term are summed one dim at a time, in index order, with
+// __fmul_rn/__fadd_rn (no FMA contraction), then combined as
+// (qn + xn) - 2*cross and clamped at 0.  The plain PyTorch version
+// (kernels/pairwise_l2/ref.py) repeats exactly these elementwise operations
+// in the same order, so kernel and plain version agree bit for bit, and the
+// SC-score kernel, which re-checks near each threshold in the same
+// arithmetic, counts exactly the collisions of these distances.
 //
-// Both compute every distance with one device function, tile_sqdist: the
-// norms and the cross term are summed one dim at a time, in index order,
-// with __fmul_rn/__fadd_rn (no FMA contraction), then combined as
-// (qn + xn) - 2*cross and clamped at 0.  The plain PyTorch versions
-// (kernels/pairwise_l2/ref.py) repeat exactly these elementwise operations
-// in the same order, so kernel and plain version agree bit for bit, and
-// sc_score fed the thresholds taken from pairwise_sqdist's distances counts
-// exactly the collisions of those distances.
-//
-// What bounds them on an H100: at SC-Linear's s = 16, pairwise_sqdist does
-// ~36 fp32 operations per output against a 4-byte output write (~9 per
-// byte, below the card's ~20): bytes, mostly the (m, n) output.  sc_score
-// does ~38 operations per (output, subspace) and writes 4 bytes per output
-// after Ns subspaces: operations at Ns = 8.  Design: a plain SIMT tile.  A
-// block of 256 threads owns a (32 query rows x 128 data rows) output tile;
-// each pass stages 16 dims of its q rows and x rows in shared memory (x
-// padded by one word per row, so the column reads of a warp hit 32
+// What bounds it on an H100: at SC-Linear's s = 16 it does ~36 fp32
+// operations per output against a 4-byte output write (~9 per byte, below
+// the card's ~20): bytes, mostly the (m, n) output.  Design: a plain SIMT
+// tile.  A block of 256 threads owns a (32 query rows x 128 data rows)
+// output tile; each pass stages 16 dims of its q rows and x rows in shared
+// memory (x padded by one word per row, so the column reads of a warp hit 32
 // different banks), each thread keeps a 4 x 4 sub-tile of cross terms in
 // registers, and 160 threads carry the row norms in shared memory.  A warp
 // writes 32 neighbouring floats of an output row: coalesced.  Row strides
 // are arguments, so the subspace views of a (n, d) array need no copy.
 //
-// C entry points (each returns cudaGetLastError()):
-//   pairwise_sqdist(...), sc_score_fused(...).
+// C entry point (returns cudaGetLastError()):
+//   pairwise_sqdist(...).
 
 #include <cuda_runtime.h>
 
@@ -144,44 +135,6 @@ pairwise_sqdist_kernel(const float* __restrict__ q, long long ldq,  // (m, d)
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sc_score_fused_kernel(const float* __restrict__ qs, long long qs_s0, long long qs_s1,  // (ns, m, s)
-                      const float* __restrict__ xs, long long xs_s0, long long xs_s1,  // (ns, n, s)
-                      const float* __restrict__ tau,                                   // (ns, m)
-                      int ns, int m, int n, int s,
-                      int* __restrict__ out)                                           // (m, n)
-{
-    __shared__ TileSmem sm;
-    const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    int cnt[kRM][kRN];
-#pragma unroll
-    for (int r = 0; r < kRM; ++r)
-#pragma unroll
-        for (int j = 0; j < kRN; ++j) cnt[r][j] = 0;
-    float dist[kRM][kRN];
-    for (int i = 0; i < ns; ++i) {
-        tile_sqdist(qs + i * qs_s0, qs_s1, m, xs + i * xs_s0, xs_s1, n, s, row0, col0, sm, dist);
-#pragma unroll
-        for (int r = 0; r < kRM; ++r) {
-            const int row = row0 + ty + 8 * r;
-            const float t = row < m ? tau[(long long)i * m + row] : 0.f;
-#pragma unroll
-            for (int j = 0; j < kRN; ++j) cnt[r][j] += dist[r][j] <= t ? 1 : 0;
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < kRM; ++r) {
-        const int row = row0 + ty + 8 * r;
-        if (row >= m) continue;
-#pragma unroll
-        for (int j = 0; j < kRN; ++j) {
-            const int col = col0 + tx + 32 * j;
-            if (col < n) out[(long long)row * n + col] = cnt[r][j];
-        }
-    }
-}
-
 dim3 tile_grid(int m, int n) { return dim3((n + kBN - 1) / kBN, (m + kBM - 1) / kBM); }
 
 }  // namespace
@@ -194,14 +147,5 @@ extern "C" int pairwise_sqdist(const float* q, long long ldq, const float* x, lo
                                int m, int n, int d, float* out, void* stream) {
     pairwise_sqdist_kernel<<<tile_grid(m, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         q, ldq, x, ldx, m, n, d, out);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int sc_score_fused(const float* qs, long long qs_s0, long long qs_s1,
-                              const float* xs, long long xs_s0, long long xs_s1,
-                              const float* tau, int ns, int m, int n, int s, int* out,
-                              void* stream) {
-    sc_score_fused_kernel<<<tile_grid(m, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        qs, qs_s0, qs_s1, xs, xs_s0, xs_s1, tau, ns, m, n, s, out);
     return (int)cudaGetLastError();
 }

@@ -13,15 +13,21 @@ after the earlier tiles' by ballots.  :func:`tiling` picks the
 route, Q and the tile from one query's bitmap bytes (the source's
 ``sc_score_smem_bytes``), the card's shared memory and its SM count.
 Bytes bound them on an H100.  ``sc_score_fused`` of
-``csrc/pairwise_l2.cu`` replaces ``sc_score_kernel``: SIMT distance tiles,
-counted over the subspaces in registers; operations bound it.  (See the
-sources' headers.)
+``csrc/sc_score_fused.cu`` replaces ``sc_score_kernel``: a block of 64
+queries and 128 points walks the subspaces, the cross terms on the tensor
+cores in 3xTF32, and every pair whose screen distance lies within the
+margin :func:`fused_screen_margin` (plus the floor
+:func:`fused_screen_floor`) of its threshold is re-checked in the plain
+arithmetic, so its counts are the plain version's bit for bit; bytes bound
+it.  (See the sources' headers.)
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates the outputs and scratch, launches on the current stream and
 raises on any CUDA error.  ``launches`` (the compact kernel),
 ``cells_launches``, ``prefilter_launches`` and ``fused_launches`` count the
 launches (one for the passes of one C entry point).
+:func:`sc_score_fused_probe` is the SC-score kernel with its instruments on
+(re-checks per block, every screen distance), for the checks only.
 """
 
 from __future__ import annotations
@@ -43,12 +49,51 @@ fused_launches = 0
 QUERY_TILES = (16, 8, 4, 2, 1)  # queries a sweep block may serve (Q), widest first
 MAX_TILE = 2048  # columns of a sweep block at most: 256 threads x 8
 SHARED, L2 = "shared", "l2"  # where a sweep block reads its bitmap from
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P]
 _CELLS_ARGTYPES = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 _PREFILTER_ARGTYPES = [_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
-_FUSED_ARGTYPES = [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _P, _P]
+_FUSED_ARGTYPES = [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _I, _F, _F, _I,
+                   _P, _P, _P, _P]
+_U = 2.0**-24  # unit roundoff of fp32
+FUSED_QUERIES, FUSED_POINTS = 64, 128  # a block's query group and point tile (kBM, kBN)
+FUSED_NORM_LIMIT = 2.0**125  # a norm above it enters the screen as NaN (kNormLimit)
+
+
+def fused_screen_margin(s: int) -> float:
+    """``mu_s``: the SC-score kernel re-checks a (pair, subspace) unless its
+    screen distance ``d~`` lies more than ``delta = mu_s * (|q|^2 + |x|^2) +
+    fused_screen_floor(s)`` from the threshold.  ``E_s = (5 s + 60) u``
+    bounds ``|d~ - d_plain| / (|q|^2 + |x|^2)`` for fp32 arithmetic with
+    round-to-nearest and the kernel's truncating TF32 split (the derivation
+    is in the header of ``csrc/sc_score_fused.cu``: 4 s + 52 at first
+    order); exactness needs the error within ``delta / 2``, and a safety
+    factor of 4 covers the tensor cores' accumulation: ``mu_s = 8 E_s``."""
+    return 8.0 * (5 * s + 60) * _U
+
+
+def fused_screen_floor(s: int) -> float:
+    """``eta_s``, the margin's absolute part: ``s * 2^-119``, 8 times the
+    error of the products and partial sums the tensor cores may flush below
+    2^-126 (the header's derivation)."""
+    return s * 2.0**-119
+
+
+def fused_vec(qs: torch.Tensor, xs: torch.Tensor) -> int:
+    """The SC-score kernel's copy width, in floats: 4 (16-byte copies) where
+    both views start on a 16-byte boundary and their subspace and row strides
+    are multiples of 4 floats, else 1."""
+    ok = all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+             for t in (qs, xs))
+    return 4 if ok else 1
+
+
+def fused_blocks(m: int, n: int) -> int:
+    """The SC-score kernel's grid: one block a work item, a group of
+    :data:`FUSED_QUERIES` queries and a tile of :data:`FUSED_POINTS`
+    points."""
+    return -(-m // FUSED_QUERIES) * -(-n // FUSED_POINTS)
 
 
 def tiling(bitmap_bytes: int, smem_limit: int, n_sm: int, m: int, bc: int
@@ -159,22 +204,47 @@ def sc_score_cells_prefilter(
     return scores, keep
 
 
-def sc_score_fused(qs: torch.Tensor, xs: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-    global fused_launches
+def _fused(qs, xs, tau, rechecks=None, screen=None) -> torch.Tensor:
     ns, m, s = qs.shape
     n = xs.shape[1]
     dev = qs.device
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    fn = _build.entry("pairwise_l2", "sc_score_fused", _FUSED_ARGTYPES)
-    with torch.cuda.device(dev):
+    fn = _build.entry("sc_score_fused", "sc_score_fused", _FUSED_ARGTYPES)
+    with _on(dev):
         rc = fn(
             qs.data_ptr(), qs.stride(0), qs.stride(1), xs.data_ptr(), xs.stride(0), xs.stride(1),
-            tau.data_ptr(), ns, m, n, s, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            tau.data_ptr(), ns, m, n, s, fused_screen_margin(s), fused_screen_floor(s),
+            fused_vec(qs, xs), out.data_ptr(),
+            None if rechecks is None else rechecks.data_ptr(),
+            None if screen is None else screen.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index),
         )
-    _build.check("pairwise_l2", rc, "sc_score_fused")
+    _build.check("sc_score_fused", rc, "sc_score_fused")
+    return out
+
+
+def sc_score_fused(qs: torch.Tensor, xs: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    global fused_launches
+    out = _fused(qs, xs, tau)
     fused_launches += 1
     return out
+
+
+class FusedProbe(NamedTuple):
+    scores: torch.Tensor  # (m, n) int32
+    rechecks: torch.Tensor  # (fused_blocks(m, n),) int32: the pairs each block re-checked
+    screen: torch.Tensor  # (Ns, m, n) f32: every screen distance d~
+
+
+def sc_score_fused_probe(qs: torch.Tensor, xs: torch.Tensor, tau: torch.Tensor) -> FusedProbe:
+    """The SC-score kernel on the op's checked arguments with its instruments
+    on (:class:`FusedProbe`).  For the checks: the path never asks for them,
+    and this launch is not counted."""
+    ns, m, _ = qs.shape
+    n = xs.shape[1]
+    rechecks = torch.zeros((fused_blocks(m, n),), dtype=torch.int32, device=qs.device)
+    screen = torch.empty((ns, m, n), dtype=torch.float32, device=qs.device)
+    return FusedProbe(_fused(qs, xs, tau, rechecks, screen), rechecks, screen)
 
 
 def sc_score_compact(

@@ -32,8 +32,14 @@ __all__ = [
     "sc_scores_cells_prefilter_compact",
 ]
 
-#: Most query rows of one ``sc_scores_fused`` launch (65,535 tiles of 32).
-MAX_FUSED_ROWS = 32 * 65_535
+#: Most query rows and points of one ``sc_scores_fused`` launch: a block's
+#: 64 query rows and 128 points keep C ``int`` indices (the source's
+#: ``kMaxRows``, ``kMaxPoints``).
+MAX_FUSED_ROWS = 2**31 - kernel.FUSED_QUERIES
+MAX_FUSED_POINTS = 2**31 - kernel.FUSED_POINTS
+#: Most blocks of one launch, one a work item (:func:`kernel.fused_blocks`):
+#: its grid's x extent.
+MAX_FUSED_BLOCKS = 2**31 - 1
 
 
 def _check_cells(ranks, cuts, cells) -> tuple[int, int, int, int]:
@@ -67,6 +73,11 @@ def sc_scores_fused(
         raise ValueError(f"need Ns, m, n and s >= 1, got {ns}/{m}/{n}/{s}")
     if m > MAX_FUSED_ROWS:
         raise ValueError(f"m={m} exceeds the kernel's {MAX_FUSED_ROWS} query rows")
+    if n > MAX_FUSED_POINTS:
+        raise ValueError(f"n={n} exceeds the kernel's {MAX_FUSED_POINTS} points")
+    if kernel.fused_blocks(m, n) > MAX_FUSED_BLOCKS:
+        raise ValueError(f"m={m} x n={n} exceeds the kernel's {MAX_FUSED_BLOCKS} blocks "
+                         f"of {kernel.FUSED_QUERIES} x {kernel.FUSED_POINTS}")
     if qs.device.type == "cpu":
         return sc_score_ref(qs, xs, tau)
     if qs.device.type == "cuda":

@@ -575,8 +575,153 @@ def test_pairwise_and_fused_score_kernels_equal_plain_exactly(dev, m, n, s):
     xs_d = xw.to(dev)[:, : ns * s].unflatten(1, (ns, s)).movedim(1, 0)
     qs_d = qw.to(dev)[:, : ns * s].unflatten(1, (ns, s)).movedim(1, 0)
     got = score_ops.sc_scores_fused(qs_d, xs_d, tau.to(dev))
+    again = score_ops.sc_scores_fused(qs_d, xs_d, tau.to(dev))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), sc_score_ref(qs, xs, tau))
+    assert torch.equal(again, got)
+
+
+def _fused_views(dev, g, ns, m, n, s, vec, data="normal"):
+    """Row 9's operands on the card as SC-Linear passes them: the subspace
+    views of ``(n, Ns*s)`` data and ``(m, Ns*s)`` queries (strided rows, no
+    copy).  ``vec`` 4: 16-byte aligned views with strides in whole 16-byte
+    words (the op's 16-byte copies); 1: views one float off (4-byte
+    copies).  ``data``: ``normal``; ``offset`` (1e3 + N(0, 1): a common
+    offset that dwarfs the spread); ``duplicates`` (points repeated, and
+    each query one of the points); ``nan_inf`` (a NaN and an inf
+    coordinate in points and in queries)."""
+    d = ns * s
+    x = torch.randn(n, d, generator=g) * 3
+    q = torch.randn(m, d, generator=g) * 3
+    if data == "offset":
+        x, q = 1e3 + x / 3, 1e3 + q / 3
+    elif data == "duplicates":
+        x[n // 2:] = x[: n - n // 2]
+        q = x[torch.randint(0, n, (m,), generator=g)].clone()
+    elif data == "nan_inf":
+        x[3, 1], x[7, d - 1], q[0, 2] = float("nan"), float("inf"), float("-inf")
+        q[m - 1, d // 2] = float("nan")
+    pad = 4 if vec == 4 else 1
+    xw = torch.zeros(n, d + pad)
+    qw = torch.zeros(m, d + pad)
+    xw[:, pad:], qw[:, pad:] = x, q
+    xw, qw = xw.to(dev), qw.to(dev)
+    return (qw[:, pad:].unflatten(1, (ns, s)).movedim(1, 0),
+            xw[:, pad:].unflatten(1, (ns, s)).movedim(1, 0))
+
+
+def _fused_tau(qs, xs, kind, g):
+    """Thresholds ``(Ns, m)``: ``rank`` the 5%-th smallest of row 10's
+    distances (SC-Linear's rule: every (query, subspace) has a pair exactly
+    at it), or ``zero``, ``negative``, ``inf``, ``mixed`` (all four kinds
+    and NaN)."""
+    from repro_torch.core.collision import kth_smallest
+
+    ns, m, n = qs.shape[0], qs.shape[1], xs.shape[1]
+    if kind == "rank":
+        count = max(1, n // 20)
+        return torch.stack([kth_smallest(pairwise_ops.pairwise_sqdist(qs[i], xs[i]), count)
+                            for i in range(ns)])
+    if kind == "mixed":
+        pick = torch.randint(0, 5, (ns, m), generator=g)
+        vals = torch.tensor([0.0, -1.0, float("inf"), float("nan"), 40.0])
+        return vals[pick].to(qs.device)
+    val = {"zero": 0.0, "negative": -3.0, "inf": float("inf")}[kind]
+    return torch.full((ns, m), val, device=qs.device)
+
+
+# (Ns, m, n, s, vec, tau, data): SC-Linear's shape (Ns = 8, s = 16) at m = 1,
+# 8 and 64 on both copy widths; several query groups; a ragged tile; Ns 4
+# and 16; the thresholds 0, negative, +inf and mixed with NaN; duplicates
+# (d = 0 under the clamp); a common offset (every pair re-checked); NaN and
+# inf coordinates; 16-byte copies of a partial 16-dim step (s = 12, Deep1M's
+# d = 96 at Ns = 8; s = 20) and re-checks read from device memory where a
+# subspace takes several steps (s = 20; s = 120, GIST1M's d = 960 at Ns = 8),
+# offset data re-checking every pair there
+FUSED_CASES = [
+    (8, 1, 20_000, 16, 4, "rank", "normal"),
+    (8, 8, 20_000, 16, 4, "rank", "normal"),
+    (8, 64, 20_000, 16, 4, "rank", "normal"),
+    (8, 1, 20_000, 16, 1, "rank", "normal"),
+    (8, 8, 20_000, 16, 1, "rank", "normal"),
+    (8, 64, 20_000, 16, 1, "rank", "normal"),
+    (8, 65, 3_000, 16, 4, "rank", "normal"),
+    (8, 200, 3_000, 16, 4, "rank", "normal"),
+    (8, 64, 4_099, 16, 4, "rank", "normal"),
+    (4, 64, 5_000, 16, 4, "rank", "normal"),
+    (16, 64, 5_000, 16, 4, "rank", "normal"),
+    (8, 33, 3_000, 16, 4, "zero", "normal"),
+    (8, 33, 3_000, 16, 4, "negative", "normal"),
+    (8, 33, 3_000, 16, 4, "inf", "normal"),
+    (8, 33, 3_000, 16, 1, "mixed", "normal"),
+    (8, 64, 3_000, 16, 4, "rank", "duplicates"),
+    (8, 64, 3_000, 16, 4, "zero", "duplicates"),
+    (8, 16, 2_000, 16, 4, "rank", "offset"),
+    (8, 16, 2_000, 16, 4, "rank", "nan_inf"),
+    (8, 16, 2_000, 16, 4, "inf", "nan_inf"),
+    (8, 64, 3_000, 12, 4, "rank", "normal"),
+    (8, 64, 3_000, 20, 4, "rank", "normal"),
+    (8, 64, 3_000, 120, 4, "rank", "normal"),
+    (8, 16, 2_000, 20, 4, "rank", "offset"),
+]
+
+
+@pytest.mark.parametrize("ns,m,n,s,vec,tau_kind,data", FUSED_CASES)
+def test_fused_score_kernel_equals_plain_bit_for_bit(dev, ns, m, n, s, vec, tau_kind, data):
+    """Row 9 (the 3xTF32 screen with its exact re-check) equals
+    ``sc_score_ref`` bit for bit, and, with thresholds taken from row 10's
+    distances, the collisions of those distances; two launches give equal
+    bits; the probe instantiation gives the same counts, re-checks at least
+    the pair at each (query, subspace)'s threshold (every pair of offset
+    data), and its screen distances stay within a quarter of the margin."""
+    from repro_torch.kernels.pairwise_l2.ref import _sq_norms
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    g = _gen(ns * 1000 + m + n)
+    qs, xs = _fused_views(dev, g, ns, m, n, s, vec, data)
+    assert score_kernel.fused_vec(qs, xs) == vec
+    tau = _fused_tau(qs, xs, tau_kind, g)
+    before = kernels.launch_counts()["sc_score"]
+    got = score_ops.sc_scores_fused(qs, xs, tau)
+    again = score_ops.sc_scores_fused(qs, xs, tau)
+    probe = score_kernel.sc_score_fused_probe(qs, xs, tau)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sc_score"] == before + 2
+    want = sc_score_ref(qs.cpu(), xs.cpu(), tau.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got) and torch.equal(probe.scores, got)
+    rechecks = int(probe.rechecks.sum())
+    assert probe.rechecks.numel() == score_kernel.fused_blocks(m, n)
+    if data == "offset":
+        assert rechecks == ns * m * n
+    if tau_kind == "rank" and data != "nan_inf":
+        collisions = sum(pairwise_ops.pairwise_sqdist(qs[i], xs[i]) <= tau[i][:, None]
+                         for i in range(ns))
+        assert torch.equal(got, collisions)
+        assert rechecks >= ns * m
+        mu, eta = score_kernel.fused_screen_margin(s), score_kernel.fused_screen_floor(s)
+        for i in range(ns):
+            t = (_sq_norms(qs[i])[:, None] + _sq_norms(xs[i])[None, :]).double()
+            err = (probe.screen[i].double()
+                   - pairwise_ops.pairwise_sqdist(qs[i], xs[i]).double()).abs()
+            assert float((err / (mu * t + eta)).max()) <= 0.25
+
+
+def test_fused_score_kernel_counts_past_65535_subspaces(dev):
+    """The kernel counts in 16 bits and its C entry launches once per 65,535
+    subspaces, each later launch adding to the counts: at Ns = 65,537 a
+    query whose threshold is +inf everywhere counts 65,537 for every point,
+    and the other query's counts equal the plain version's."""
+    g = _gen(78)
+    ns, m, n, s = 65_537, 2, 40, 1
+    qs = torch.randn(ns, m, s, generator=g)
+    xs = torch.randn(ns, n, s, generator=g)
+    tau = torch.full((ns, m), float("inf"))
+    tau[:, 1] = torch.rand(ns, generator=g) * 2
+    got = score_ops.sc_scores_fused(qs.to(dev), xs.to(dev), tau.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sc_score_ref(qs, xs, tau))
+    assert (got[0] == ns).all()
 
 
 @pytest.fixture(scope="module")

@@ -177,6 +177,229 @@ def test_sc_scores_fused_counts_the_collisions_of_pairwise_sqdist():
         sc_scores_fused(T(qs), T(xs[:, :, :4].copy()), tau)
 
 
+# --------------------------------------------------------------------------
+# Row 9 on the card is a 3xTF32 screen with an exact re-check near tau: its
+# margin, held to its derivation by an emulation of the screen in fp64
+# --------------------------------------------------------------------------
+
+
+def _f32(a):
+    return np.asarray(a, dtype=np.float64).astype(np.float32).astype(np.float64)
+
+
+def _tf32(a):
+    """The kernel's TF32 cut (``split_trunc``) on the float32 bits: the 13
+    low mantissa bits cleared, 10 left (toward zero)."""
+    b = np.asarray(a, dtype=np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+
+
+def _fused_screen_emulated(q, x):
+    """Row 9's screen distance ``d~ (m, n)`` of one subspace, emulated in
+    fp64: both operands split ``a = big + small`` (``big = tf32(a)``, ``small
+    = tf32(a - big)``, each cut to TF32 as the kernel cuts them); per 16-dim step and per 8-dim k-step (dims 4t, 4t + 1
+    then 4t + 2, 4t + 3, t < 4: the kernel's grouping) the small x big,
+    big x small and big x big products (exact) each added to an fp32
+    accumulator with one rounding; the norms fp32 sums in dim order (the
+    plain version's bits); ``t = fl(qn + xn)``, ``d~ = max(fl(t - 2 c~),
+    0)``.  Returns ``(d~, t)``."""
+    qd, xd = q.astype(np.float64), x.astype(np.float64)
+    qb, xb = _tf32(qd), _tf32(xd)
+    qsm, xsm = _tf32(_f32(qd - qb)), _tf32(_f32(xd - xb))
+    s = q.shape[1]
+    acc = np.zeros((q.shape[0], x.shape[0]))
+    for k16 in range(0, s, 16):
+        for step in (0, 1):
+            dims = [k16 + 4 * t + 2 * step + e for t in range(4) for e in (0, 1)]
+            for a, b in ((qsm, xb), (qb, xsm), (qb, xb)):
+                for i in (i for i in dims if i < s):
+                    acc = _f32(acc + a[:, i, None] * b[None, :, i])
+    qn, xn = np.zeros(len(q)), np.zeros(len(x))
+    for i in range(s):
+        qn, xn = _f32(qn + _f32(qd[:, i] ** 2)), _f32(xn + _f32(xd[:, i] ** 2))
+    t = _f32(qn[:, None] + xn[None])
+    return np.maximum(_f32(t - 2.0 * acc), 0.0), t, qn, xn
+
+
+def _fused_adversarial(kind, s, seed):
+    """``(q (12, s), x (300, s))`` float32: ``normal``; ``offset_1e3`` (1e3 +
+    N(0, 1)); ``near_2^-126`` (magnitudes 2^-126 .. 2^-123, every square
+    flushed to 0 in fp32); ``squares_near_2^-126`` (magnitudes 2^-64 ..
+    2^-62: squares and products in fp32's subnormal range); ``near_1e18``
+    (norms near and past the screen's 2^125 guard at s >= 16);
+    ``q_equals_x`` (each query one of the points, and points repeated)."""
+    rng = np.random.default_rng(seed)
+    m, n = 12, 300
+    sign = lambda shape: rng.choice([-1.0, 1.0], shape)  # noqa: E731
+    if kind == "normal":
+        q, x = rng.normal(size=(m, s)) * 3, rng.normal(size=(n, s)) * 3
+    elif kind == "offset_1e3":
+        q, x = 1e3 + rng.normal(size=(m, s)), 1e3 + rng.normal(size=(n, s))
+    elif kind == "near_2^-126":
+        q = sign((m, s)) * 2.0**-126 * rng.uniform(1, 8, (m, s))
+        x = sign((n, s)) * 2.0**-126 * rng.uniform(1, 8, (n, s))
+    elif kind == "squares_near_2^-126":
+        q = sign((m, s)) * 2.0**-64 * rng.uniform(1, 4, (m, s))
+        x = sign((n, s)) * 2.0**-64 * rng.uniform(1, 4, (n, s))
+    elif kind == "near_1e18":  # rows scaled 0.5 .. 2.5: at s = 16 some norms pass 2^125
+        q = rng.normal(size=(m, s)) * 1e18 * rng.uniform(0.5, 2.5, (m, 1))
+        x = rng.normal(size=(n, s)) * 1e18 * rng.uniform(0.5, 2.5, (n, 1))
+    else:  # q_equals_x
+        x = np.round(rng.normal(size=(n, s)) * 30) / 8
+        x[n // 2:] = x[: n - n // 2]
+        q = x[rng.choice(n, m, replace=False)]
+    return q.astype(np.float32), x.astype(np.float32)
+
+
+FUSED_KINDS = ["normal", "offset_1e3", "near_2^-126", "squares_near_2^-126", "near_1e18",
+               "q_equals_x"]
+
+
+@pytest.mark.parametrize("kind", FUSED_KINDS)
+@pytest.mark.parametrize("s", [1, 3, 16, 130])
+def test_fused_screen_margin_holds_the_emulated_screen_to_its_derivation(s, kind):
+    """|d~ - d_plain| <= E_s t + eta_s / 8 = delta / 8 for every pair whose
+    norms lie below the guard (``FUSED_NORM_LIMIT``; the others take the
+    re-check); and the kernel's decision rule on those distances, in fp32
+    -- count where fl(d~ + delta) <= tau, leave out where fl(d~ - delta) >
+    tau, re-check the rest in the plain arithmetic -- gives the plain
+    version's counts, with tau the 5%-th smallest plain distance (a pair at
+    tau in every row) and with tau = 0.  A common offset re-checks every
+    pair."""
+    from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    q, x = _fused_adversarial(kind, s, seed=s)
+    with np.errstate(over="ignore", invalid="ignore"):
+        d_t, t, qn, xn = _fused_screen_emulated(q, x)
+    d = pairwise_sqdist_ref(T(q), T(x)).double().numpy()
+    mu = float(np.float32(score_kernel.fused_screen_margin(s)))
+    eta = float(np.float32(score_kernel.fused_screen_floor(s)))
+    lim = score_kernel.FUSED_NORM_LIMIT
+    screened = (qn[:, None] <= lim) & (xn[None, :] <= lim)
+    delta = _f32(mu * t + eta)
+    with np.errstate(invalid="ignore"):
+        ratio = np.abs(d_t - d) / delta
+    assert np.isfinite(ratio[screened]).all()
+    assert (ratio[screened] <= 1 / 8).all(), float(ratio[screened].max())
+    delta = np.where(screened, delta, np.nan)  # a norm past the guard: NaN
+    at_tau = np.argsort(d, axis=1, kind="stable")[:, 14]
+    for tau in (d[np.arange(len(q)), at_tau], np.zeros(len(q))):
+        with np.errstate(invalid="ignore"):
+            count = _f32(d_t + delta) <= tau[:, None]
+            recheck = ~count & ~(_f32(d_t - delta) > tau[:, None])
+        got = np.where(recheck, d <= tau[:, None], count)
+        want = pairwise_sqdist_ref(T(q), T(x)).numpy() <= tau.astype(np.float32)[:, None]
+        np.testing.assert_array_equal(got, want)
+    # the pair at the threshold is always re-checked (here tau = 0: every
+    # pair at 0, duplicates and q = x included)
+    assert recheck[d == 0].all()
+    tau = d[np.arange(len(q)), at_tau]
+    with np.errstate(invalid="ignore"):
+        assert (~(_f32(d_t + delta) <= tau[:, None]) & ~(_f32(d_t - delta) > tau[:, None]))[
+            np.arange(len(q)), at_tau].all()
+    if kind == "offset_1e3" and s >= 16:
+        assert recheck.all()
+    if kind == "near_1e18" and s == 16:
+        assert 0 < screened.mean() < 1
+
+
+def _source_header():
+    from repro_torch.kernels import _build
+
+    return (_build.CSRC / "sc_score_fused.cu").read_text()
+
+
+@pytest.mark.parametrize("s", [1, 3, 16, 130, 1000])
+def test_fused_screen_margin_states_the_source_header(s):
+    """``fused_screen_margin`` and ``fused_screen_floor`` give the constants
+    the header of csrc/sc_score_fused.cu derives (E_s = (5 s + 60) u, mu_s =
+    8 E_s, eta_s = s 2^-119) and cover its first-order bound, and the
+    wrapper's guard and tile are the ones the kernel is compiled with."""
+    import re
+
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+
+    src = _source_header()
+    a, b = map(int, re.search(r"E_s = \((\d+) s \+ (\d+)\) u", src).groups())
+    f = int(re.search(r"passes mu_s = (\d+) E_s", src).group(1))
+    e = int(re.search(r"eta_s = s 2\^-(\d+)", src).group(1))
+    assert score_kernel.fused_screen_margin(s) == f * (a * s + b) * 2.0**-24
+    assert score_kernel.fused_screen_floor(s) == s * 2.0**-e
+    c1, c0 = map(int, re.search(r"Together \|d~ - d_plain\| <= \((\d+) s \+ (\d+)\) u N",
+                                src).groups())
+    assert a * s + b >= c1 * s + c0  # the statement covers the first-order bound
+    lim = int(re.search(r"kNormLimit = 0x1p(\d+)f", src).group(1))
+    assert score_kernel.FUSED_NORM_LIMIT == 2.0**lim
+    bm = re.search(r"kBM = kWM \* kMT \* 16;\s+// query rows of a group: (\d+)", src)
+    bn = re.search(r"kBN = kWN \* kNT \* 8;\s+// points of a tile: (\d+)", src)
+    wm, wn, mt, nt = (int(re.search(rf"{k} = (\d+)", src).group(1))
+                      for k in ("kWM", "kWN", "kMT", "kNT"))
+    assert (score_kernel.FUSED_QUERIES, score_kernel.FUSED_POINTS) == (
+        wm * mt * 16, wn * nt * 8) == (int(bm.group(1)), int(bn.group(1)))
+
+
+def test_fused_grid_and_copy_width():
+    """One block a work item (64 queries x 128 points); 16-byte copies only
+    for 16-byte aligned views with strides of whole 16-byte words; the op's
+    limits on m, n and the blocks are the source's, where a block's row
+    indices stay C ints and the grid fits its x extent."""
+    from repro_torch.kernels.sc_score import kernel as score_kernel
+    from repro_torch.kernels.sc_score import ops as score_ops
+
+    fb = score_kernel.fused_blocks
+    assert (fb(1, 1), fb(64, 128), fb(65, 129), fb(64, 1_000_000)) == (1, 1, 4, 7813)
+    assert fb(10**6, 10**9) == 15_625 * 7_812_500
+    w = torch.zeros(10, 132)  # rows of 132 floats: 16-byte aligned views at dim 4
+    aligned = w[:, 4:132].unflatten(1, (8, 16)).movedim(1, 0)
+    assert score_kernel.fused_vec(aligned, aligned) == 4
+    assert score_kernel.fused_vec(aligned, w[:, 1:129].unflatten(1, (8, 16)).movedim(1, 0)) == 1
+    odd = torch.zeros(10, 133)[:, 4:132].unflatten(1, (8, 16)).movedim(1, 0)  # rows of 133
+    assert score_kernel.fused_vec(odd, aligned) == 1
+    narrow = w[:, 4:124].unflatten(1, (8, 15)).movedim(1, 0)  # subspaces 15 floats apart
+    assert score_kernel.fused_vec(narrow, narrow) == 1
+    src = _source_header()
+    assert "kMaxRows = INT_MAX - kBM + 1, kMaxPoints = INT_MAX - kBN + 1;" in src
+    assert "work > INT_MAX" in src
+    int_max = 2**31 - 1
+    assert score_ops.MAX_FUSED_ROWS == int_max - score_kernel.FUSED_QUERIES + 1
+    assert score_ops.MAX_FUSED_POINTS == int_max - score_kernel.FUSED_POINTS + 1
+    assert score_ops.MAX_FUSED_BLOCKS == int_max
+    # the last block's rows and points are ints at the limits
+    assert -(-score_ops.MAX_FUSED_ROWS // 64) * 64 - 1 <= int_max
+    assert -(-score_ops.MAX_FUSED_POINTS // 128) * 128 - 1 <= int_max
+
+
+def test_sc_scores_fused_refuses_more_rows_than_its_limit(monkeypatch):
+    from repro_torch.kernels.sc_score import ops as score_ops
+
+    monkeypatch.setattr(score_ops, "MAX_FUSED_ROWS", 4)
+    qs, xs, tau = torch.zeros(2, 5, 3), torch.zeros(2, 7, 3), torch.zeros(2, 5)
+    with pytest.raises(ValueError, match="exceeds the kernel's 4 query rows"):
+        score_ops.sc_scores_fused(qs, xs, tau)
+    assert score_ops.sc_scores_fused(qs[:, :4], xs, tau[:, :4].contiguous()).shape == (4, 7)
+
+
+@pytest.mark.parametrize("limit,value,match", [
+    ("MAX_FUSED_POINTS", 6, "n=7 exceeds the kernel's 6 points"),
+    ("MAX_FUSED_BLOCKS", 3, "m=65 x n=129 exceeds the kernel's 3 blocks of 64 x 128"),
+])
+def test_sc_scores_fused_refuses_points_and_blocks_past_its_limits(monkeypatch, limit, value,
+                                                                   match):
+    """Past ``MAX_FUSED_POINTS`` a column index would leave the C int, past
+    ``MAX_FUSED_BLOCKS`` the grid its x extent: the op refuses, on the CPU
+    as on the card, and takes the shape one short of the limit."""
+    from repro_torch.kernels.sc_score import ops as score_ops
+
+    monkeypatch.setattr(score_ops, limit, value)
+    m, n = (5, 7) if limit == "MAX_FUSED_POINTS" else (65, 129)
+    qs, xs, tau = torch.zeros(2, m, 3), torch.zeros(2, n, 3), torch.zeros(2, m)
+    with pytest.raises(ValueError, match=match):
+        score_ops.sc_scores_fused(qs, xs, tau)
+    fits = xs[:, :6] if limit == "MAX_FUSED_POINTS" else xs[:, :128]
+    assert score_ops.sc_scores_fused(qs, fits, tau).shape == (m, fits.shape[1])
+
+
 @pytest.fixture(scope="module")
 def clustered():
     x = gaussian_mixture(4000, 32, 0, n_clusters=32, spread=8.0)

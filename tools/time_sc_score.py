@@ -55,14 +55,6 @@ CHUNK = 4096  # the streaming query's chunk
 WALL_REPS = 5  # batches timed on the host clock
 
 
-def fingerprint(t) -> int:
-    """A position-weighted sum of an integer tensor's entries."""
-    import torch
-
-    flat = t.flatten().long()
-    return int((flat * (torch.arange(flat.numel(), device=t.device) % 7919 + 1)).sum())
-
-
 def chunk_record(chunks: list[dict], outs: list) -> dict:
     """What the fused batch gave row 1: chunk width, slots, and per chunk
     the threshold's range and the survivor count's mean and most."""
@@ -135,7 +127,7 @@ def main() -> int:
         second = fn()
         if isinstance(first, torch.Tensor):
             first, second = (first,), (second,)
-        prints = [fingerprint(t) for t in first]
+        prints = [chip_smoke.fingerprint(t) for t in first]
         if kind == "compact":  # one per output, summed over the chunks
             out["shapes"][f"{name}_chunks"] = chunk_record(fused[int(name[8:])], first)
             prints = [sum(prints[i::4]) for i in range(4)]
