@@ -91,8 +91,8 @@ TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, dense TF32
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FENCE = 4  # uncounted spin kernels at each end of a device_ms trace
 #: row 10's output at SC-Linear's first subspace (m = 64, n = 1M, s = 16) from
-#: the parent of the SC-score kernel's redesign, by ``--seed`` (its
-#: ``time_sc_linear.py`` run): the redesign left row 10's code as it was
+#: the SIMT kernel that row 10's register design replaced, by ``--seed`` (its
+#: ``time_sc_linear.py`` run): the redesign keeps its bits
 PARENT_PAIRWISE_FINGERPRINT = {0: -4702138040020805353}
 RETAKES = 10  # device_ms traces taken again, at most, for kernels the tracer lost
 SOURCES = {
@@ -552,6 +552,32 @@ def dist_ops(m: int, n: int, s: int) -> float:
     return m * n * (2.0 * s + 4) + (m + n) * 2.0 * s
 
 
+def pairwise_nan_inf(dev, seed: int, m: int = 8, n: int = 3000, s: int = 16) -> dict:
+    """Row 10 on NaN and +-inf coordinates (a NaN and an inf in points and in
+    queries, a point of zeros): the card's distances are NaN exactly where
+    the plain version's on the CPU are, and equal its other bits (inf
+    included); two launches give equal bits."""
+    import torch
+
+    from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
+    from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
+
+    g = torch.Generator().manual_seed(seed)
+    x, q = torch.randn(n, s, generator=g) * 3, torch.randn(m, s, generator=g) * 3
+    x[n // 2, s - 1], x[n - 1, 0], x[0] = float("nan"), float("-inf"), 0.0
+    q[0, s // 2], q[m - 1, s - 1], q[1, 0], q[2, 0] = float("-inf"), float("nan"), float("inf"), 1.0
+    got = pairwise_ops.pairwise_sqdist(q.to(dev), x.to(dev))
+    again = pairwise_ops.pairwise_sqdist(q.to(dev), x.to(dev))
+    want = pairwise_sqdist_ref(q, x)
+    nan = want.isnan()
+    got = got.cpu()
+    if not (torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                                                          want.masked_fill(nan, 0).view(torch.int32))
+            and torch.equal(again.view(torch.int32).cpu(), got.view(torch.int32))):
+        raise AssertionError("pairwise_sqdist on NaN / inf coordinates differs from the plain version")
+    return dict(m=m, n=n, s=s, nan=int(nan.sum()), inf=int(want.isinf().sum()), equal=True)
+
+
 def sc_linear_inputs(data, q, ns: int):
     """Row 9's inputs on SC-Linear's path: the ``Ns`` contiguous subspace
     views of the data and the queries (strided, no copy) and each query's
@@ -576,12 +602,14 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles, seed: int) -> dict:
     versions at their paths' shapes: the scores-only kernel at m = 1, 8 and
     64 over one streaming chunk of 4096 points and over all n (the dense
     mode), the
-    keep-mask kernel over one fused chunk, and the pairwise and fused-score
-    kernels at m = 64 over all n points of one subspace (of all Ns).  Every
-    output must be equal."""
+    keep-mask kernel over one fused chunk, the pairwise kernel at m = 64,
+    8 and 1 over all n points of one subspace and on NaN / inf coordinates
+    (:func:`pairwise_nan_inf`), and the fused-score kernel at m = 64 over all
+    Ns subspaces.  Every output must be equal."""
     import torch
 
     from repro_torch.core import subspace as sub
+    from repro_torch.kernels.pairwise_l2 import kernel as pairwise_kernel
     from repro_torch.kernels.pairwise_l2 import ops as pairwise_ops
     from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
     from repro_torch.kernels.sc_score import ops as score_ops
@@ -672,7 +700,8 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles, seed: int) -> dict:
         detail=dict(m=m, chunk=cells.shape[1], ns=ns, kept=float(got_k.float().mean())),
     )
 
-    # pairwise distances: one subspace of SC-Linear (strided views, no copy)
+    # pairwise distances: one subspace of SC-Linear (strided views, no copy),
+    # at SC-Linear's batches of 64 and 8 and at 1; NaN and inf coordinates
     spec = sub.contiguous_spec(data.shape[1], ns)
     xs, qs = sub.split_padded(spec, data), sub.split_padded(spec, q64)
     s = xs.shape[2]
@@ -681,6 +710,18 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles, seed: int) -> dict:
     if not torch.equal(got, want):
         raise AssertionError("pairwise_sqdist differs from the plain version")
     del want
+    by_m = {}
+    for mb in (1, 8):
+        got_b = pairwise_ops.pairwise_sqdist(qs[0, :mb], xs[0])
+        if not (torch.equal(got_b, pairwise_sqdist_ref(qs[0, :mb], xs[0]))
+                and torch.equal(got_b, got[:mb])):
+            raise AssertionError(f"pairwise_sqdist at m = {mb} differs from the plain version")
+        bms_b = bound(nbytes(qs[0, :mb], xs[0], got_b), dist_ops(mb, n, s))[0]
+        by_m[mb] = dict(ms=device_ms(lambda mb=mb: pairwise_ops.pairwise_sqdist(qs[0, :mb],
+                                                                                 xs[0]), 20)["ms"],
+                        bound_ms=bms_b, equal=True)
+        del got_b
+    nan_inf = pairwise_nan_inf(dev, seed)
     q0, x0 = qs[0].contiguous(), xs[0].contiguous()  # cdist wants dense operands
     bms, by = bound(nbytes(qs[0], xs[0], got), dist_ops(m, n, s))
     out["pairwise_sqdist"] = dict(
@@ -692,7 +733,9 @@ def check_query_kernels(dev, data, index, q64, cfg, tiles, seed: int) -> dict:
         # a square) for the same function, with TF32 off
         library_ms=time_ms(
             lambda: torch.cdist(q0, x0, compute_mode="use_mm_for_euclid_dist") ** 2, 20),
-        detail=dict(m=m, n=n, s=s, library="torch.cdist(use_mm_for_euclid_dist) ** 2",
+        detail=dict(m=m, n=n, s=s, vec=pairwise_kernel.vec(xs[0]),
+                    items=pairwise_kernel.items(m, n), by_m=by_m, nan_inf=nan_inf,
+                    library="torch.cdist(use_mm_for_euclid_dist) ** 2",
                     library_max_abs_err=float(
                         (torch.cdist(q0, x0, compute_mode="use_mm_for_euclid_dist") ** 2
                          - got).abs().max())),

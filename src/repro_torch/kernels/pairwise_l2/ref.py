@@ -5,7 +5,9 @@ The counterpart of ``repro.kernels.pairwise_l2.ref``: the clamped identity
 term is summed one dim at a time, in index order, as separate elementwise
 ops, and then combined as ``(qn + xn) - 2 * cross``: exactly the arithmetic
 of the CUDA kernel (``csrc/pairwise_l2.cu``, no FMA contraction), so the two
-agree bit for bit, on the card and on the CPU.  The reference sums the
+agree bit for bit, on the card and on the CPU.  ``clamp_min`` keeps a NaN
+(from a NaN coordinate, inf - inf or 0 * inf), as the reference's
+``jnp.maximum`` does, and so does the kernel.  The reference sums the
 cross term with a matmul instead, so the two differ by a few ulp of
 ``|q|^2 + |x|^2``.  It is what a CPU tensor runs and what the kernel is held
 against on the card.

@@ -6,7 +6,7 @@ Marked ``cuda``: they need an NVIDIA card and skip without one.  On a machine
 with the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.  This
 file imports no JAX (that machine has none).  Integer outputs must be equal,
 and so must the pairwise distances (kernel and plain version sum in the same
-fixed order); the rerank distances agree to ``rtol=2e-5`` and the Lloyd sums
+fixed order; NaN where the plain version gives NaN); the rerank distances agree to ``rtol=2e-5`` and the Lloyd sums
 and inertia to ``1e-5 * sum |terms|`` (fp32 sums in another order).  The
 query modes on the card equal the fused query there; SC-Linear's SC-scores on
 the card equal the CPU's.  The K-means library on the card gives the CPU's
@@ -556,7 +556,94 @@ def test_l2_route_rows_1_7_8_equal_plain(dev, ns, sqrt_k, m):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,n,s", [(1, 1, 3), (33, 1000, 16), (64, 4099, 3), (5, 300, 130)])
+def _same_bits(got, want):
+    """Equal bits, a NaN anywhere matching a NaN (of any payload: the card's
+    arithmetic gives the canonical NaN, the CPU's another)."""
+    got, want = got.cpu(), want.cpu()
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                       want.masked_fill(nan, 0).view(torch.int32))
+
+
+def _pairwise_views(dev, g, m, n, s, vec, data="normal"):
+    """Row 10's operands on the card as views of wider rows: ``vec`` 4 starts
+    them on a 16-byte boundary with a row stride of whole 16-byte words (the
+    kernel's 16-byte copies), 1 one float off (4-byte copies).  ``data``:
+    ``normal`` or ``nan_inf`` (NaN and +-inf coordinates in points and
+    queries, and a point of zeros: NaN from a NaN coordinate, inf - inf and
+    0 * inf; +inf from an inf point against a finite query)."""
+    from repro_torch.kernels.pairwise_l2 import kernel as pairwise_kernel
+
+    x = torch.randn(n, s, generator=g) * 3
+    q = torch.randn(m, s, generator=g) * 3
+    if data == "nan_inf":
+        x[n // 2, s - 1], x[n - 1, 0], x[0] = float("nan"), float("-inf"), 0.0
+        q[0, s // 2], q[m - 1, s - 1] = float("-inf"), float("nan")
+        if m > 2:
+            q[1, 0], q[2, 0] = float("inf"), 1.0
+    width = -(-s // 4) * 4 + 4
+    off = 4 if vec == 4 else 1
+    xw, qw = torch.zeros(n, width), torch.zeros(m, width)
+    xw[:, off:off + s], qw[:, off:off + s] = x, q
+    xv, qv = xw.to(dev)[:, off:off + s], qw.to(dev)[:, off:off + s]
+    assert pairwise_kernel.vec(xv) == vec
+    return qv, xv
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("s", [1, 3, 12, 16, 20, 120, 130])
+@pytest.mark.parametrize("n", [1, 300, 4_099, 20_000])
+@pytest.mark.parametrize("m", [1, 8, 33, 64, 65, 200])
+def test_pairwise_kernel_equals_plain_bit_for_bit(dev, m, n, s, vec):
+    """Row 10 equals ``pairwise_sqdist_ref`` (run on the card, the same
+    elementwise fp32 operations) bit for bit on both copy widths, through
+    one and several query groups, ragged point tiles and one or several
+    16-dim slabs; two launches give equal bits, and one launch a call."""
+    g = _gen(m * 100_003 + n * 131 + s * 7 + vec)
+    q, x = _pairwise_views(dev, g, m, n, s, vec)
+    before = kernels.launch_counts()["pairwise_sqdist"]
+    got = pairwise_ops.pairwise_sqdist(q, x)
+    again = pairwise_ops.pairwise_sqdist(q, x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["pairwise_sqdist"] == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _same_bits(got, pairwise_sqdist_ref(q, x))
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("m,n,s", [(1, 8, 3), (8, 300, 16), (64, 4_099, 16), (65, 700, 20),
+                                   (33, 300, 130)])
+def test_pairwise_kernel_keeps_nan_and_inf_as_plain(dev, m, n, s, vec):
+    """NaN and +-inf coordinates in q and x: the card gives NaN exactly where
+    the plain version does, on the card and on the CPU (inf - inf, 0 * inf,
+    a NaN coordinate), and their other bits (inf included)."""
+    g = _gen(m + n + s)
+    q, x = _pairwise_views(dev, g, m, n, s, vec, "nan_inf")
+    got = pairwise_ops.pairwise_sqdist(q, x)
+    torch.cuda.synchronize()
+    want = pairwise_sqdist_ref(q.cpu(), x.cpu())
+    assert want.isnan().any() and (want.isinf().any() or m <= 2)
+    _same_bits(got, want)
+    _same_bits(got, pairwise_sqdist_ref(q, x))
+    assert torch.equal(got.view(torch.int32), pairwise_ops.pairwise_sqdist(q, x).view(torch.int32))
+
+
+@pytest.mark.parametrize("ns,m,n,s", [(8, 16, 2_000, 16), (8, 64, 3_000, 16), (4, 8, 700, 20)])
+def test_pairwise_kernel_keeps_nan_on_the_fused_views(dev, ns, m, n, s):
+    """On ``_fused_views``' ``nan_inf`` data (NaN and inf coordinates in
+    points and queries), every subspace's distances equal the plain
+    version's, NaN where it is NaN."""
+    g = _gen(ns * 1000 + m + n + 1)
+    qs, xs = _fused_views(dev, g, ns, m, n, s, 4, "nan_inf")
+    for i in range(ns):
+        got = pairwise_ops.pairwise_sqdist(qs[i], xs[i])
+        _same_bits(got, pairwise_sqdist_ref(qs[i].cpu(), xs[i].cpu()))
+
+
+@pytest.mark.parametrize("m,n,s", [(1, 1, 3), (33, 1000, 16), (64, 4099, 3), (5, 300, 130),
+                                   (8, 20_000, 16), (65, 4_099, 12), (200, 300, 20),
+                                   (64, 20_000, 120), (1, 4_099, 1)])
 def test_pairwise_and_fused_score_kernels_equal_plain_exactly(dev, m, n, s):
     """Both kernels sum in the plain versions' fixed order: the distances are
     the same bits, so the counts against thresholds taken from them are the
@@ -694,10 +781,11 @@ def test_fused_score_kernel_equals_plain_bit_for_bit(dev, ns, m, n, s, vec, tau_
     assert probe.rechecks.numel() == score_kernel.fused_blocks(m, n)
     if data == "offset":
         assert rechecks == ns * m * n
-    if tau_kind == "rank" and data != "nan_inf":
+    if tau_kind == "rank":  # NaN distances included: row 10 keeps them NaN, as row 9 does
         collisions = sum(pairwise_ops.pairwise_sqdist(qs[i], xs[i]) <= tau[i][:, None]
                          for i in range(ns))
         assert torch.equal(got, collisions)
+    if tau_kind == "rank" and data != "nan_inf":
         assert rechecks >= ns * m
         mu, eta = score_kernel.fused_screen_margin(s), score_kernel.fused_screen_floor(s)
         for i in range(ns):

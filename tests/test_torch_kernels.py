@@ -249,6 +249,115 @@ def test_pairwise_sqdist_matches_the_jax_kernel(m, n, d):
     assert (np.abs(got.numpy() - want) <= 1e-5 * scale).all()
 
 
+def _nan_inf_case(case):
+    """``(q, x)`` with NaN and +-inf coordinates: ``small`` is the 2 x 3
+    against 3 x 3 case (``[[nan, nan, nan], [nan, 5, 14]]``); ``rows`` and
+    ``wide`` random data with a NaN and an inf in points and queries, a
+    point of zeros (0 * inf) and a finite query against a -inf point (+inf)."""
+    if case == "small":
+        q = np.array([[1, np.nan, 0], [1, 2, 3]], dtype=np.float32)
+        x = np.array([[0, 0, np.inf], [1, 1, 1], [0, 0, 0]], dtype=np.float32)
+        return q, x
+    m, n, d = (9, 300, 16) if case == "rows" else (5, 200, 130)
+    rng = np.random.default_rng(d)
+    q = (rng.normal(size=(m, d)) * 2).astype(np.float32)
+    x = (rng.normal(size=(n, d)) * 2).astype(np.float32)
+    x[n // 2, d - 1], x[n - 1, 0], x[0] = np.nan, -np.inf, 0.0
+    q[0, d // 2], q[m - 1, d - 1], q[1, 0], q[2, 0] = -np.inf, np.nan, np.inf, 1.0
+    return q, x
+
+
+@pytest.mark.parametrize("case", ["small", "rows", "wide"])
+def test_pairwise_sqdist_keeps_nan_where_the_jax_kernel_does(case):
+    """NaN and +-inf coordinates: the plain version gives NaN exactly where
+    the JAX Pallas kernel (interpret mode) does, the same infinities, and
+    its finite values within the usual 1e-5 * (|q|^2 + |x|^2)."""
+    q, x = _nan_inf_case(case)
+    want = np.asarray(j_pairwise(jnp.asarray(q), jnp.asarray(x), interpret=True))
+    got = pairwise_ops.pairwise_sqdist(T(q), T(x)).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    assert not np.isneginf(got).any()
+    if case == "small":
+        np.testing.assert_array_equal(got, [[np.nan, np.nan, np.nan], [np.nan, 5, 14]])
+    else:
+        assert np.isposinf(want).any()
+    fin = np.isfinite(want)
+    with np.errstate(invalid="ignore", over="ignore"):
+        scale = (q**2).sum(1)[:, None] + (x**2).sum(1)[None, :]
+    assert (np.abs(got[fin] - want[fin]) <= 1e-5 * scale[fin]).all()
+
+
+def _pairwise_source():
+    return (_build.CSRC / "pairwise_l2.cu").read_text()
+
+
+def test_pairwise_tile_and_limits_state_the_source():
+    """The wrapper's work item (64 queries, 512 points, one block), the items
+    and the limits are the ones the kernel is compiled with: row and point
+    indices stay C ints, and the items fit the grid's x extent."""
+    import re
+
+    from repro_torch.kernels.pairwise_l2 import kernel as pk
+
+    src = _pairwise_source()
+    const = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("kThreads", "kP", "kQ", "kG", "kK")}
+    assert "constexpr int kPoints = kThreads * kP;" in src
+    assert "kMaxRows = INT_MAX - kQ + 1, kMaxPoints = INT_MAX - kPoints + 1;" in src
+    assert "groups * tiles > INT_MAX" in src
+    assert (pk.QUERIES, pk.POINTS) == (const["kQ"], const["kThreads"] * const["kP"])
+    assert const["kQ"] % const["kG"] == 0 and const["kK"] % 4 == 0 and const["kP"] == 4
+    int_max = 2**31 - 1
+    assert pairwise_ops.MAX_ROWS == int_max - pk.QUERIES + 1
+    assert pairwise_ops.MAX_POINTS == int_max - pk.POINTS + 1
+    assert pairwise_ops.MAX_ITEMS == int_max
+    # the last item's rows and points are ints at the limits
+    assert -(-pairwise_ops.MAX_ROWS // pk.QUERIES) * pk.QUERIES - 1 <= int_max
+    assert -(-pairwise_ops.MAX_POINTS // pk.POINTS) * pk.POINTS - 1 <= int_max
+    b = pk.items
+    assert (b(1, 1), b(64, 512), b(65, 513), b(64, 1_000_000)) == (1, 1, 4, 1954)
+    # "d < 0.f ? 0.f : d" keeps a NaN; fmaxf would not
+    assert "fmaxf(" not in src and "return d < 0.f ? 0.f : d;" in src
+
+
+def test_pairwise_copy_width():
+    """16-byte copies only for views that start on a 16-byte boundary with a
+    row stride of whole 16-byte words."""
+    from repro_torch.kernels.pairwise_l2 import kernel as pk
+
+    w = torch.zeros(10, 132)
+    assert pk.vec(w[:, 4:20]) == 4 and pk.vec(w[:, 4:7]) == 4
+    assert pk.vec(w[:, 1:17]) == 1
+    assert pk.vec(torch.zeros(10, 133)[:, 4:20]) == 1
+    assert pk.vec(torch.zeros(10, 16)) == 4 and pk.vec(torch.zeros(10, 3)) == 1
+
+
+@pytest.mark.parametrize("limit,value,m,n,match", [
+    ("MAX_ROWS", 4, 5, 7, "m=5 exceeds the kernel's 4 query rows"),
+    ("MAX_POINTS", 6, 5, 7, "n=7 exceeds the kernel's 6 points"),
+    ("MAX_ITEMS", 4, 65, 1025, "m=65 x n=1025 exceeds the kernel's 4 work items of 64 x 512"),
+])
+def test_pairwise_sqdist_refuses_shapes_past_its_limits(monkeypatch, limit, value, m, n, match):
+    """Past ``MAX_ROWS`` or ``MAX_POINTS`` an index would leave the C int,
+    past ``MAX_ITEMS`` the grid its x extent: the op refuses before it
+    reaches the kernel or its plain version, on the CPU as on the card, and
+    takes the shape one short of the limit."""
+    def reached(*a, **k):
+        raise AssertionError("a shape past the limits reached a kernel or its plain version")
+
+    monkeypatch.setattr(pairwise_ops, limit, value)
+    q, x = torch.zeros(m, 3), torch.zeros(n, 3)
+    with monkeypatch.context() as mp:
+        mp.setattr(pairwise_ops, "pairwise_sqdist_ref", reached)
+        mp.setattr(pairwise_ops.kernel, "pairwise_sqdist", reached)
+        with pytest.raises(ValueError, match=match):
+            pairwise_ops.pairwise_sqdist(q, x)
+    fits = {"MAX_ROWS": (q[:4], x), "MAX_POINTS": (q, x[:6]), "MAX_ITEMS": (q, x[:1024])}[limit]
+    assert pairwise_ops.pairwise_sqdist(*fits).shape == (fits[0].shape[0], fits[1].shape[0])
+
+
 @pytest.mark.parametrize("d", [32, 30])
 def test_gather_rerank_matches_jax(d):
     rng = np.random.default_rng(d)

@@ -15,8 +15,10 @@ subspaces of s = 16 (strided views, as ``sc_linear_query`` passes them)
 and each query's threshold from row 10's distances
 (``chip_smoke.sc_linear_inputs``: the 50,000-th smallest, alpha = 0.05).
 Row 9 (``sc_scores_fused``) runs at m = 1, 8 and 64 (``fused_<m>``: the
-first m queries and their thresholds); row 10 (``pairwise_sqdist``) at
-m = 64 over one subspace (``pairwise_64``).
+first m queries and their thresholds); row 10 (``pairwise_sqdist``) over
+one subspace at m = 1, 8, 32 and 64 (``pairwise_<m>``: the first m queries;
+32 is one query tile of the SIMT kernel that row 10 replaced, which read x
+once there and twice at 64).
 
 Per shape: ``ms``, the device time of one call (``chip_smoke.device_ms``:
 the profiler's kernel time over ``REPS`` calls, the median of 5 readings,
@@ -64,7 +66,8 @@ def main() -> int:
     calls = {f"fused_{m}": lambda m=m: score_ops.sc_scores_fused(qs[:, :m], xs,
                                                                  tau[:, :m].contiguous())
              for m in (1, 8, 64)}
-    calls["pairwise_64"] = lambda: pairwise_ops.pairwise_sqdist(qs[0], xs[0])
+    calls.update({f"pairwise_{m}": lambda m=m: pairwise_ops.pairwise_sqdist(qs[0, :m], xs[0])
+                  for m in (1, 8, 32, 64)})
     out.update(n=xs.shape[1], ns=xs.shape[0], s=xs.shape[2], collision_count=count, shapes={})
     for name, fn in calls.items():
         first, second = fn(), fn()
