@@ -47,7 +47,12 @@ route).  The screened assignment (rows 6 and 5-wide) is also
 held to its plain version on adversarial inputs, and at the IVF shapes its
 re-checks per point and its largest screen error over its margin (<= 0.25)
 are reported, and its best distances (row 3's wide variant reads them) must
-equal the plain minimum distance bit for bit.  Row 3 (the Lloyd statistics)
+equal the plain minimum distance bit for bit.  Row 5's narrow kernel (a
+3xTF32 screen with the codebook resident) reports at PQ8x8's shape its
+re-checks per point and its largest screen error over its margin (<= 0.25),
+and its best distances must equal the plain minimum; rows 3-6, every variant
+the ops take, are held to their plain versions on NaN and inf data
+(torch.argmin's index, the first NaN distance).  Row 3 (the Lloyd statistics)
 is held at all three of its shapes (the build's, PQ8x8's and IVF1024's), and
 two launches must give equal bits at each.  Row 11 (linear attention) is
 also held with every decay at the clip (1e-6) and with half of them at 1,
@@ -1057,7 +1062,7 @@ def assign_ops(n: int, k: int, s: int, b: int = 1) -> float:
 
 
 def tc_assign_bound(nbytes_: float, n: int, k: int, s: int, b: int = 1) -> tuple[float, str]:
-    """The screened assignment's bound (rows 6 and 5-wide): the larger of
+    """The screened assignments' bound (rows 6 and 5): the larger of
     the bytes over the memory rate and its 3xTF32 products, 3 * 2 n k s
     operations, over the tensor cores' TF32 rate, in ms."""
     t_bytes = nbytes_ / MEM_BYTES_PER_S * 1e3
@@ -1092,6 +1097,104 @@ def screen_probe(x, c, sample: int = 16_384) -> dict:
     return dict(rechecks_per_point=float(rechecks.sum()) / (b * n),
                 screen_err_over_margin=ratio, margin_mu=kmeans_kernel.screen_margin(s),
                 sampled_points=xs.shape[1])
+
+
+def narrow_probe(x, c, sample: int = 16_384) -> dict:
+    """Row 5's narrow kernel's instruments at one shape (``x: (B, n, s)``,
+    ``c: (B, k, s)``, s <= 64): its re-checked pairs per point over all n
+    points (its argmins held to the plain version's), and over the first
+    ``sample`` points of codebook 0 and every centroid the largest
+    |(|x|^2 - 2 t) - d_plain| / delta_p of its screen values t, which must be
+    <= 0.25 (the margin allows 0.5), and its best distances, which must equal
+    the plain minimum bit for bit."""
+    import torch
+
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_assign_batched_ref
+
+    b, n, s = x.shape
+    probe = kmeans_kernel.kmeans_assign_narrow_probe(x, c)
+    if not torch.equal(probe.assign, kmeans_assign_batched_ref(x, c, block_n=4096)):
+        raise AssertionError("the narrow kernel's probe differs from the plain version")
+    xs = x[:1, :sample].contiguous()
+    small = kmeans_kernel.kmeans_assign_narrow_probe(xs, c[:1].contiguous(), screen=True)
+    d = sqdist_rowwise(xs[0], c[0])
+    nx = (xs[0].double() ** 2).sum(1)
+    big = nx + (c[0].double() ** 2).sum(1).max()
+    ratio = float(((nx[:, None] - 2 * small.screen[0].double() - d.double()).abs()
+                   / (kmeans_kernel.narrow_margin(s) * big)[:, None]).max())
+    if not ratio <= 0.25:
+        raise AssertionError(f"narrow screen error {ratio} of its margin, above 0.25")
+    if not torch.equal(small.best[0], d.min(-1).values):
+        raise AssertionError("the narrow kernel's best distance differs from the plain minimum")
+    return dict(rechecks_per_point=float(probe.rechecks.sum()) / (b * n),
+                screen_err_over_margin=ratio, margin_mu=kmeans_kernel.narrow_margin(s),
+                sampled_points=xs.shape[1], best_equal=True)
+
+
+def assign_nan_inf(dev, seed: int, n: int = 20_011) -> dict:
+    """Rows 3-6, every variant the ops take (narrow and wide for rows 3-5),
+    against their plain versions on NaN and +-inf data: integer-valued
+    entries (so every sum is exact in any order) with, by codebook, a NaN or
+    inf centroid coordinate, NaN or inf points, and both (inf - inf makes a
+    NaN distance).  Argmins equal torch.argmin's (the first NaN distance)
+    and lie in [0, k); row 3's sums, counts and inertia and row 4's
+    histogram equal bit for bit, NaN where the plain version's are."""
+    import torch
+
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+    from repro_torch.kernels.kmeans_assign.ref import (
+        kmeans_assign_batched_ref,
+        kmeans_assign_ref,
+        kmeans_pair_assign_hist_ref,
+        kmeans_stats_ref,
+    )
+
+    g = torch.Generator(dev).manual_seed(seed + 40)
+    out = {}
+    for kind, bad in (("nan", (float("nan"),) * 3),
+                      ("inf", (float("inf"), -float("inf"), float("inf")))):
+        for s, k in ((16, 256), (8, 50), (70, 40)):
+            x = torch.randint(-5, 6, (4, n, s), generator=g, device=dev).float()
+            c = torch.randint(-5, 6, (4, k, s), generator=g, device=dev).float()
+            c[0, k // 2, s - 1] = bad[0]
+            x[1, ::7, 0] = bad[1]
+            x[2, 3::7, s - 1] = bad[2]
+            c[2, k - 1, s - 1] = bad[2]
+            bn = 4096
+            want5 = kmeans_assign_batched_ref(x, c, block_n=bn)
+            want3 = kmeans_stats_ref(x, c, block_n=bn)
+            k4 = min(k, 100)  # the narrow pair kernel holds its k^2 histogram
+            want4 = kmeans_pair_assign_hist_ref(x, c[:, :k4].contiguous(), block_n=bn)
+            got = {}
+            for wide in ((True,) if s > 64 else (False, True)):
+                v = "wide" if wide else "narrow"
+                got[f"5_{v}"] = kmeans_kernel.kmeans_assign_batched(x, c, wide)
+                if not torch.equal(got[f"5_{v}"], want5):
+                    raise AssertionError(f"row 5 ({v}) differs from its plain version on {kind}")
+                r3 = kmeans_kernel.kmeans_stats(x, c, bn, True, wide)
+                for a_, b_ in zip(r3, want3):
+                    torch.testing.assert_close(a_, b_, rtol=0, atol=0, equal_nan=True)
+                got[f"3_{v}"] = r3[0]
+                r4 = kmeans_kernel.kmeans_pair_assign_hist(x, c[:, :k4].contiguous(), bn, wide)
+                if not all(torch.equal(a_, b_) for a_, b_ in zip(r4, want4)):
+                    raise AssertionError(f"row 4 ({v}) differs from its plain version on {kind}")
+                got[f"4_{v}"] = r4[0]
+            got["6"] = torch.stack([kmeans_ops.kmeans_assign(x[i], c[i]) for i in range(4)])
+            if not torch.equal(got["6"], torch.stack([kmeans_assign_ref(x[i], c[i])
+                                                      for i in range(4)])):
+                raise AssertionError(f"row 6 differs from its plain version on {kind}")
+            for name, a in got.items():
+                hi = k4 if name.startswith("4") else k
+                if not (int(a.min()) >= 0 and int(a.max()) < hi):
+                    raise AssertionError(f"row {name} gave an index outside [0, {hi})")
+            out[f"{kind}_s{s}_k{k}"] = dict(
+                variants=sorted(got), nonfinite_x=int((~torch.isfinite(x)).sum()),
+                nonfinite_c=int((~torch.isfinite(c)).sum()),
+                first_nan_taken=int((want5 == k // 2)[0].sum()))
+    return dict(cases=out, plain_equal=True)
 
 
 def screen_adversarial(dev, seed: int) -> dict:
@@ -1260,12 +1363,18 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
          assign_ops(n_ivf, k_ivf, d), 5),
     )
     # the screened kernel (rows 6 and 5-wide): re-checks and screen error at
-    # the IVF shapes, then the adversarial set
+    # the IVF shapes, then the adversarial set; every record in probes takes
+    # the 3xTF32 bound, its fp32 one kept beside it
     probes = {"kmeans_assign": screen_probe(data[None], cents[None]),
               "kmeans_assign_batched (wide)": screen_probe(x1, ivf.centroids[None])}
     adversarial = screen_adversarial(dev, seed)
     emit(dict(phase="screened_assign", ivf=probes, adversarial=adversarial,
               ivf_best_distance=best_distance_check(x1, c_ivf)))
+    # row 5 narrow (the tensor-core screen with the codebook resident) at the
+    # PQ shape, and rows 3-6 on NaN and inf data
+    probes["kmeans_assign_batched"] = narrow_probe(xs, pq.centroids)
+    emit(dict(phase="narrow_assign", pq=probes["kmeans_assign_batched"]))
+    emit(dict(phase="assign_nan_inf", **assign_nan_inf(dev, seed)))
     for name, args, fn, plain, ops, reps in cases:
         out = fn()
         lib = cdist_argmin(*args)

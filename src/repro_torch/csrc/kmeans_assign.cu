@@ -11,8 +11,9 @@
 // * kmeans_pair_assign_hist_kernel (_pair_assign_hist_kernel): argmins of
 //   both halves of each subspace (codebooks i and Ns+i) and the IMI
 //   occupancy counts[i, a1*k + a2].
-// * kmeans_assign_batched_kernel (kernel.py:93, _batched_kernel): the argmin
-//   of every point against its own codebook, nothing else.
+// * kmeans_assign_batched_kernel (kernel.py:93, pallas_call at :104,
+//   _batched_kernel): the argmin of every point against its own codebook,
+//   nothing else.
 // * kmeans_assign_kernel (kernel.py:52, _kernel): the argmin of one
 //   problem, (n, s) against (k, s), at any width s and any k.
 //
@@ -20,7 +21,18 @@
 // codebook, kernel 5 at its wide shapes (s > 64, or a codebook past shared
 // memory).  It is a tensor-core screen with an exact re-check (below).
 // Kernel 3's wide variant takes its argmins, and each point's exact best
-// distance d*, from it too.
+// distance d*, from it too.  Kernel 5 at s <= 64 is
+// kmeans_assign_narrow_kernel, a screen built for narrow shapes (below).
+//
+// Every argmin here is torch.argmin's (and jnp.argmin's): the first NaN
+// distance wins, else the lowest index of the minimum.  A NaN distance
+// needs a coordinate that is not finite, so the narrow SIMT loops (rows 3,
+// 4) check their points and codebooks once and take the NaN-aware
+// comparison (takes<true>) only there: always on, it cost rows 3 / 4 up to
+// 2.4%, and a min.NaN minimum 3.3% (an H100; PERF.md).  The wide pair kernel
+// (no path) always takes it.  The screens re-check every centroid of a point
+// they do not cover (screen_covers) under a 64-bit key that orders NaN first
+// (dist_key).
 //
 // What bounds the SIMT kernels on an H100: operations.  Each (point,
 // centroid) pair costs 3*s fp32 operations (difference, square, sum) against
@@ -30,7 +42,7 @@
 // 128 lanes x 1.98 GHz), so no kernel built that way runs row 6 (1M x 128,
 // k = 1,024) below ~11.7 ms.
 //
-// The narrow variants of the first three take one codebook per grid row
+// The narrow variants of the first two take one codebook per grid row
 // (grid: points / block_n x codebooks); the codebook's centroids (both
 // halves' for the pair kernel) sit in shared memory, where every thread
 // reads the same centroid at once (a broadcast); each thread takes one
@@ -39,7 +51,8 @@
 // go to the lowest index as with jnp.argmin / torch.argmin (nearest(): a
 // centroid read 16 bytes at a time when s is the instantiation's width).
 // These narrow instantiations (MAXS 4..64) take s <= 64 and a codebook that
-// fits in shared memory.
+// fits in shared memory.  (Kernel 5's narrow variant is a screen of its own,
+// below.)
 //
 // Beside the stats and pair kernels sits a wide variant, which the op
 // wrapper picks for any other shape (s > 64, or k*s -- for the pair kernel
@@ -49,7 +62,7 @@
 // 32 centroids x 32 dims, a thread keeps 32 running sums in registers and
 // walks the dim slices in order, so each distance is still summed dim 0, 1,
 // ..., s-1 (padded dims add +0); tiles are visited in index order and a
-// later centroid wins only on a strict <.  It adds its k^2 histogram
+// later centroid wins only by takes<true>().  It adds its k^2 histogram
 // straight into device memory with integer atomics.  The wide stats variant
 // is described next.
 //
@@ -133,8 +146,11 @@
 //   margin of the final m, so it is re-checked; the lexicographic minimum
 //   over a set that holds j* is j*.  A centroid that ties d* exactly is
 //   within the margin too.  (fl(m + delta_p) loses at most u |m + delta_p|,
-//   far below the 3/4 of delta_p to spare; inputs are finite and their
-//   squares do not overflow.)
+//   far below the 3/4 of delta_p to spare.)  The bound needs finite inputs
+//   whose plain distances do not overflow and whose products are not
+//   subnormal: screen_covers() asks 2^-100 <= N_p <= FLT_MAX / 4 in fp32;
+//   any other point (NaN or inf among its or its codebook's coordinates
+//   included) re-checks every centroid.
 //
 //   The margin, with u = 2^-24 and N_p = ||x_p||^2 + max_j ||c_j||^2,
 //   first order in u, for any fp32 summation order with round-to-nearest:
@@ -171,6 +187,56 @@
 //   high half of its final key: the distance of a plain re-check, so the
 //   plain version's minimum distance bit for bit.
 //
+// kmeans_assign_narrow_kernel: kernel 5 at s <= 64 (PQ8x8's final
+//   assignment: B = 8, n = 1M, s = 16, k = 256).
+//   What bounds it: 3 * 2 B n k s TF32 products (206 GFLOP at the PQ shape,
+//   0.42 ms at 495 T/s), above the bytes (B n s * 4 read, B n * 4 written:
+//   0.16 ms).  The SIMT kernel it replaced (nearest(), 3 * B n k s
+//   instructions: ~3.1 ms at the SMs' issue rate) could not approach it; the
+//   wide screen above, forced onto s = 16, pads every product to 32 dims,
+//   restages the centroids every 64 and trades tile minima through shared
+//   memory between barriers (5.7 ms against nearest()'s 4.0).
+//   Design: the block copies its codebook into shared memory once, split
+//   into TF32 big and small halves in fragment order (one 16-byte read per
+//   lane, k-step and 8-centroid tile, conflict-free), dims zero-padded to
+//   8 KS (one k-step at s <= 8, two at s <= 16, ...), and -||c_j||^2 / 2
+//   per centroid (-FLT_MAX past k, in an even number of tiles).  A warp
+//   holds the split A fragments of MT * 16 points in registers for the whole
+//   codebook (its next points prefetched into L1 meanwhile) and walks its
+//   tiles with 3 KS MT mma.sync m16n8k8 (small x big, big x small, big x
+//   big), the accumulator starting at -||c_j||^2 / 2, so it ends at t_j =
+//   x.c_j - ||c_j||^2 / 2: ||x||^2 - 2 t_j is the distance and the largest t
+//   the nearest centroid, with no norm added per pair.  Each lane keeps, per
+//   point row, the largest t of its columns (m1, j1) and the second largest
+//   (ev): five instructions a pair, no barrier, no shared memory; tiles go
+//   in pairs with no branch between one tile's products and the previous
+//   one's bookkeeping, which the compiler then schedules into the tensor
+//   cores' stalls.  mma.sync issues TF32 at about half the wgmma rate
+//   (~9 clocks an m16n8k8 a sub-partition: with the bookkeeping cut to a
+//   running max the PQ shape takes ~1.0 ms), so this design cannot reach the
+//   bound; the bookkeeping adds ~0.4 ms on top.  After the
+//   last tile: T = the quad's largest m1, lim = T - delta_p / 2; the lanes
+//   with m1 >= lim hold the candidates, and they are all the candidates
+//   unless a lane's ev >= lim too.  One candidate is the argmin (no
+//   re-check); several are re-checked in the plain arithmetic (plain_dist),
+//   the least key of the quad winning; a point with a candidate its lane
+//   did not keep, or one the screen does not cover, has every centroid
+//   re-checked by the whole warp (lanes over centroids, the least key).
+//   On clustered data nearly every point has one candidate (PQ8x8 on
+//   SIFT1M-shaped data: ~0.09% of the points scan all 256 centroids, 0.22
+//   re-checked pairs a point).
+//   The exactness argument is the one above with a = ||x||^2 - 2 t
+//   (||x||^2 exact; it cancels from every comparison).  Its error, first
+//   order in u N_p: the plain sum 2 (s + 2); ||c||^2 in fp32 s (halved in
+//   t, doubled in a); the split 12; the accumulation of 3s exact products
+//   after the -||c||^2 / 2 start, sum |terms| <= 1.001 N_p: 3s, doubled,
+//   6.006 s; together 9.006 s + 16.  narrow_margin() in kernel.py states
+//   E_s = (10 s + 20) u N_p and passes mu_s = 8 E_s / N_p, as
+//   screen_margin() does.  lim's rounding (u |T| <= u N_p in t) and N_p's
+//   own fp32 error ((s + 1) u relative) take a sliver of the 3/4 of delta_p
+//   to spare.  tests/test_torch_kmeans.py emulates this arithmetic in fp64
+//   and holds it to delta_p / 8.
+//
 // No float atomics, so every result is the same from run to run.  The stats
 // kernels write per-block partial sums, counts and inertia in a fixed
 // order (above), and a second kernel reduces the partials over the blocks
@@ -182,9 +248,11 @@
 //   kmeans_stats(..., wide, mu, norms, best, stream),
 //   kmeans_pair_assign_hist(..., wide, stream),
 //   kmeans_assign_batched(..., wide, mu, norms, rechecks, screen, best, stream),
-//   kmeans_assign(..., mu, norms, assign, stream).
+//   kmeans_assign(..., mu, norms, assign, stream); kmeans_stats_smem_bytes and
+//   kmeans_assign_narrow_smem_bytes state the narrow blocks' shared memory.
 
 #include <algorithm>
+#include <cfloat>
 #include <climits>
 #include <cstdint>
 
@@ -290,13 +358,24 @@ __device__ __forceinline__ void tile_offsets(const unsigned char* wcnt, int k, i
     __syncthreads();
 }
 
+// Whether centroid j (distance acc) replaces the best so far: torch.argmin's
+// rule, the first NaN distance wins, else the lowest index of the minimum.
+// Without NaN (NANS false: finite inputs, whose distances are never NaN) a
+// strict <; with NaN, j is taken while best is not NaN and acc is NaN or
+// below it.
+template <bool NANS>
+__device__ __forceinline__ bool takes(float acc, float best) {
+    if (NANS) return best == best && !(acc >= best);
+    return acc < best;
+}
+
 // Nearest centroid of each of PTS points in registers against the codebook
-// cs in shared memory: strict < in index order (lowest index wins ties),
-// each distance summed dim by dim without FMA contraction, the plain
+// cs in shared memory: in index order by takes<NANS>() (lowest index wins
+// ties), each distance summed dim by dim without FMA contraction, the plain
 // version's arithmetic.  Each centroid coordinate is read from shared memory
 // once for all PTS points; VEC (s == MAXS): 16 bytes at a time, the rows
 // then lying on 16-byte boundaries.  Call it through nearest().
-template <int MAXS, int PTS, bool VEC>
+template <int MAXS, int PTS, bool VEC, bool NANS>
 __device__ __forceinline__ void nearest_pts(const float (&xv)[PTS][MAXS], const float* cs, int k,
                                             int s, int (&bi)[PTS], float (&best)[PTS]) {
 #pragma unroll
@@ -338,7 +417,7 @@ __device__ __forceinline__ void nearest_pts(const float (&xv)[PTS][MAXS], const 
         }
 #pragma unroll
         for (int q = 0; q < PTS; ++q) {
-            if (acc[q] < best[q]) {
+            if (takes<NANS>(acc[q], best[q])) {
                 best[q] = acc[q];
                 bi[q] = j;
             }
@@ -346,13 +425,29 @@ __device__ __forceinline__ void nearest_pts(const float (&xv)[PTS][MAXS], const 
     }
 }
 
+// finite: every coordinate of the thread's points and of the codebook is
+// finite, so no distance is NaN and the strict < is torch.argmin's rule;
+// otherwise (NaN or inf data only) the NaN-aware loop.
 template <int MAXS, int PTS>
 __device__ __forceinline__ void nearest(const float (&xv)[PTS][MAXS], const float* cs, int k,
-                                        int s, int (&bi)[PTS], float (&best)[PTS]) {
-    if (s == MAXS)
-        nearest_pts<MAXS, PTS, true>(xv, cs, k, s, bi, best);
+                                        int s, bool finite, int (&bi)[PTS], float (&best)[PTS]) {
+    if (!finite)
+        nearest_pts<MAXS, PTS, false, true>(xv, cs, k, s, bi, best);
+    else if (s == MAXS)
+        nearest_pts<MAXS, PTS, true, false>(xv, cs, k, s, bi, best);
     else
-        nearest_pts<MAXS, PTS, false>(xv, cs, k, s, bi, best);
+        nearest_pts<MAXS, PTS, false, false>(xv, cs, k, s, bi, best);
+}
+
+// Whether every coordinate of a point in registers is finite.
+template <int MAXS, int PTS>
+__device__ __forceinline__ bool points_finite(const float (&xv)[PTS][MAXS]) {
+    bool ok = true;
+#pragma unroll
+    for (int q = 0; q < PTS; ++q)
+#pragma unroll
+        for (int t = 0; t < MAXS; ++t) ok &= (bool)isfinite(xv[q][t]);
+    return ok;
 }
 
 // Lloyd statistics of one chunk of block_n points (grid: chunks x
@@ -395,10 +490,14 @@ kmeans_stats_partial_kernel(const float* __restrict__ x,   // (B, n, s)
     const int lane = tid & 31, warp = tid >> 5;
     const long long xoff = (long long)b * n;
 
-    for (int u = tid; u < k * s; u += kThreads) cs[u] = c[(long long)b * k * s + u];
+    bool bad = false;  // a coordinate of the codebook that is not finite
+    for (int u = tid; u < k * s; u += kThreads) {
+        cs[u] = c[(long long)b * k * s + u];
+        bad |= !isfinite(cs[u]);
+    }
     for (int u = tid; u < k * (s + 1); u += kThreads) acc[u] = 0.f;
     for (int u = tid; u < PTS * kWarps * k; u += kThreads) wcnt[u] = 0;
-    __syncthreads();
+    const bool cfinite = !__syncthreads_or(bad);
 
     float inertia = 0.f;  // the same in every thread
     const int start = blk * block_n;
@@ -419,7 +518,7 @@ kmeans_stats_partial_kernel(const float* __restrict__ x,   // (B, n, s)
         }
         int bi[PTS];  // dead points match only each other
         float best[PTS];
-        nearest<MAXS, PTS>(xv, cs, k, s, bi, best);
+        nearest<MAXS, PTS>(xv, cs, k, s, cfinite && points_finite(xv), bi, best);
         int lrank[PTS];
 #pragma unroll
         for (int q = 0; q < PTS; ++q) {
@@ -518,12 +617,15 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
 
     const int i = blockIdx.y;
     const int tid = threadIdx.x;
+    bool bad1 = false, bad2 = false;  // coordinates that are not finite
     for (int u = tid; u < k * s; u += kThreads) {
         c1[u] = c[(long long)i * k * s + u];
         c2[u] = c[(long long)(ns + i) * k * s + u];
+        bad1 |= !isfinite(c1[u]);
+        bad2 |= !isfinite(c2[u]);
     }
     for (int u = tid; u < k * k; u += kThreads) hist[u] = 0;
-    __syncthreads();
+    const bool fin1 = !__syncthreads_or(bad1), fin2 = !__syncthreads_or(bad2);
 
     const int start = blockIdx.x * block_n;
     const int end = min(start + block_n, n);
@@ -531,9 +633,9 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
         float xv[1][MAXS], best[1];
         int a1[1], a2[1];
         load_point<MAXS>(x + ((long long)i * n + p) * s, s, xv[0]);
-        nearest<MAXS, 1>(xv, c1, k, s, a1, best);
+        nearest<MAXS, 1>(xv, c1, k, s, fin1 && points_finite(xv), a1, best);
         load_point<MAXS>(x + ((long long)(ns + i) * n + p) * s, s, xv[0]);
-        nearest<MAXS, 1>(xv, c2, k, s, a2, best);
+        nearest<MAXS, 1>(xv, c2, k, s, fin2 && points_finite(xv), a2, best);
         assign[(long long)i * n + p] = a1[0];
         assign[(long long)(ns + i) * n + p] = a2[0];
         atomicAdd(&hist[a1[0] * k + a2[0]], 1);
@@ -541,31 +643,6 @@ kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
     __syncthreads();
     for (int u = tid; u < k * k; u += kThreads)
         if (hist[u]) atomicAdd(&counts[(long long)i * k * k + u], hist[u]);
-}
-
-template <int MAXS>
-__global__ void __launch_bounds__(kThreads)
-kmeans_assign_batched_kernel(const float* __restrict__ x,  // (B, n, s)
-                             const float* __restrict__ c,  // (B, k, s)
-                             int n, int k, int s, int block_n,
-                             int* __restrict__ assign)     // (B, n)
-{
-    extern __shared__ __align__(16) float smem[];
-    float* cs = smem;  // k*s
-    const int b = blockIdx.y;
-    const int tid = threadIdx.x;
-    for (int u = tid; u < k * s; u += kThreads) cs[u] = c[(long long)b * k * s + u];
-    __syncthreads();
-
-    const int start = blockIdx.x * block_n;
-    const int end = min(start + block_n, n);
-    for (int p = start + tid; p < end; p += kThreads) {
-        float xv[1][MAXS], best[1];
-        int bi[1];
-        load_point<MAXS>(x + ((long long)b * n + p) * s, s, xv[0]);
-        nearest<MAXS, 1>(xv, cs, k, s, bi, best);
-        assign[(long long)b * n + p] = bi[0];
-    }
 }
 
 constexpr int kTileK = 32;  // centroids per shared-memory tile of the wide pair kernel
@@ -576,7 +653,8 @@ constexpr int kTileS = 32;  // dims per slice
 // dims.  Every thread of the block calls it together (it synchronises); a
 // thread whose point is not live (`live` false) computes junk for row 0.
 // Distances are summed dim 0..s-1 in order, tiles are visited in index order
-// and a later centroid wins only on a strict <: the lowest index wins ties.
+// and a later centroid wins by takes(): the lowest index wins ties, the
+// first NaN distance wins over all.
 __device__ __forceinline__ int nearest_streamed(const float* __restrict__ row, bool live,
                                                 const float* __restrict__ c, int k, int s,
                                                 float (&cs)[kTileK][kTileS], float* best_out) {
@@ -610,7 +688,7 @@ __device__ __forceinline__ int nearest_streamed(const float* __restrict__ row, b
         const int jn = min(kTileK, k - j0);
 #pragma unroll
         for (int j = 0; j < kTileK; ++j) {
-            if (j < jn && acc[j] < best) {
+            if (j < jn && takes<true>(acc[j], best)) {
                 best = acc[j];
                 bi = j0 + j;
             }
@@ -678,6 +756,31 @@ __device__ __forceinline__ void cp_async_wait_prev() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// The 64-bit key of centroid j at plain distance d, in torch.argmin's
+// order: a NaN distance first (high half 0), then d (bits(d) + 1: d >= 0 or
+// +inf, whose bits order as integers), then the index.  The minimum key of
+// a set of centroids is the plain argmin over it.
+__device__ __forceinline__ unsigned long long dist_key(float d, int j) {
+    const unsigned hi = d != d ? 0u : __float_as_uint(d) + 1u;
+    return (unsigned long long)hi << 32 | (unsigned)j;
+}
+
+// The distance a key holds.
+__device__ __forceinline__ float key_dist(unsigned long long key) {
+    const unsigned hi = (unsigned)(key >> 32);
+    return hi == 0u ? CUDART_NAN_F : __uint_as_float(hi - 1u);
+}
+
+// Whether a screen's error bound holds for a point: N_p = ||x||^2 +
+// max_j ||c_j||^2 (fp32) at most FLT_MAX / 4, so no plain distance (at most
+// ~2 N_p) overflows and every product is finite, and at least 2^-100, so
+// the tensor cores' flushing of subnormal products (each below 2^-126) stays
+// far inside the margin.  A NaN or infinite coordinate makes N_p NaN or
+// infinite.  A point the screen does not cover re-checks every centroid.
+__device__ __forceinline__ bool screen_covers(float np) {
+    return np >= 0x1p-100f && np <= FLT_MAX / 4;
+}
+
 // d_plain(p, j): the plain version's distance, dim 0..s-1 in order with
 // __fsub_rn / __fmul_rn / __fadd_rn, read from device memory (L2-resident).
 template <int VEC>
@@ -710,7 +813,8 @@ __device__ __forceinline__ float plain_dist(const float* __restrict__ xr,
 
 // ||c_j||^2 of every centroid (fp32, in dim order) and each codebook's
 // largest, the margin's centroid term (cmax zeroed by the launcher; the
-// norms are >= 0, so their bits order as integers).
+// norms are >= 0, so their bits order as integers; a NaN norm counts as
+// +inf, which no point's screen covers).
 __global__ void __launch_bounds__(kThreads)
 centroid_norms_kernel(const float* __restrict__ c, int B, int k, int s,
                       float* __restrict__ cn, float* __restrict__ cmax) {
@@ -720,7 +824,7 @@ centroid_norms_kernel(const float* __restrict__ c, int B, int k, int s,
     float a = 0.f;
     for (int t = 0; t < s; ++t) a = __fadd_rn(a, __fmul_rn(row[t], row[t]));
     cn[i] = a;
-    atomicMax(reinterpret_cast<int*>(cmax) + i / k, __float_as_int(a));
+    atomicMax(reinterpret_cast<int*>(cmax) + i / k, __float_as_int(a != a ? CUDART_INF_F : a));
 }
 
 // Nearest centroid of every point against its own codebook, any width and
@@ -870,9 +974,10 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
                 float v = xn_part;
 #pragma unroll
                 for (int o = 1; o < kTPP; o <<= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-                if (tid % kTPP == 0) {
+                if (tid % kTPP == 0) {  // +inf: every centroid is a candidate
+                    const float np = __fadd_rn(v, cmax[b]);
                     xn[tid / kTPP] = v;
-                    marg[tid / kTPP] = mu * __fadd_rn(v, cmax[b]);
+                    marg[tid / kTPP] = screen_covers(np) ? mu * np : CUDART_INF_F;
                 }
                 __syncthreads();
             }
@@ -924,7 +1029,7 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
                             const float a = acc[mt][nt][2 * h + e];
                             if (SCREEN && p < n && j < k)
                                 screen[((long long)b * n + p) * k + j] = a;
-                            if (p < n && j < k && a <= lim) {  // defer, or re-check now
+                            if (p < n && j < k && !(a > lim)) {  // defer, or re-check now
                                 const int slot = atomicAdd(&lcnt[row], 1);
                                 if (slot < kL) {
                                     lj[row * kL + slot] = j;
@@ -945,7 +1050,7 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
                 const int j = j0 + wn * kNT * 8 + nt * 8 + 2 * tq + e;
                 const float d =
                     plain_dist<VEC>(xb + (long long)(p0 + row) * s, cb + (long long)j * s, s);
-                atomicMin(&key[row], ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)j);
+                atomicMin(&key[row], dist_key(d, j));
                 ++nre;
             }
         }
@@ -956,11 +1061,11 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
     // point's first candidates spread over the threads)
     for (int u = tid; u < kBM * kL; u += kThreads) {
         const int row = u % kBM, slot = u / kBM, at = row * kL + slot;
-        if (slot < lcnt[row] && la[at] <= mrun[row] + marg[row]) {
+        if (slot < lcnt[row] && !(la[at] > mrun[row] + marg[row])) {
             const int j = lj[at];
             const float d =
                 plain_dist<VEC>(xb + (long long)(p0 + row) * s, cb + (long long)j * s, s);
-            atomicMin(&key[row], ((unsigned long long)__float_as_uint(d) << 32) | (unsigned)j);
+            atomicMin(&key[row], dist_key(d, j));
             ++nre;
         }
     }
@@ -968,7 +1073,7 @@ kmeans_assign_streamed_kernel(const float* __restrict__ x,     // (B, n, s)
     for (int i = tid; i < kBM; i += kThreads) {
         if (p0 + i >= n) continue;
         assign[(long long)b * n + p0 + i] = (int)(unsigned)(key[i] & 0xffffffffu);
-        if (best) best[(long long)b * n + p0 + i] = __uint_as_float((unsigned)(key[i] >> 32));
+        if (best) best[(long long)b * n + p0 + i] = key_dist(key[i]);
     }
     if (rechecks) {
         for (int o = 16; o > 0; o >>= 1) nre += __shfl_xor_sync(0xffffffffu, nre, o);
@@ -1286,17 +1391,337 @@ int launch_pair(const float* x, const float* c, int ns, int n, int k, int s, int
     return (int)cudaGetLastError();
 }
 
-template <int MAXS>
-int launch_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
-                          int block_n, int* assign, cudaStream_t stream) {
-    const int nblk = (n + block_n - 1) / block_n;
-    const size_t smem = sizeof(float) * (size_t)k * s;
-    const cudaError_t e = allow_smem(kmeans_assign_batched_kernel<MAXS>, smem);
+// ---- kernel 5 narrow: a tensor-core screen with the codebook resident ----
+// (the design and its margin are in the header)
+
+constexpr int kNarrowPasses = 8;  // passes of a block's warps over its chunk of points
+
+// The dim that fragment column kf (0..7) of k-step kk carries.  KS >= 2:
+// each 16 dims 16G.. feed k-step 2G (dims 16G + 4t, 16G + 4t + 1 as kf = t,
+// t + 4) and k-step 2G + 1 (16G + 4t + 2, 16G + 4t + 3), the screened
+// kernel's grouping; KS = 1: kf itself.  Points and centroids take the same
+// map, so each product still sums over the same dims.
+template <int KS>
+__host__ __device__ constexpr int frag_dim(int kk, int kf) {
+    return KS == 1 ? kf : 16 * (kk >> 1) + 4 * (kf & 3) + 2 * (kk & 1) + (kf >> 2);
+}
+
+// k-steps of 8 dims the narrow kernel takes at width s (dims padded with
+// zeros to 8 KS), and the m16 tiles of points a warp holds at KS.
+__host__ __device__ constexpr int narrow_ks(int s) {
+    return s <= 8 ? 1 : s <= 16 ? 2 : s <= 32 ? 4 : 8;
+}
+__host__ __device__ constexpr int narrow_mt(int ks) { return ks == 8 ? 1 : 2; }
+
+// Dynamic shared memory of a narrow assignment block: per tile of 8
+// centroids (an even number of tiles) and k-step, one float4 a lane (its two
+// B-fragment values' TF32 big halves, then their small halves), then
+// -||c_j||^2 / 2 per centroid (the tiles' 8 slots).  The op wrapper reads it
+// through kmeans_assign_narrow_smem_bytes.
+__host__ __device__ inline size_t narrow_smem_bytes(int k, int ks) {
+    const size_t tiles = ((size_t)k + 15) / 16 * 2;
+    return tiles * (sizeof(float4) * 32 * ks + sizeof(float) * 8);
+}
+
+__device__ __forceinline__ unsigned long long min_key(unsigned long long a, unsigned long long b) {
+    return a < b ? a : b;
+}
+
+// Nearest centroid of every point against its own codebook, s <= 64 and a
+// codebook whose split fits in shared memory, bit-equal to the plain version
+// (grid: chunks of kNarrowPasses * kWarps * MT * 16 points x codebooks).
+// The block splits its codebook into TF32 halves in fragment order, then each
+// warp takes MT * 16 points at a time, holds their split A fragments in
+// registers and walks every tile of 8 centroids: 3 * KS * MT mma.sync, the
+// accumulator started at -||c_j||^2 / 2, so it ends at t_j = x.c_j -
+// ||c_j||^2 / 2 (the distance is ||x||^2 - 2 t_j: the largest t is the
+// nearest centroid).  Each lane keeps, per point row, the largest t of its
+// columns (m1, j1) and the second largest (ev), with no barrier and no
+// shared memory in the loop.  At the end of the codebook, per point: T = the
+// quad's largest m1 and lim = T - mu N_p / 2; the lanes whose m1 >= lim are
+// the candidates.  If some lane's ev >= lim too (a candidate that lane did
+// not keep), or the screen does not cover the point (screen_covers), every
+// centroid is re-checked by the whole warp in the plain arithmetic;
+// otherwise one candidate is the argmin and several are re-checked (their
+// keys' quad minimum).  PROBE: rechecks takes each block's re-checked pairs,
+// best each point's plain best distance, screen (if not null) every t.
+template <int KS, int MT, bool PROBE>
+__global__ void __launch_bounds__(kThreads, 2)
+kmeans_assign_narrow_kernel(const float* __restrict__ x,   // (B, n, s)
+                            const float* __restrict__ c,   // (B, k, s)
+                            int n, int k, int s, int chunk, float mu,
+                            int* __restrict__ assign,      // (B, n)
+                            int* __restrict__ rechecks,    // (B, blocks) if PROBE
+                            float* __restrict__ screen,    // (B, n, k) or null, if PROBE
+                            float* __restrict__ best)      // (B, n) if PROBE
+{
+    extern __shared__ __align__(16) float4 cfrag[];  // [tiles][KS][32 lanes]
+    const int ntile = (k + 15) / 16 * 2;  // tiles of 8 centroids, an even number
+    float* ncn = reinterpret_cast<float*>(cfrag + ntile * KS * 32);  // [tiles * 8]
+    __shared__ unsigned cmax_bits;  // the codebook's largest ||c||^2 (NaN: +inf)
+    __shared__ int red[kWarps];
+    const int b = blockIdx.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, tq = lane & 3;
+    const float* xb = x + (long long)b * n * s;
+    const float* cb = c + (long long)b * k * s;
+
+    constexpr int kRows = MT * 16;  // points a warp takes at a time
+    const int start = blockIdx.x * chunk;
+    const int end = min(start + chunk, n);
+    // a warp's next rows into L1 while it works on the current ones (the
+    // first rows while the block stages its codebook): kRows * s * 4 <= 4 KB,
+    // a 128-byte line a lane
+    auto prefetch = [&](int q0) {
+        if (q0 < end && lane * 32 < (min(end - q0, kRows) * s)) {
+            const float* a = xb + (long long)q0 * s + lane * 32;
+            asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
+        }
+    };
+    prefetch(start + warp * kRows);
+
+    if (tid == 0) cmax_bits = 0u;
+    for (int u = tid; u < ntile * KS * 32; u += kThreads) {
+        const int L = u & 31, kk = (u >> 5) % KS, j = 8 * ((u >> 5) / KS) + (L >> 2);
+        const int d0 = frag_dim<KS>(kk, L & 3), d1 = frag_dim<KS>(kk, (L & 3) + 4);
+        const float v0 = j < k && d0 < s ? cb[(long long)j * s + d0] : 0.f;
+        const float v1 = j < k && d1 < s ? cb[(long long)j * s + d1] : 0.f;
+        unsigned b0, s0, b1, s1;
+        split_tf32(v0, b0, s0);
+        split_tf32(v1, b1, s1);
+        cfrag[u] = make_float4(__uint_as_float(b0), __uint_as_float(b1), __uint_as_float(s0),
+                               __uint_as_float(s1));
+    }
+    __syncthreads();  // cmax_bits is zeroed
+    for (int j = tid; j < ntile * 8; j += kThreads) {
+        float a = 0.f;
+        if (j < k) {
+            const float* row = cb + (long long)j * s;
+            for (int t = 0; t < s; ++t) a = __fadd_rn(a, __fmul_rn(row[t], row[t]));
+            atomicMax(&cmax_bits, __float_as_uint(a != a ? CUDART_INF_F : a));
+        }
+        ncn[j] = j < k ? -0.5f * a : -FLT_MAX;  // past k: t <= -FLT_MAX / 2, never a candidate
+    }
+    __syncthreads();
+    const float cmax = __uint_as_float(cmax_bits);
+    const float hmu = 0.5f * mu;
+
+    int nre = 0;
+    for (int p0 = start + warp * kRows; p0 < end; p0 += kWarps * kRows) {
+        prefetch(p0 + kWarps * kRows);
+        // the points' fragments, split once for the whole codebook, and
+        // their norms (any order: they set only the margin)
+        unsigned ab[MT][KS][4], as[MT][KS][4];
+        float nx[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int p = p0 + mt * 16 + g + 8 * h;
+                const float* row = xb + (long long)p * s;
+                float sq = 0.f;
+#pragma unroll
+                for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int d = frag_dim<KS>(kk, tq + 4 * e);
+                        const float v = p < end && d < s ? row[d] : 0.f;
+                        split_tf32(v, ab[mt][kk][h + 2 * e], as[mt][kk][h + 2 * e]);
+                        sq = __fmaf_rn(v, v, sq);
+                    }
+                }
+                sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+                sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+                nx[mt][h] = sq;
+            }
+        }
+        // the screen: per row, the largest t of this lane's columns and the
+        // second largest
+        float m1[MT][2], ev[MT][2];
+        int j1[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                m1[mt][h] = -CUDART_INF_F;
+                ev[mt][h] = -CUDART_INF_F;
+                j1[mt][h] = 0;
+            }
+        // tile t's products into a (t's -||c||^2 / 2 to start)
+        auto products = [&](int t, float (&a)[MT][4]) {
+            const float2 nc = *reinterpret_cast<const float2*>(ncn + 8 * t + 2 * tq);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                a[mt][0] = nc.x;
+                a[mt][1] = nc.y;
+                a[mt][2] = nc.x;
+                a[mt][3] = nc.y;
+            }
+            const float4* ft = cfrag + t * KS * 32 + lane;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+                const float4 f = ft[kk * 32];
+                const unsigned bb[2] = {__float_as_uint(f.x), __float_as_uint(f.y)};
+                const unsigned bs[2] = {__float_as_uint(f.z), __float_as_uint(f.w)};
+                // the small terms first, then big x big
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma_tf32(a[mt], as[mt][kk], bb);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma_tf32(a[mt], ab[mt][kk], bs);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma_tf32(a[mt], ab[mt][kk], bb);
+            }
+        };
+        // tile t's values into each row's (m1, j1, ev)
+        auto keep = [&](int t, const float (&a)[MT][4]) {
+            const int jb = 8 * t + 2 * tq;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float v = a[mt][2 * h + e];
+                        const bool up = v > m1[mt][h];
+                        ev[mt][h] = fmaxf(ev[mt][h], fminf(v, m1[mt][h]));
+                        m1[mt][h] = fmaxf(m1[mt][h], v);
+                        j1[mt][h] = up ? jb + e : j1[mt][h];
+                        if (PROBE && screen) {
+                            const int p = p0 + mt * 16 + g + 8 * h;
+                            if (p < end && jb + e < k)
+                                screen[((long long)b * n + p) * k + jb + e] = v;
+                        }
+                    }
+        };
+        // in pairs of tiles, each tile's products issued before the previous
+        // tile's values are kept, with no branch between them, so the
+        // bookkeeping fills the tensor cores' stalls (ntile is even: a padded
+        // tile holds zeros and -FLT_MAX)
+        float acc0[MT][4], acc1[MT][4];
+        products(0, acc0);
+        for (int t = 0; t + 2 < ntile; t += 2) {
+            products(t + 1, acc1);
+            keep(t, acc0);
+            products(t + 2, acc0);
+            keep(t + 1, acc1);
+        }
+        products(ntile - 1, acc1);
+        keep(ntile - 2, acc0);
+        keep(ntile - 1, acc1);
+        // the candidates of each row
+        bool whole[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int p = p0 + mt * 16 + g + 8 * h;
+                const bool live = p < end;
+                float top = m1[mt][h];
+                top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 1));
+                top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, 2));
+                const float np = __fadd_rn(nx[mt][h], cmax);
+                const float lim = top - hmu * np;
+                const unsigned qc = __ballot_sync(0xffffffffu, m1[mt][h] >= lim) >> (4 * g) & 0xfu;
+                const unsigned qa = __ballot_sync(0xffffffffu, ev[mt][h] >= lim) >> (4 * g) & 0xfu;
+                whole[mt][h] = live && (!screen_covers(np) || qa != 0u);
+                const bool mine = (qc >> tq & 1u) != 0u;
+                const bool several = !whole[mt][h] && live && __popc(qc) > 1;
+                const float* xr = xb + (long long)p * s;
+                if (!whole[mt][h] && live && !several && mine) {  // the one candidate
+                    assign[(long long)b * n + p] = j1[mt][h];
+                    if (PROBE && best)
+                        best[(long long)b * n + p] =
+                            plain_dist<1>(xr, cb + (long long)j1[mt][h] * s, s);
+                }
+                if (__any_sync(0xffffffffu, several)) {
+                    unsigned long long key = ~0ull;
+                    if (several && mine) {
+                        key = dist_key(plain_dist<1>(xr, cb + (long long)j1[mt][h] * s, s),
+                                       j1[mt][h]);
+                        ++nre;
+                    }
+                    key = min_key(key, __shfl_xor_sync(0xffffffffu, key, 1));
+                    key = min_key(key, __shfl_xor_sync(0xffffffffu, key, 2));
+                    if (several && tq == 0) {
+                        assign[(long long)b * n + p] = (int)(unsigned)(key & 0xffffffffu);
+                        if (PROBE && best) best[(long long)b * n + p] = key_dist(key);
+                    }
+                }
+            }
+        }
+        // rows the screen does not settle: every centroid, by the whole warp
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                unsigned rows = __ballot_sync(0xffffffffu, whole[mt][h] && tq == 0);
+                while (rows) {
+                    const int src = __ffs(rows) - 1;
+                    rows &= rows - 1;
+                    const int p = p0 + mt * 16 + (src >> 2) + 8 * h;
+                    const float* xr = xb + (long long)p * s;
+                    unsigned long long key = ~0ull;
+                    for (int j = lane; j < k; j += 32)
+                        key = min_key(key, dist_key(plain_dist<1>(xr, cb + (long long)j * s, s), j));
+#pragma unroll
+                    for (int o = 16; o > 0; o >>= 1)
+                        key = min_key(key, __shfl_xor_sync(0xffffffffu, key, o));
+                    if (lane == 0) {
+                        assign[(long long)b * n + p] = (int)(unsigned)(key & 0xffffffffu);
+                        if (PROBE && best) best[(long long)b * n + p] = key_dist(key);
+                        nre += k;
+                    }
+                }
+            }
+        }
+    }
+    if (PROBE && rechecks) {
+        for (int o = 16; o > 0; o >>= 1) nre += __shfl_xor_sync(0xffffffffu, nre, o);
+        if (lane == 0) red[warp] = nre;
+        __syncthreads();
+        if (tid == 0) {
+            int tot = 0;
+            for (int w = 0; w < kWarps; ++w) tot += red[w];
+            rechecks[(long long)b * gridDim.x + blockIdx.x] = tot;
+        }
+    }
+}
+
+template <int KS, bool PROBE>
+int launch_narrow_v(const float* x, const float* c, int B, int n, int k, int s, float mu,
+                    int* assign, int* rechecks, float* screen, float* best, cudaStream_t stream) {
+    constexpr int MT = narrow_mt(KS);
+    constexpr int chunk = kNarrowPasses * kWarps * MT * 16;
+    auto kern = kmeans_assign_narrow_kernel<KS, MT, PROBE>;
+    const size_t smem = narrow_smem_bytes(k, KS);
+    const cudaError_t e = allow_smem(kern, smem);
     if (e != cudaSuccess) return (int)e;
-    kmeans_assign_batched_kernel<MAXS><<<dim3(nblk, B), kThreads, smem, stream>>>(
-        x, c, n, k, s, block_n, assign);
+    kern<<<dim3((n + chunk - 1) / chunk, B), kThreads, smem, stream>>>(
+        x, c, n, k, s, chunk, mu, assign, rechecks, screen, best);
     return (int)cudaGetLastError();
 }
+
+// The narrow kernel at s <= 64 (mu: kernel.narrow_margin); the PROBE
+// instantiation when rechecks, screen or best is not null.
+int launch_assign_narrow(const float* x, const float* c, int B, int n, int k, int s, float mu,
+                         int* assign, int* rechecks, float* screen, float* best,
+                         cudaStream_t stream) {
+    const bool probe = rechecks || screen || best;
+#define REPRO_NARROW(KS)                                                                       \
+    return probe ? launch_narrow_v<KS, true>(x, c, B, n, k, s, mu, assign, rechecks, screen,  \
+                                             best, stream)                                     \
+                 : launch_narrow_v<KS, false>(x, c, B, n, k, s, mu, assign, rechecks, screen, \
+                                              best, stream)
+    switch (narrow_ks(s)) {
+        case 1: REPRO_NARROW(1);
+        case 2: REPRO_NARROW(2);
+        case 4: REPRO_NARROW(4);
+        default: REPRO_NARROW(8);
+    }
+#undef REPRO_NARROW
+    return (int)cudaErrorInvalidValue;
+}
+
 
 }  // namespace
 
@@ -1361,20 +1786,21 @@ extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, i
 // (kernel.screen_margin), norms B*k + B floats of scratch, rechecks, screen
 // and best null except in the checks.
 extern "C" int kmeans_assign_batched(const float* x, const float* c, int B, int n, int k, int s,
-                                     int block_n, int* assign, int wide, float mu, float* norms,
+                                     int* assign, int wide, float mu, float* norms,
                                      int* rechecks, float* screen, float* best, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (wide)
         return launch_assign_streamed(x, c, B, n, k, s, mu, norms, assign, rechecks, screen, best,
                                       st);
-#define REPRO_ASSIGN(M) return launch_assign_batched<M>(x, c, B, n, k, s, block_n, assign, st)
-    if (s <= 4) REPRO_ASSIGN(4);
-    if (s <= 8) REPRO_ASSIGN(8);
-    if (s <= 16) REPRO_ASSIGN(16);
-    if (s <= 32) REPRO_ASSIGN(32);
-    if (s <= 64) REPRO_ASSIGN(64);
-#undef REPRO_ASSIGN
-    return (int)cudaErrorInvalidValue;
+    if (s > 64) return (int)cudaErrorInvalidValue;
+    return launch_assign_narrow(x, c, B, n, k, s, mu, assign, rechecks, screen, best, st);
+}
+
+// Shared memory of a narrow assignment block at (k, s <= 64), in bytes (at
+// most INT_MAX): the op wrapper takes the screened kernel past the card's
+// limit.
+extern "C" int kmeans_assign_narrow_smem_bytes(int k, int s) {
+    return (int)std::min<size_t>(narrow_smem_bytes(k, narrow_ks(s)), INT_MAX);
 }
 
 extern "C" int kmeans_assign(const float* x, const float* c, int n, int k, int s, float mu,

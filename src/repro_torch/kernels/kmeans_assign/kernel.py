@@ -1,18 +1,23 @@
 """Launches of the CUDA kernels ``csrc/kmeans_assign.cu``, which replace the
 four TPU kernels of ``repro/kernels/kmeans_assign/kernel.py``:
-``kmeans_stats_kernel``, ``kmeans_pair_assign_hist_kernel`` and
-``kmeans_assign_batched_kernel`` (grid: chunks of ``block_n`` points x
-codebooks; narrow: the codebook's centroids in shared memory, one point
-per thread in registers; ``wide``: the centroids streamed through shared
-memory, for any width and any ``k``) and ``kmeans_assign_kernel`` (one
-problem of any width and any ``k``).  The fourth and the wide batched
-assignment are one CUDA kernel, ``kmeans_assign_streamed_kernel``, at one
-codebook and at ``B``: a 3xTF32 tensor-core screen whose candidates within
-the margin :func:`screen_margin` are re-checked in the plain arithmetic, so
-its argmins are the plain version's bit for bit (see the source's header).
-The wide statistics take their argmins, and each point's exact best distance,
-from it, then add each point once in (centroid, index) order, as the narrow
-statistics kernel does: both give the same bits.
+``kmeans_stats_kernel`` and ``kmeans_pair_assign_hist_kernel`` (grid: chunks
+of ``block_n`` points x codebooks; narrow: the codebook's centroids in
+shared memory, one or two points per thread in registers; ``wide``: the
+centroids streamed through shared memory, for any width and any ``k``),
+``kmeans_assign_batched_kernel`` and ``kmeans_assign_kernel`` (one problem
+of any width and any ``k``).  The fourth and the wide batched assignment
+are one CUDA kernel, ``kmeans_assign_streamed_kernel``, at one codebook and
+at ``B``: a 3xTF32 tensor-core screen whose candidates within the margin
+:func:`screen_margin` are re-checked in the plain arithmetic, so its argmins
+are the plain version's bit for bit (see the source's header).  The narrow
+batched assignment (``s <= 64``, the split codebook in shared memory) is
+``kmeans_assign_narrow_kernel``: a 3xTF32 screen too, with the codebook
+resident and the points' fragments in registers, its margin
+:func:`narrow_margin`; its blocks take their own chunks of points, whatever
+``block_n``.  The wide statistics take their argmins, and each point's
+exact best distance, from the streamed kernel, then add each point once in
+(centroid, index) order, as the narrow statistics kernel does: both give
+the same bits.
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates outputs and scratch, launches on the current stream and raises on
@@ -20,7 +25,8 @@ any CUDA error.  ``stats_launches``, ``pair_hist_launches``,
 ``assign_batched_launches`` and ``assign_launches`` count the launches.
 :func:`kmeans_assign_probe` is the screened kernel with its instruments on
 (re-checks per block, the screen's distances, each point's best distance),
-for the checks only.
+for the checks only; :func:`kmeans_assign_narrow_probe` is the narrow
+kernel's.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 _STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P]
 _PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
-_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P]
+_ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P]
 _ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _F, _P, _P, _P]
 _U = 2.0**-24  # unit roundoff of fp32
 SCREEN_BLOCK_POINTS = 128  # points per block of the screened kernel (kBM in the source)
@@ -57,6 +63,27 @@ def screen_margin(s: int) -> float:
     needs the error within ``delta_p / 2``, and a safety factor of 4 covers
     the tensor cores' accumulation: ``mu_s = 8 E_s``."""
     return 8.0 * (7 * s + 20) * _U
+
+
+def narrow_margin(s: int) -> float:
+    """``mu_s`` of the narrow assignment kernel: centroid ``j`` of point ``p``
+    is a candidate when its screen value ``t_j = x.c_j - |c_j|^2 / 2`` lies
+    within ``delta_p / 2`` of the point's largest, ``delta_p = mu_s (|x_p|^2
+    + max_j |c_j|^2)``, i.e. its screen distance ``|x_p|^2 - 2 t_j`` within
+    ``delta_p`` of the smallest.  ``E_s = (10 s + 20) u`` bounds ``|(|x_p|^2
+    - 2 t_j) - d_plain| / (|x_p|^2 + max_j |c_j|^2)``: the accumulator starts
+    at ``-|c_j|^2 / 2``, so ``3 s + 1`` terms of absolute sum up to ``N_p``
+    are added (9.006 s + 16 at first order; the header of
+    ``csrc/kmeans_assign.cu`` derives it).  ``mu_s = 8 E_s``, as in
+    :func:`screen_margin`."""
+    return 8.0 * (10 * s + 20) * _U
+
+
+def narrow_smem_bytes(k: int, s: int) -> int:
+    """Shared memory of a narrow assignment block at ``(k, s <= 64)``, in
+    bytes, as the source lays it out (the split codebook and the centroids'
+    norms; at most 2^31 - 1); builds the library if needed."""
+    return _build.entry("kmeans_assign", "kmeans_assign_narrow_smem_bytes", [_I, _I])(k, s)
 
 
 def stats_smem_bytes(k: int, s: int) -> int:
@@ -126,7 +153,7 @@ def kmeans_pair_assign_hist(
     return assign, counts
 
 
-def _batched(x, centroids, block_n, wide, rechecks=None, screen=None, best=None) -> torch.Tensor:
+def _batched(x, centroids, wide, rechecks=None, screen=None, best=None) -> torch.Tensor:
     global assign_batched_launches
     b, n, s = x.shape
     k = centroids.shape[1]
@@ -137,8 +164,9 @@ def _batched(x, centroids, block_n, wide, rechecks=None, screen=None, best=None)
     fn = _build.entry("kmeans_assign", "kmeans_assign_batched", _ASSIGN_BATCHED_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
-            x.data_ptr(), centroids.data_ptr(), b, n, k, s, block_n, assign.data_ptr(),
-            int(wide), screen_margin(s), None if norms is None else norms.data_ptr(),
+            x.data_ptr(), centroids.data_ptr(), b, n, k, s, assign.data_ptr(),
+            int(wide), screen_margin(s) if wide else narrow_margin(s),
+            None if norms is None else norms.data_ptr(),
             None if rechecks is None else rechecks.data_ptr(),
             None if screen is None else screen.data_ptr(),
             None if best is None else best.data_ptr(),
@@ -149,10 +177,8 @@ def _batched(x, centroids, block_n, wide, rechecks=None, screen=None, best=None)
     return assign
 
 
-def kmeans_assign_batched(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
-) -> torch.Tensor:
-    return _batched(x, centroids, block_n, wide)
+def kmeans_assign_batched(x: torch.Tensor, centroids: torch.Tensor, wide: bool) -> torch.Tensor:
+    return _batched(x, centroids, wide)
 
 
 class Probe(NamedTuple):
@@ -174,7 +200,27 @@ def kmeans_assign_probe(
     rechecks = torch.zeros((b, -(-n // SCREEN_BLOCK_POINTS)), dtype=torch.int32, device=dev)
     out = torch.empty((b, n, k), dtype=torch.float32, device=dev) if screen else None
     best = torch.empty((b, n), dtype=torch.float32, device=dev)
-    assign = _batched(x, centroids, SCREEN_BLOCK_POINTS, True, rechecks, out, best)
+    assign = _batched(x, centroids, True, rechecks, out, best)
+    return Probe(assign, rechecks, out, best)
+
+
+def kmeans_assign_narrow_probe(
+    x: torch.Tensor, centroids: torch.Tensor, *, screen: bool = False
+) -> Probe:
+    """The narrow kernel (``s <= 64``, its block within shared memory) on
+    ``x: (B, n, s)``, ``centroids: (B, k, s)`` with its instruments on: the
+    re-checked pairs of each block (a point the screen does not settle
+    counts ``k``), each point's plain best distance, and with ``screen``
+    every screen value ``t_j = x.c_j - |c_j|^2 / 2`` (the screen distance is
+    ``|x|^2 - 2 t_j``).  For the checks only."""
+    b, n, _ = x.shape
+    k = centroids.shape[1]
+    dev = x.device
+    # the kernel's blocks take at least 1,024 points: room for every block
+    rechecks = torch.zeros((b, -(-n // 1024)), dtype=torch.int32, device=dev)
+    out = torch.empty((b, n, k), dtype=torch.float32, device=dev) if screen else None
+    best = torch.empty((b, n), dtype=torch.float32, device=dev)
+    assign = _batched(x, centroids, False, rechecks, out, best)
     return Probe(assign, rechecks, out, best)
 
 

@@ -11,14 +11,16 @@ the points each block of the kernel takes.
 Every op takes any width ``s`` and any ``k``, as the JAX package's do.  The
 batched kernels come in two variants, chosen here by shape: the narrow one
 holds a point in registers (``s <= MAX_DIM``) and the codebook in shared
-memory (:func:`_fits`); the wide one streams the centroids through shared
-memory for any other shape.  Both give the same results.  The wide
-assignment, which is also :func:`kmeans_assign`'s kernel, ranks the
-centroids on the tensor cores and re-checks every one within its margin in
-the plain arithmetic, so it too gives the plain version's argmins bit for
-bit; its blocks take 128 points each whatever ``block_n``.  The wide
-statistics take their argmins from it and add each chunk's points in the
-narrow kernel's order: the same bits as the narrow statistics.
+memory (:func:`_fits`, at the size the source states); the wide one streams
+the centroids through shared memory for any other shape (the batched
+assignment also past 32 dims where two narrow blocks do not fit an SM, as
+it is faster there).  Both give the same results.  Both assignment variants, and :func:`kmeans_assign`'s kernel
+(the wide one), rank the centroids on the tensor cores and re-check every
+one within their margin in the plain arithmetic, so they give the plain
+version's argmins bit for bit; their blocks take chunks of their own size
+whatever ``block_n``.  The wide statistics take their argmins from the wide
+assignment and add each chunk's points in the narrow kernel's order: the
+same bits as the narrow statistics.
 """
 
 from __future__ import annotations
@@ -43,6 +45,12 @@ __all__ = [
 #: registers; wider ones take the wide variants.
 MAX_DIM = 64
 _SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+#: Past this width the screened assignment pads no dims (its slices are 32
+#: wide), and the narrow one is faster only where two of its blocks fit an SM
+#: (its launch bounds): at s = 64, k = 50 / 128 the narrow kernel takes
+#: 0.070 / 0.148 ms against the screen's 0.117 / 0.181, at k = 256 (one
+#: block an SM) 0.543 against 0.314 (H100 80GB HBM3, tools/time_assign.py).
+_SCREEN_SLICE = 32
 
 
 def _check(x, centroids, block_n) -> tuple[int, int, int, int]:
@@ -115,7 +123,10 @@ def kmeans_assign_batched(
     if x.device.type == "cpu":
         return kmeans_assign_batched_ref(x, centroids, block_n=block_n)
     if x.device.type == "cuda":
-        return kernel.kmeans_assign_batched(x, centroids, block_n, not _fits(s, 4 * k * s))
+        # the split codebook and its norms, as the source lays them out
+        smem = kernel.narrow_smem_bytes(k, s)
+        wide = not _fits(s, smem) or (s > _SCREEN_SLICE and smem > _SMEM_LIMIT // 2)
+        return kernel.kmeans_assign_batched(x, centroids, wide)
     raise ValueError(f"no kmeans_assign_batched route for device {x.device}")
 
 

@@ -868,19 +868,78 @@ def test_sc_linear_on_the_card_equals_the_cpu(dev, modes_data):
     assert torch.equal(s_card.cpu(), sc_linear.sc_scores_from_subspaces(xs, qs, count))
 
 
-@pytest.mark.parametrize("s,k", [(16, 256), (13, 50), (64, 7), (128, 1024), (130, 300)])
+#: the largest k whose split codebook a narrow block holds at s = 64
+NARROW_K_MAX_64 = "k_max"
+NARROW_SHAPES = [(s, k) for s in (1, 3, 8, 13, 16, 17, 32, 64) for k in (1, 7, 50, 256)]
+
+
+def _narrow_k_max(s):
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    k = 8
+    while kmeans_kernel.narrow_smem_bytes(k + 8, s) <= kmeans_ops._SMEM_LIMIT:
+        k += 8
+    return k
+
+
+@pytest.mark.parametrize("s,k", [*NARROW_SHAPES, (64, NARROW_K_MAX_64), (128, 1024),
+                                 (130, 300)])
 def test_kmeans_assign_batched_kernel_equals_plain(dev, s, k):
-    """Narrow shapes, and the wide ones (s > 64) that take the screened
-    kernel; the plain version runs on the card (the same bits as on the
-    CPU: separate elementwise ops, no contraction) to keep the wide cases
+    """The narrow kernel at s = 1..64 (s off every multiple of 4 and 8,
+    k < 8, ragged n, the largest k that fits at s = 64), and the wide shapes
+    (s > 64) that take the screened kernel; two launches give equal bits.
+    Where the op takes the screen at s <= 64 (past 32 dims, a codebook past
+    half an SM's shared memory) the narrow kernel is held too, forced.
+    The plain version runs on the card (the same bits as on the CPU:
+    separate elementwise ops, no contraction) to keep the wide cases
     short."""
-    x, c = (a.to(dev) for a in _blobs(8, 8, 20_000, k, s))
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    if k == NARROW_K_MAX_64:
+        k = _narrow_k_max(s)
+        assert kmeans_kernel.narrow_smem_bytes(k, s) <= kmeans_ops._SMEM_LIMIT < \
+            kmeans_kernel.narrow_smem_bytes(k + 1, s)
+    x, c = (a.to(dev) for a in _blobs(8, 8, 20_011, k, s))
     before = kernels.launch_counts()["kmeans_assign_batched"]
     got = kmeans_ops.kmeans_assign_batched(x, c, block_n=4096)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["kmeans_assign_batched"] == before + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, kmeans_assign_batched_ref(x, c, block_n=4096))
+    assert torch.equal(kmeans_ops.kmeans_assign_batched(x, c, block_n=4096), got)
+    if s <= kmeans_ops.MAX_DIM:
+        assert torch.equal(kmeans_kernel.kmeans_assign_batched(x, c, False), got)
+
+
+def _screen_within_quarter(t, x, c, mu):
+    """The narrow screen distance ``|x|^2 - 2 t`` (fp64) within a quarter of
+    its margin of the plain distance, for ``t (n, k)``, ``x (n, s)``,
+    ``c (k, s)``; returns the largest error over the margin."""
+    d = sqdist_rowwise(x, c).double()
+    nx = (x.double() ** 2).sum(1)
+    big = nx + (c.double() ** 2).sum(1).max()
+    ratio = ((nx[:, None] - 2 * t.double() - d).abs() / (mu * big)[:, None]).max()
+    assert ratio <= 0.25, float(ratio)
+    return float(ratio)
+
+
+@pytest.mark.parametrize("s,k", [(16, 256), (8, 50), (3, 7), (64, 256), (17, 1)])
+def test_narrow_assign_probe_holds_its_margin(dev, s, k):
+    """The narrow kernel's probe: its argmins the plain version's, each
+    point's best distance the plain minimum bit for bit, every screen value
+    within a quarter of its margin, and re-checks per point in [0, k]."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = (a.to(dev) for a in _blobs(31, 3, 5_003, k, s))
+    probe = kmeans_kernel.kmeans_assign_narrow_probe(x, c, screen=True)
+    want = kmeans_assign_batched_ref(x, c, block_n=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(probe.assign, want)
+    for i in range(3):
+        d = sqdist_rowwise(x[i], c[i])
+        assert torch.equal(probe.best[i], d.gather(1, want[i].long()[:, None])[:, 0])
+        _screen_within_quarter(probe.screen[i], x[i], c[i], kmeans_kernel.narrow_margin(s))
+    assert 0 <= int(probe.rechecks.sum()) <= k * 3 * 5_003
 
 
 def _screen_case(kind, g):
@@ -938,6 +997,112 @@ def test_screened_assign_kernel_equals_plain_on_adversarial_data(dev, kind):
     assert 1 <= per_point <= k
     if kind == "offset":
         assert per_point >= 0.9 * k
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "mirrored", "integer", "offset", "one", "ragged",
+                                  "unaligned"])
+def test_narrow_assign_kernel_equals_plain_on_adversarial_data(dev, kind):
+    """Row 5's narrow kernel (the ``(1, n, s)`` batch, the cases' first 64
+    dims at most) bit-equal to the plain version on the screened kernel's
+    adversarial cases: ties, equidistant pairs, integer data, a large common
+    offset (every point re-checks every centroid: right and slow), n = k =
+    s = 1, ragged and unaligned shapes; two launches give equal bits, the
+    screen's largest error within a quarter of its margin."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = _screen_case(kind, _gen(41))
+    x, c = x[:, :64], c[:, :64]  # views: "unaligned" stays off a 16-byte boundary
+    want = kmeans_assign_ref(x, c)
+    xd, cd = x.to(dev)[None], c.to(dev)[None]
+    got = kmeans_ops.kmeans_assign_batched(xd, cd, block_n=4096)
+    assert torch.equal(got[0].cpu(), want)
+    assert torch.equal(kmeans_ops.kmeans_assign_batched(xd, cd, block_n=4096), got)
+    probe = kmeans_kernel.kmeans_assign_narrow_probe(xd, cd, screen=True)
+    torch.cuda.synchronize()
+    assert torch.equal(probe.assign[0].cpu(), want)
+    _screen_within_quarter(probe.screen[0].cpu(), x, c, kmeans_kernel.narrow_margin(x.shape[1]))
+    d = sqdist_rowwise(x, c)
+    assert torch.equal(probe.best[0].cpu(), d.gather(1, want.long()[:, None])[:, 0])
+    n, k = x.shape[0], c.shape[0]
+    per_point = int(probe.rechecks.sum()) / n
+    assert 0 <= per_point <= k
+    if kind == "offset":
+        assert per_point >= 0.9 * k
+
+
+def _nan_inf_data(kind, b, n, k, s, seed):
+    """``(x (b, n, s), c (b, k, s))`` on the CPU, integer-valued (every fp32
+    sum exact in any order) with NaN or +-inf entries by codebook: 0 a
+    non-finite centroid coordinate, 1 non-finite points (every 7th), 2 both
+    (inf - inf makes NaN distances), the rest clean.  ``kind``: "nan", "inf"
+    or "mixed" (NaN in codebooks 0 and 1, inf in 2)."""
+    g = _gen(seed)
+    x = torch.randint(-5, 6, (b, n, s), generator=g).float()
+    c = torch.randint(-5, 6, (b, k, s), generator=g).float()
+    bad = {"nan": (float("nan"),) * 3, "inf": (float("inf"), -float("inf"), float("inf")),
+           "mixed": (float("nan"), float("nan"), float("inf"))}[kind]
+    c[0, k // 2, s - 1] = bad[0]
+    x[1, ::7, 0] = bad[1]
+    x[2, 3::7, s - 1] = bad[2]
+    c[2, k - 1, s - 1] = bad[2]
+    return x, c
+
+
+#: (row, wide variant, s, k): both variants of rows 3-5 at s <= 64, the
+#: wide ones (and row 6) also at s = 70; row 4's narrow variant holds its
+#: k^2 histogram in shared memory, so k = 100 there in place of 256
+NAN_CASES = [(row, wide, s, 100 if (row, wide, k) == (4, False, 256) else k)
+             for row, wide in [(3, False), (3, True), (4, False), (4, True), (5, False),
+                               (5, True), (6, True)]
+             for s, k in [(5, 23), (8, 50), (16, 256), (70, 40)] if wide or s <= 64]
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf", "mixed"])
+@pytest.mark.parametrize("row,wide,s,k", NAN_CASES)
+def test_assign_kernels_equal_plain_on_nan_and_inf_data(dev, row, wide, s, k, kind):
+    """Rows 3-6, each variant the op may take, against the plain version on
+    NaN and inf data: torch.argmin's index (the first NaN distance; else the
+    lowest index of the minimum), never one outside [0, k); row 3's sums,
+    counts and inertia bit-equal (NaN where the plain version's are), row
+    4's histogram equal."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    b, n, bn = 4, 3_001, 1_000
+    x, c = (a.to(dev) for a in _nan_inf_data(kind, b, n, k, s, seed=s + k))
+    if row == 3:
+        got = kmeans_kernel.kmeans_stats(x, c, bn, True, wide)
+        want = kmeans_stats_ref(x, c, block_n=bn)
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_, w_, rtol=0, atol=0, equal_nan=True)
+        a = got[0]
+    elif row == 4:
+        got = kmeans_kernel.kmeans_pair_assign_hist(x, c, bn, wide)
+        want = kmeans_pair_assign_hist_ref(x, c, block_n=bn)
+        assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+        a = got[0]
+    elif row == 5:
+        a = kmeans_kernel.kmeans_assign_batched(x, c, wide)
+        assert torch.equal(a, kmeans_assign_batched_ref(x, c, block_n=bn))
+    else:
+        a = torch.stack([kmeans_ops.kmeans_assign(x[i], c[i]) for i in range(b)])
+        assert torch.equal(a, torch.stack([kmeans_assign_ref(x[i], c[i]) for i in range(b)]))
+    torch.cuda.synchronize()
+    assert int(a.min()) >= 0 and int(a.max()) < k
+
+
+def test_smallest_nan_inputs_take_the_first_nan(dev):
+    """The smallest inputs that showed the fault: the narrow route with
+    centroid 1 NaN (B = 1, n = 2, s = 4, k = 3) gives [1, 1]; the screened
+    kernel with x = [NaN, 0, 0, 0] (n = 1, s = 4, k = 2) gives 0, not -1."""
+    c = torch.zeros(1, 3, 4)
+    c[0, 1, 0] = float("nan")
+    x = torch.ones(1, 2, 4)
+    assert kmeans_ops.kmeans_assign_batched(x.to(dev), c.to(dev), block_n=4).tolist() == [[1, 1]]
+    assert kmeans_assign_batched_ref(x, c, block_n=4).tolist() == [[1, 1]]
+    x1 = torch.tensor([[float("nan"), 0.0, 0.0, 0.0]])
+    c1 = torch.randn(2, 4, generator=_gen(3))
+    assert kmeans_ops.kmeans_assign(x1.to(dev), c1.to(dev)).tolist() == [0]
+    assert kmeans_assign_ref(x1, c1).tolist() == [0]
 
 
 @pytest.mark.parametrize("n,s,k", [(20_000, 128, 1024), (5_000, 130, 300), (777, 5, 7), (1, 1, 1)])

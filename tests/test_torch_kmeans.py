@@ -259,6 +259,144 @@ def test_screen_margin_holds_the_emulated_screen_to_its_derivation(s, kind):
         assert rechecks > 0.9 * a.size
 
 
+def _frag_dim(ks, kk, kf):
+    """The dim fragment column ``kf`` of k-step ``kk`` carries in the narrow
+    kernel (``frag_dim`` in the source)."""
+    if ks == 1:
+        return kf
+    return 16 * (kk >> 1) + 4 * (kf & 3) + 2 * (kk & 1) + (kf >> 2)
+
+
+def _narrow_screen_emulated(x, c):
+    """The narrow kernel's screen values ``t (n, k) = x.c_j - |c_j|^2 / 2``
+    emulated in fp64: fp32 ``|c_j|^2`` summed in dim order, halved (exact);
+    the TF32 split of both operands; dims zero-padded to 8 KS; per k-step
+    the small x big, big x small and big x big products of its 8 dims (the
+    source's ``frag_dim`` map), each added to the fp32 accumulator, which
+    starts at ``-|c_j|^2 / 2``, with one rounding."""
+    xd, cd = x.astype(np.float64), c.astype(np.float64)
+    s = x.shape[1]
+    ks = 1 if s <= 8 else 2 if s <= 16 else 4 if s <= 32 else 8
+    xb, cb = _tf32(xd), _tf32(cd)
+    xs, cs = _tf32(xd - xb), _tf32(cd - cb)
+    cn = np.zeros(len(c))
+    for i in range(s):
+        cn = _f32(cn + _f32(cd[:, i] ** 2))
+    acc = np.broadcast_to(-cn / 2, (len(x), len(c))).copy()
+    for kk in range(ks):
+        dims = [d for d in (_frag_dim(ks, kk, kf) for kf in range(8)) if d < s]
+        for a, b in ((xs, cb), (xb, cs), (xb, cb)):
+            for i in dims:
+                acc = _f32(acc + a[:, i, None] * b[None, :, i])
+    return acc
+
+
+@pytest.mark.parametrize("kind", ["uniform_1e4", "offset_1e3", "mirrored_duplicates", "integer"])
+@pytest.mark.parametrize("s", [1, 5, 16, 17, 64])
+def test_narrow_margin_holds_the_emulated_screen_to_its_derivation(s, kind):
+    """The narrow kernel (row 5 at s <= 64): its screen distance ``|x_p|^2 -
+    2 t_j`` within ``delta_p / 8`` of the plain distance, with the
+    ``narrow_margin`` the wrapper passes; and its decision rule on those
+    values gives the plain argmins, ties included.  The rule: centroid j
+    belongs to lane ``(j % 8) // 2`` of its point's quad; each lane keeps its
+    largest t (the first on ties) and its second largest; lim = the largest
+    t - delta_p / 2; the lanes at or above lim hold the candidates.  If a
+    lane's second largest is at or above lim too, every centroid is
+    re-checked; else one candidate is the argmin and several are re-checked
+    (the least (d, j)).  A large common offset re-checks nearly every
+    point."""
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign.kernel import narrow_margin
+
+    x, c = _adversarial(kind, s, seed=s + 1)
+    t = _narrow_screen_emulated(x, c)
+    d = sqdist_rowwise(T(x), T(c)).double().numpy()
+    nx = (x.astype(np.float64) ** 2).sum(1)
+    big = nx + (c.astype(np.float64) ** 2).sum(1).max()
+    delta = narrow_margin(s) * big
+    ratio = np.abs(nx[:, None] - 2 * t - d) / delta[:, None]
+    assert (ratio <= 1 / 8).all(), float(ratio.max())
+    lane = (np.arange(len(c)) % 8) // 2
+    got = np.empty(len(x), dtype=np.int64)
+    whole = 0
+    for p in range(len(x)):
+        lim = t[p].max() - delta[p] / 2
+        cands, unsettled = [], False
+        for q in range(4):
+            js = np.nonzero(lane == q)[0]
+            if not len(js):
+                continue
+            vals = t[p, js]
+            top = js[np.argmax(vals)]  # the first of the largest, as the kernel's strict >
+            if t[p, top] >= lim:
+                cands.append(top)
+            unsettled |= len(js) > 1 and np.sort(vals)[-2] >= lim
+        if unsettled:
+            whole += 1
+            got[p] = np.argmin(d[p])
+        else:
+            got[p] = min(cands, key=lambda j: (d[p, j], j))
+    want = kmeans_ops.kmeans_assign_batched(T(x)[None], T(c)[None], block_n=16).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    if kind == "offset_1e3" and s >= 16:
+        assert whole > 0.9 * len(x)
+
+
+# --------------------------------------------------------------------------
+# Rows 3-6 on NaN data: the plain versions against the Pallas kernels in
+# interpret mode.  torch.argmin and jnp.argmin both take the first NaN
+# distance (a NaN point goes to centroid 0, a NaN centroid takes every point
+# of its codebook); integer-valued finite entries, so both arithmetics are
+# exact elsewhere.
+# --------------------------------------------------------------------------
+
+
+def _nan_data(b, n, k, s, seed):
+    """``(x (b, n, s), c (b, k, s))`` integer-valued, with NaN entries:
+    codebook 0 has a NaN centroid, codebook 1 NaN points (every 7th), the
+    rest are clean."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-5, 6, size=(b, n, s)).astype(np.float32)
+    c = rng.integers(-5, 6, size=(b, k, s)).astype(np.float32)
+    c[0, k // 2, s - 1] = np.nan
+    x[1, ::7, 0] = np.nan
+    return x, c
+
+
+@pytest.mark.parametrize("row", [3, 4, 5, 6])
+def test_plain_versions_match_the_jax_kernels_on_nan_data(row):
+    b, n, k, s = 4, 300, 23, 5
+    x, c = _nan_data(b, n, k, s, seed=row)
+    jx, jc = jnp.asarray(x), jnp.asarray(c)
+    if row == 3:
+        ja, jsums, jcounts, jinertia = j_stats(jx, jc, bn=64, impl="pallas", interpret=True)
+        a, sums, counts, inertia = kmeans_ops.kmeans_stats(T(x), T(c), block_n=100,
+                                                           with_assign=True)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+        np.testing.assert_array_equal(inertia.numpy(), np.asarray(jinertia))
+        # a NaN point's coordinates reach every centroid's sums through the
+        # Pallas kernel's one-hot product (NaN * 0), and only its own here
+        keep = [i for i in range(b) if i != 1]
+        np.testing.assert_array_equal(sums.numpy()[keep], np.asarray(jsums)[keep])
+        assert (a.numpy()[0] == k // 2).all() and (a.numpy()[1, ::7] == 0).all()
+        assert np.isnan(inertia.numpy()[:2]).all()
+    elif row == 4:
+        ja, jcounts = j_pair_hist(jx, jc, bn=64, impl="pallas", interpret=True)
+        a, counts = kmeans_ops.kmeans_pair_assign_hist(T(x), T(c), block_n=100)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    elif row == 5:
+        want = j_assign_batched(jx, jc, bn=64, impl="pallas", interpret=True)
+        got = kmeans_ops.kmeans_assign_batched(T(x), T(c), block_n=100)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        for i in range(2):
+            want = j_assign(jnp.asarray(x[i]), jnp.asarray(c[i]), interpret=True)
+            got = kmeans_ops.kmeans_assign(T(x[i]), T(c[i]))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # --------------------------------------------------------------------------
 # Rows 3-5 at the shapes their wide variants take (s > 64, k*s past shared
 # memory), against the Pallas kernels in interpret mode.  Integer-valued
