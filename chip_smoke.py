@@ -47,14 +47,18 @@ route).  The screened assignment (rows 6 and 5-wide) is also
 held to its plain version on adversarial inputs, and at the IVF shapes its
 re-checks per point and its largest screen error over its margin (<= 0.25)
 are reported, and its best distances (row 3's wide variant reads them) must
-equal the plain minimum distance bit for bit.  Row 5's narrow kernel (a
-3xTF32 screen with the codebook resident) reports at PQ8x8's shape its
-re-checks per point and its largest screen error over its margin (<= 0.25),
-and its best distances must equal the plain minimum; rows 3-6, every variant
-the ops take, are held to their plain versions on NaN and inf data
-(torch.argmin's index, the first NaN distance).  Row 3 (the Lloyd statistics)
-is held at all three of its shapes (the build's, PQ8x8's and IVF1024's), and
-two launches must give equal bits at each.  Row 11 (linear attention) is
+equal the plain minimum distance bit for bit.  Row 4's narrow kernel (an
+FFMA screen with an exact re-check) reports at the build's shape its
+re-checked (point, half)s per point and its largest screen error over its
+margin (<= 0.25), and its outputs must keep the fingerprint they had before
+its redesign; its wide route is held at (2, 262,144, 128), k = 256.  Row
+5's narrow kernel (a 3xTF32 screen with the codebook resident) reports at
+PQ8x8's shape its re-checks per point and its largest screen error over its
+margin (<= 0.25), and its best distances must equal the plain minimum; rows
+3-6, every variant the ops take, are held to their plain versions on NaN
+and inf data (torch.argmin's index, the first NaN distance).  Row 3 (the
+Lloyd statistics) is held at all three of its shapes (the build's, PQ8x8's
+and IVF1024's), and two launches must give equal bits at each.  Row 11 (linear attention) is
 also held with every decay at the clip (1e-6) and with half of them at 1,
 at chunks 64 and 128, both shifts, and two launches at the RWKV6 prefill
 shape must give equal bits.  Row 9 (SC-Linear's SC-score kernel: a 3xTF32
@@ -99,6 +103,11 @@ FENCE = 4  # uncounted spin kernels at each end of a device_ms trace
 #: the SIMT kernel that row 10's register design replaced, by ``--seed`` (its
 #: ``time_sc_linear.py`` run): the redesign keeps its bits
 PARENT_PAIRWISE_FINGERPRINT = {0: -4702138040020805353}
+#: row 4's outputs (assign, cell_counts) at the build's shape (the main path's
+#: half-subspaces against its index's centroids) from the SIMT kernel that the
+#: FFMA screen replaced, by ``--seed`` (``tools/time_assign.py``'s
+#: ``pair_build`` on that tree): the redesign keeps its bits
+PARENT_PAIR_FINGERPRINT = {0: [1565341636113, 28001088876]}
 RETAKES = 10  # device_ms traces taken again, at most, for kernels the tracer lost
 SOURCES = {
     "sc_score_cells_prefilter_compact": (
@@ -389,7 +398,7 @@ def l2_route_inputs(dev, ns: int, sqrt_k: int, m: int, bc: int):
     return ranks, cuts, cells, thr
 
 
-def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int) -> dict:
+def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int, seed: int) -> dict:
     """Each kernel against its plain version on the same inputs, at the main
     path's shapes.  Integers must be equal; floats within the stated
     tolerance.  Returns per-kernel records for the ``kernels`` line."""
@@ -432,19 +441,32 @@ def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int) -> dict:
     )
 
     # kmeans_pair_assign_hist: the final assignment with the built centroids
+    # (the narrow route: an FFMA screen); its probe's re-checks and screen
+    # error; its outputs the parent's bits.  The bound counts the FFMA
+    # screen's 2 operations a (pair, dim) (one fused multiply-add gives the
+    # plain bits but for the rare re-check), the plain arithmetic's 3 beside
+    # it
     cents = torch.cat([index.centroids1, index.centroids2]).contiguous()
     got = kmeans_ops.kmeans_pair_assign_hist(both, cents, block_n=bn)
     want = kmeans_pair_assign_hist_ref(both, cents, block_n=bn)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("kmeans_pair_assign_hist differs from the plain version")
-    bms, by = bound(nbytes(both, cents, *got), 3.0 * b * n * k * s)
+    same_bits("kmeans_pair_assign_hist", got,
+              kmeans_ops.kmeans_pair_assign_hist(both, cents, block_n=bn))
+    prints, parent = [fingerprint(t) for t in got], PARENT_PAIR_FINGERPRINT.get(seed)
+    if parent not in (None, prints):
+        raise AssertionError("kmeans_pair_assign_hist's output differs from the parent tree's")
+    nb4 = nbytes(both, cents, *got)
+    bms, by = bound(nb4, 2.0 * b * n * k * s)
     out["kmeans_pair_assign_hist"] = dict(
         max_abs_err=0.0,
         **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(both, cents, block_n=bn), 10),
         plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(both, cents, block_n=bn), 2, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[b, n, s], k=k, block_n=bn,
-                    smem_bytes=4 * (2 * k * s + k * k)),  # both codebooks + histogram
+                    smem_bytes=kmeans_kernel.pair_smem_bytes(k, s),
+                    fp32_bound_ms=bound(nb4, 3.0 * b * n * k * s)[0], fingerprint=prints,
+                    parent_fingerprint=parent, **pair_probe(both, cents)),
     )
 
     # sc_score compact (row 1) on the fused batches' own inputs: each batch of
@@ -1133,6 +1155,53 @@ def narrow_probe(x, c, sample: int = 16_384) -> dict:
                 sampled_points=xs.shape[1], best_equal=True)
 
 
+def pair_probe(x, c, sample: int = 16_384) -> dict:
+    """Row 4's narrow kernel's instruments at one shape (``x: (2Ns, n, s)``,
+    ``c: (2Ns, k, s)``, s <= 64): its re-checked (point, half)s per point
+    and half over all n points (its outputs held to the plain version's),
+    and over the first ``sample`` points of every codebook and every
+    centroid the largest |(|x|^2 - 2 t) - d_plain| / delta_p of its screen
+    values t, which must be <= 0.25 (the margin allows 0.5)."""
+    import torch
+
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_pair_assign_hist_ref
+
+    b, n, s = x.shape
+    probe = kmeans_kernel.kmeans_pair_assign_hist_probe(x, c)
+    if not all(torch.equal(g, w) for g, w in zip(
+            probe[:2], kmeans_pair_assign_hist_ref(x, c, block_n=4096))):
+        raise AssertionError("the narrow pair kernel's probe differs from the plain version")
+    xs = x[:, :sample].contiguous()
+    small = kmeans_kernel.kmeans_pair_assign_hist_probe(xs, c, screen=True)
+    ratio = 0.0
+    for i in range(b):
+        nx = (xs[i].double() ** 2).sum(1)
+        big = nx + (c[i].double() ** 2).sum(1).max()
+        err = (nx[:, None] - 2 * small.screen[i].double() - sqdist_rowwise(xs[i], c[i]).double())
+        delta = kmeans_kernel.narrow_margin(s) * big
+        ratio = max(ratio, float((err.abs() / delta[:, None]).max()))
+    if not ratio <= 0.25:
+        raise AssertionError(f"pair screen error {ratio} of its margin, above 0.25")
+    return dict(rechecks_per_point=float(probe.rechecks.sum()) / (b * n),
+                max_screen_err_over_margin=ratio, margin_mu=kmeans_kernel.narrow_margin(s),
+                sampled_points=xs.shape[1])
+
+
+def pair_wide_inputs(data, seed: int):
+    """Row 4's wide shape: two 262,144-row halves of the data at full width,
+    ``(2, 262,144, 128)``, and 256 seeded random centroids of each (a
+    65,536-cell histogram, past shared memory)."""
+    import torch
+
+    from repro_torch.core.kmeans import init_random
+
+    rows = min(256 * IVF_K, data.shape[0] // 2)  # the IVF sample's size
+    halves = torch.stack([data[:rows], data[rows:2 * rows]])
+    return halves, init_random(halves, 256, torch.Generator().manual_seed(seed + 5))
+
+
 def assign_nan_inf(dev, seed: int, n: int = 20_011) -> dict:
     """Rows 3-6, every variant the ops take (narrow and wide for rows 3-5),
     against their plain versions on NaN and +-inf data: integer-valued
@@ -1178,7 +1247,7 @@ def assign_nan_inf(dev, seed: int, n: int = 20_011) -> dict:
                 for a_, b_ in zip(r3, want3):
                     torch.testing.assert_close(a_, b_, rtol=0, atol=0, equal_nan=True)
                 got[f"3_{v}"] = r3[0]
-                r4 = kmeans_kernel.kmeans_pair_assign_hist(x, c[:, :k4].contiguous(), bn, wide)
+                r4 = kmeans_kernel.kmeans_pair_assign_hist(x, c[:, :k4].contiguous(), wide)
                 if not all(torch.equal(a_, b_) for a_, b_ in zip(r4, want4)):
                     raise AssertionError(f"row 4 ({v}) differs from its plain version on {kind}")
                 got[f"4_{v}"] = r4[0]
@@ -1325,12 +1394,13 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
     want5w = kmeans_assign_batched_ref(x1, ivf.centroids[None], block_n=ivf_bn)
     if not torch.equal(ivf.assignments[None], want5w):
         raise AssertionError("kmeans_assign_batched (wide) differs from its plain version")
-    halves = torch.stack([data[:n_ivf], data[n_ivf:2 * n_ivf]])
-    c4 = km.init_random(halves, 256, torch.Generator().manual_seed(seed + 5))
+    halves, c4 = pair_wide_inputs(data, seed)
     got4 = kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn)
     if not all(torch.equal(g, w) for g, w in zip(
             got4, kmeans_pair_assign_hist_ref(halves, c4, block_n=ivf_bn))):
         raise AssertionError("kmeans_pair_assign_hist (wide) differs from its plain version")
+    same_bits("kmeans_pair_assign_hist (wide)", got4,
+              kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn))
     ivf_lists = torch.bincount(ivf.assignments.long(), minlength=k_ivf)
     emit(dict(phase="kmeans_library",
               pq=dict(codebooks=m_pq, k=k_pq, sub_dim=d // m_pq, iters=iters, block_n=bn,
@@ -1410,14 +1480,18 @@ def kmeans_library_phase(data, seed: int) -> tuple[dict, dict]:
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=list(xs.shape), k=k_pq, block_n=bn, equal_bits=True,
                     launches=stats_launches["pq"]))
-    bms, by = bound(nbytes(halves, c4, *got4), assign_ops(n_ivf, 256, d, 2))
+    # row 4 wide: its argmins are the screened kernel's, so its bound is
+    # theirs (3xTF32), the fp32 one kept beside it
+    nb4 = nbytes(halves, c4, *got4)
+    bms, by = tc_assign_bound(nb4, n_ivf, 256, d, 2)
     recs["kmeans_pair_assign_hist (wide)"] = dict(
         max_abs_err=0.0,
         **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(halves, c4, block_n=ivf_bn), 5),
         plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(halves, c4, block_n=ivf_bn), 1,
                          warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(shape=list(halves.shape), k=256, cells=256 * 256, block_n=ivf_bn))
+        detail=dict(shape=list(halves.shape), k=256, cells=256 * 256, block_n=ivf_bn,
+                    equal_bits=True, fp32_bound_ms=bound(nb4, assign_ops(n_ivf, 256, d, 2))[0]))
     return launches, recs
 
 
@@ -2113,7 +2187,7 @@ def main() -> int:
 
     # 9. each kernel against its plain version at its path's shapes
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
-    checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k)
+    checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k, args.seed)
     del both
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k),
                                       args.seed))
@@ -2142,8 +2216,9 @@ def main() -> int:
                          ms=rec_["ms"], call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
                          bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
                          library_ms=rec_["library_ms"]))
-        extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point", "rechecks_per_pair",
-                  "screen_err_over_margin", "equal_bits", "instantiations", "fingerprint",
+        extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point",
+                  "rechecks_per_pair", "screen_err_over_margin", "max_screen_err_over_margin",
+                  "equal_bits", "instantiations", "fingerprint",
                   "parent_fingerprint", "q", "tile", "bitmap_route", "smem_bytes", "l2_route",
                   "in_path")
         rows[-1].update({key: rec_["detail"][key] for key in extras

@@ -10,7 +10,9 @@
 //   TPU kernel weights padded points 0; here the grid covers exactly n points.)
 // * kmeans_pair_assign_hist_kernel (_pair_assign_hist_kernel): argmins of
 //   both halves of each subspace (codebooks i and Ns+i) and the IMI
-//   occupancy counts[i, a1*k + a2].
+//   occupancy counts[i, a1*k + a2].  At s <= 64 (the build's shape) an FFMA
+//   screen with an exact re-check (below); past that, the screened kernel's
+//   argmins of all 2 Ns codebooks, then kmeans_pair_hist_kernel.
 // * kmeans_assign_batched_kernel (kernel.py:93, pallas_call at :104,
 //   _batched_kernel): the argmin of every point against its own codebook,
 //   nothing else.
@@ -19,20 +21,21 @@
 //
 // The last two share kmeans_assign_streamed_kernel: kernel 6 at one
 // codebook, kernel 5 at its wide shapes (s > 64, or a codebook past shared
-// memory).  It is a tensor-core screen with an exact re-check (below).
-// Kernel 3's wide variant takes its argmins, and each point's exact best
-// distance d*, from it too.  Kernel 5 at s <= 64 is
-// kmeans_assign_narrow_kernel, a screen built for narrow shapes (below).
+// memory), kernel 4 at its wide shapes (all 2 Ns codebooks at once).  It is
+// a tensor-core screen with an exact re-check (below).  Kernel 3's wide
+// variant takes its argmins, and each point's exact best distance d*, from
+// it too.  Kernel 5 at s <= 64 is kmeans_assign_narrow_kernel, and kernel 4
+// at s <= 64 kmeans_pair_assign_hist_kernel, screens built for narrow
+// shapes (below).
 //
 // Every argmin here is torch.argmin's (and jnp.argmin's): the first NaN
 // distance wins, else the lowest index of the minimum.  A NaN distance
-// needs a coordinate that is not finite, so the narrow SIMT loops (rows 3,
-// 4) check their points and codebooks once and take the NaN-aware
-// comparison (takes<true>) only there: always on, it cost rows 3 / 4 up to
-// 2.4%, and a min.NaN minimum 3.3% (an H100; PERF.md).  The wide pair kernel
-// (no path) always takes it.  The screens re-check every centroid of a point
-// they do not cover (screen_covers) under a 64-bit key that orders NaN first
-// (dist_key).
+// needs a coordinate that is not finite, so the narrow SIMT loop (row 3)
+// checks its points and codebook once and takes the NaN-aware comparison
+// (takes<true>) only there: always on, it cost row 3 up to 1.7%, and a
+// min.NaN minimum 3.3% (an H100; PERF.md).  The screens re-check every
+// centroid of a point they do not cover (screen_covers) under a 64-bit key
+// that orders NaN first (dist_key).
 //
 // What bounds the SIMT kernels on an H100: operations.  Each (point,
 // centroid) pair costs 3*s fp32 operations (difference, square, sum) against
@@ -42,29 +45,15 @@
 // 128 lanes x 1.98 GHz), so no kernel built that way runs row 6 (1M x 128,
 // k = 1,024) below ~11.7 ms.
 //
-// The narrow variants of the first two take one codebook per grid row
-// (grid: points / block_n x codebooks); the codebook's centroids (both
-// halves' for the pair kernel) sit in shared memory, where every thread
-// reads the same centroid at once (a broadcast); each thread takes one
-// point (the stats kernel two for s <= 16), holds it in registers (at most
-// 64 dims) and scans the centroids in index order with a strict <, so ties
-// go to the lowest index as with jnp.argmin / torch.argmin (nearest(): a
+// The narrow stats kernel takes one codebook per grid row (grid: points /
+// block_n x codebooks); the codebook's centroids sit in shared memory, where
+// every thread reads the same centroid at once (a broadcast); each thread
+// takes one point (two for s <= 16), holds it in registers (at most 64
+// dims) and scans the centroids in index order with a strict <, so ties go
+// to the lowest index as with jnp.argmin / torch.argmin (nearest(): a
 // centroid read 16 bytes at a time when s is the instantiation's width).
-// These narrow instantiations (MAXS 4..64) take s <= 64 and a codebook that
-// fits in shared memory.  (Kernel 5's narrow variant is a screen of its own,
-// below.)
-//
-// Beside the stats and pair kernels sits a wide variant, which the op
-// wrapper picks for any other shape (s > 64, or k*s -- for the pair kernel
-// also k^2 -- past shared memory).  The wide pair kernel walks its chunk in
-// tiles of 256 points, one a thread, and finds each point's centroid with
-// nearest_streamed: the centroids stream through shared memory in tiles of
-// 32 centroids x 32 dims, a thread keeps 32 running sums in registers and
-// walks the dim slices in order, so each distance is still summed dim 0, 1,
-// ..., s-1 (padded dims add +0); tiles are visited in index order and a
-// later centroid wins only by takes<true>().  It adds its k^2 histogram
-// straight into device memory with integer atomics.  The wide stats variant
-// is described next.
+// These instantiations (MAXS 4..64) take s <= 64 and a codebook that fits in
+// shared memory; the wide variant, any other shape, is described next.
 //
 // Kernel 3, the Lloyd statistics: each point's coordinates are added once.
 //   Per chunk of block_n points (a partial row per centroid), sums[j, t] is
@@ -237,19 +226,89 @@
 //   to spare.  tests/test_torch_kmeans.py emulates this arithmetic in fp64
 //   and holds it to delta_p / 8.
 //
+// kmeans_pair_assign_hist_kernel: kernel 4 at s <= 64 with both codebooks
+//   and the k^2 histogram in shared memory (the SuCo build's final
+//   assignment: Ns = 8, n = 1M, s = 8, k = 50).
+//   What bounds it: the SMs' issue rate.  The plain arithmetic is 3 s
+//   instructions a (point, centroid) pair (no contraction): with the
+//   compare, the loop and the centroid's shared-memory reads ~31 at s = 8,
+//   ~0.74 ms for the build's 800 M pairs at 33.5 T instructions/s, against
+//   0.153 ms to read x once.  The screen issues under half of that (13.7
+//   instructions a pair in its SASS loop at s = 8, against the SIMT loop's
+//   30.3; tools/time_assign.py, PERF.md).
+//   Design: the block copies both codebooks into shared memory, rows padded
+//   with zeros to the instantiation's MAXS (4..64), and -||c_j||^2 / 2 per
+//   centroid (fp32, dim order).  A thread holds PTS points in registers (8
+//   at MAXS <= 8, 4 at 16, 2 at 32, 1 at 64: up to 64 coordinates, so one
+//   broadcast 16-byte read of a centroid serves them all; two 256-thread
+//   blocks an SM) and walks each codebook in index order, four centroids an
+//   iteration: t_j = x.c_j - ||c_j||^2 / 2 as a chain of MAXS fused
+//   multiply-adds started at -||c_j||^2 / 2 (the padded dims add exact
+//   zeros), then per point the largest t (m1, its first index j1) and the
+//   runner-up m2 (five instructions a pair: a compare, a select, three
+//   min / max).  ||x||^2 - 2 t_j is the screen distance, the largest t the
+//   nearest centroid.  With N_p = ||x||^2 + max_j ||c_j||^2 (fp32; each
+//   codebook's largest in the prologue, NaN taken as +inf) and lim = m1 -
+//   mu N_p / 2: m2 < lim settles the point at j1; a runner-up at or above
+//   lim (ties, equidistant centroids, data whose offset dwarfs its spread),
+//   or a point the screen does not cover (screen_covers: a coordinate of the
+//   point or its codebook not finite, or N_p out of range), joins the tile's
+//   queue in shared memory.  After the tile's screen (a barrier), each warp
+//   takes queued (point, half)s in turn and scans every centroid in the
+//   plain arithmetic, lanes over centroids j = lane, lane + 32, ..., the
+//   least dist_key of the warp winning: nearest_pts<..., NANS>'s answer
+//   (index order, strict <, lowest index on ties, the first NaN first), so
+//   the warp's lanes never wait on one lane's scan of a whole codebook.
+//   Then (a barrier) each point's two centroids go to assign and its cell
+//   a1 k + a2 into the block's shared histogram.  A tile is PTS x 256
+//   points; the grid is one wave (the card's resident blocks shared among
+//   the Ns subspaces), each block a run of whole tiles whatever block_n,
+//   so each block adds its histogram into counts once, at its end.
+//   Why it is exact: with a = ||x||^2 - 2 t (||x||^2 cancels from every
+//   comparison, so it is taken exact), let |a_j - d_plain(j)| <= E <=
+//   delta_p / 2 for every j and j* be the plain argmin.  Then a_j* <=
+//   d_plain(j*) + E <= d_plain(j1) + E <= a_j1 + 2 E, so t_j* >= m1 - E >=
+//   lim: if j* is not j1, the runner-up m2 >= t_j* >= lim and the point is
+//   re-checked; a point the screen settles has j1 = j*.
+//   The margin, first order in u N_p, any summation order: the plain sum 2
+//   (s + 2) (as above); ||c||^2 in fp32 s u ||c||^2, halved in t and doubled
+//   in a: s; the chain: s roundings of a partial sum |r| <= ||c||^2 / 2 +
+//   sum |x_i c_i| <= ||c||^2 + ||x||^2 / 2 <= N_p, each u |r|, doubled in a:
+//   2 s; together 5 s + 4.  narrow_margin() (E_s = (10 s + 20) u N_p, mu_s =
+//   8 E_s: delta_p = 8 E_s N_p) covers it with E <= delta_p / 16, twice the
+//   delta_p / 8 the screens above are held to; the second-order terms (s^2
+//   u^2) and lim's rounding (u |lim| <= u N_p in t) take a sliver of the
+//   rest.  No flush to zero (the library is built without -ftz), and the
+//   FFMA rounds once, as IEEE fused, so the bound holds on the card as
+//   derived.
+//   tests/test_torch_kmeans.py emulates this arithmetic in fp64 and holds it
+//   to delta_p / 8; the PROBE instantiation writes every t and each block's
+//   re-checked (point, half)s, and chip_smoke.py measures the card's
+//   largest |a - d_plain| / delta_p at the build's shape.
+//
+// kmeans_pair_hist_kernel: kernel 4's histogram past the narrow kernel (s >
+//   64, or its block past shared memory): the screened kernel gives the
+//   argmins of all 2 Ns codebooks in one launch (B = 2 Ns; its re-check
+//   makes them the plain version's), then each thread adds cells a1 k + a2
+//   of its points straight into counts with device-memory atomics.  A
+//   shared histogram flushed once a block was no faster where k^2 fits: at
+//   two blocks an SM a block sees about as many points as it would flush
+//   cells.
+//
 // No float atomics, so every result is the same from run to run.  The stats
 // kernels write per-block partial sums, counts and inertia in a fixed
 // order (above), and a second kernel reduces the partials over the blocks
-// in block order.  The pair kernel's histogram uses integer atomics in
-// shared memory and then in device memory, which are exact; the screened
+// in block order.  The pair kernels' histograms use integer atomics (the
+// narrow one's in shared memory, then in device memory), which are exact; the screened
 // kernel's key atomics take a minimum, which does not depend on their order.
 //
 // C entry points (each returns cudaGetLastError()):
 //   kmeans_stats(..., wide, mu, norms, best, stream),
-//   kmeans_pair_assign_hist(..., wide, stream),
+//   kmeans_pair_assign_hist(..., wide, mu, norms, rechecks, screen, stream),
 //   kmeans_assign_batched(..., wide, mu, norms, rechecks, screen, best, stream),
-//   kmeans_assign(..., mu, norms, assign, stream); kmeans_stats_smem_bytes and
-//   kmeans_assign_narrow_smem_bytes state the narrow blocks' shared memory.
+//   kmeans_assign(..., mu, norms, assign, stream); kmeans_stats_smem_bytes,
+//   kmeans_pair_smem_bytes and kmeans_assign_narrow_smem_bytes state the
+//   narrow blocks' shared memory.
 
 #include <algorithm>
 #include <cfloat>
@@ -602,102 +661,6 @@ kmeans_stats_reduce_kernel(const float* __restrict__ part_sums, const float* __r
     }
 }
 
-template <int MAXS>
-__global__ void __launch_bounds__(kThreads)
-kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
-                               const float* __restrict__ c,  // (2ns, k, s)
-                               int ns, int n, int k, int s, int block_n,
-                               int* __restrict__ assign,     // (2ns, n)
-                               int* __restrict__ counts)     // (ns, k*k), zeroed by the caller
-{
-    extern __shared__ __align__(16) float smem[];
-    float* c1 = smem;                                   // k*s
-    float* c2 = c1 + k * s;                             // k*s
-    int* hist = reinterpret_cast<int*>(c2 + k * s);     // k*k
-
-    const int i = blockIdx.y;
-    const int tid = threadIdx.x;
-    bool bad1 = false, bad2 = false;  // coordinates that are not finite
-    for (int u = tid; u < k * s; u += kThreads) {
-        c1[u] = c[(long long)i * k * s + u];
-        c2[u] = c[(long long)(ns + i) * k * s + u];
-        bad1 |= !isfinite(c1[u]);
-        bad2 |= !isfinite(c2[u]);
-    }
-    for (int u = tid; u < k * k; u += kThreads) hist[u] = 0;
-    const bool fin1 = !__syncthreads_or(bad1), fin2 = !__syncthreads_or(bad2);
-
-    const int start = blockIdx.x * block_n;
-    const int end = min(start + block_n, n);
-    for (int p = start + tid; p < end; p += kThreads) {
-        float xv[1][MAXS], best[1];
-        int a1[1], a2[1];
-        load_point<MAXS>(x + ((long long)i * n + p) * s, s, xv[0]);
-        nearest<MAXS, 1>(xv, c1, k, s, fin1 && points_finite(xv), a1, best);
-        load_point<MAXS>(x + ((long long)(ns + i) * n + p) * s, s, xv[0]);
-        nearest<MAXS, 1>(xv, c2, k, s, fin2 && points_finite(xv), a2, best);
-        assign[(long long)i * n + p] = a1[0];
-        assign[(long long)(ns + i) * n + p] = a2[0];
-        atomicAdd(&hist[a1[0] * k + a2[0]], 1);
-    }
-    __syncthreads();
-    for (int u = tid; u < k * k; u += kThreads)
-        if (hist[u]) atomicAdd(&counts[(long long)i * k * k + u], hist[u]);
-}
-
-constexpr int kTileK = 32;  // centroids per shared-memory tile of the wide pair kernel
-constexpr int kTileS = 32;  // dims per slice
-
-// Nearest centroid of one point of any width against a codebook of any size,
-// the centroids streamed through `cs` in tiles of kTileK centroids x kTileS
-// dims.  Every thread of the block calls it together (it synchronises); a
-// thread whose point is not live (`live` false) computes junk for row 0.
-// Distances are summed dim 0..s-1 in order, tiles are visited in index order
-// and a later centroid wins by takes(): the lowest index wins ties, the
-// first NaN distance wins over all.
-__device__ __forceinline__ int nearest_streamed(const float* __restrict__ row, bool live,
-                                                const float* __restrict__ c, int k, int s,
-                                                float (&cs)[kTileK][kTileS], float* best_out) {
-    const int tid = threadIdx.x;
-    float best = CUDART_INF_F;
-    int bi = 0;
-    for (int j0 = 0; j0 < k; j0 += kTileK) {
-        float acc[kTileK];
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) acc[j] = 0.f;
-        for (int d0 = 0; d0 < s; d0 += kTileS) {
-            __syncthreads();  // every thread is done with the previous slice
-            for (int u = tid; u < kTileK * kTileS; u += kThreads) {
-                const int j = u / kTileS;
-                const int t = u - j * kTileS;
-                cs[j][t] = (j0 + j < k && d0 + t < s) ? c[(long long)(j0 + j) * s + d0 + t] : 0.f;
-            }
-            __syncthreads();
-            float xv[kTileS];
-#pragma unroll
-            for (int t = 0; t < kTileS; ++t) xv[t] = (live && d0 + t < s) ? row[d0 + t] : 0.f;
-#pragma unroll
-            for (int j = 0; j < kTileK; ++j) {
-#pragma unroll
-                for (int t = 0; t < kTileS; ++t) {
-                    const float e = __fsub_rn(xv[t], cs[j][t]);
-                    acc[j] = __fadd_rn(acc[j], __fmul_rn(e, e));
-                }
-            }
-        }
-        const int jn = min(kTileK, k - j0);
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-            if (j < jn && takes<true>(acc[j], best)) {
-                best = acc[j];
-                bi = j0 + j;
-            }
-        }
-    }
-    *best_out = best;
-    return bi;
-}
-
 // ---- kernels 6 and 5-wide: a tensor-core screen with an exact re-check ----
 // (the design and the margin's derivation are in the header)
 
@@ -763,6 +726,10 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 __device__ __forceinline__ unsigned long long dist_key(float d, int j) {
     const unsigned hi = d != d ? 0u : __float_as_uint(d) + 1u;
     return (unsigned long long)hi << 32 | (unsigned)j;
+}
+
+__device__ __forceinline__ unsigned long long min_key(unsigned long long a, unsigned long long b) {
+    return a < b ? a : b;
 }
 
 // The distance a key holds.
@@ -1130,12 +1097,10 @@ int launch_assign_streamed(const float* x, const float* c, int B, int n, int k, 
 #undef REPRO_SCREENED
 }
 
-// ---- wide variants of kernels 3 and 4: any width s and any k -------------
-// Kernel 4's wide variant keeps the narrow grid (chunks of block_n points x
-// codebooks); a block walks its chunk in tiles of kThreads points, one a
-// thread, and finds each point's centroid with nearest_streamed.  Kernel
-// 5's wide variant is kmeans_assign_streamed_kernel above; kernel 3's takes
-// its argmins and d* from it, then kmeans_stats_wide_accumulate_kernel.
+// ---- wide variant of kernel 3: any width s and any k --------------------
+// Kernel 5's wide variant is kmeans_assign_streamed_kernel above; kernel 3's
+// takes its argmins and d* from it, then kmeans_stats_wide_accumulate_kernel.
+// (Kernel 4's wide variant, at the end, takes its argmins from it too.)
 
 constexpr int kSub = 4096;  // points the wide stats kernel ranks at once (a power of two)
 constexpr int kRowU = 8;    // rows a warp of the wide stats kernel keeps in flight
@@ -1287,38 +1252,6 @@ kmeans_stats_wide_accumulate_kernel(const float* __restrict__ x,       // (B, n,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-kmeans_pair_assign_hist_wide_kernel(const float* __restrict__ x,  // (2ns, n, s)
-                                    const float* __restrict__ c,  // (2ns, k, s)
-                                    int ns, int n, int k, int s, int block_n,
-                                    int* __restrict__ assign,     // (2ns, n)
-                                    int* __restrict__ counts)     // (ns, k*k), zeroed by the caller
-{
-    __shared__ float cs[kTileK][kTileS];
-    const int i = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int start = blockIdx.x * block_n;
-    const int end = min(start + block_n, n);
-    const float* c1 = c + (long long)i * k * s;
-    const float* c2 = c + (long long)(ns + i) * k * s;
-    for (int t0 = start; t0 < end; t0 += kThreads) {
-        const int p = t0 + tid;
-        const bool live = p < end;
-        const long long row = live ? p : start;
-        float best;
-        const int a1 = nearest_streamed(x + ((long long)i * n + row) * s, live, c1, k, s, cs, &best);
-        const int a2 = nearest_streamed(x + ((long long)(ns + i) * n + row) * s, live, c2, k, s, cs,
-                                        &best);
-        if (live) {
-            assign[(long long)i * n + p] = a1;
-            assign[(long long)(ns + i) * n + p] = a2;
-            // the k*k histogram need not fit in shared memory: integer adds
-            // in device memory, exact in any order
-            atomicAdd(&counts[(long long)i * k * k + (long long)a1 * k + a2], 1);
-        }
-    }
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
@@ -1379,18 +1312,6 @@ int launch_stats_wide(const float* x, const float* c, int B, int n, int k, int s
                                inertia, stream);
 }
 
-template <int MAXS>
-int launch_pair(const float* x, const float* c, int ns, int n, int k, int s, int block_n,
-                int* assign, int* counts, cudaStream_t stream) {
-    const int nblk = (n + block_n - 1) / block_n;
-    const size_t smem = sizeof(float) * 2 * (size_t)k * s + sizeof(int) * (size_t)k * k;
-    const cudaError_t e = allow_smem(kmeans_pair_assign_hist_kernel<MAXS>, smem);
-    if (e != cudaSuccess) return (int)e;
-    kmeans_pair_assign_hist_kernel<MAXS><<<dim3(nblk, ns), kThreads, smem, stream>>>(
-        x, c, ns, n, k, s, block_n, assign, counts);
-    return (int)cudaGetLastError();
-}
-
 // ---- kernel 5 narrow: a tensor-core screen with the codebook resident ----
 // (the design and its margin are in the header)
 
@@ -1421,10 +1342,6 @@ __host__ __device__ constexpr int narrow_mt(int ks) { return ks == 8 ? 1 : 2; }
 __host__ __device__ inline size_t narrow_smem_bytes(int k, int ks) {
     const size_t tiles = ((size_t)k + 15) / 16 * 2;
     return tiles * (sizeof(float4) * 32 * ks + sizeof(float) * 8);
-}
-
-__device__ __forceinline__ unsigned long long min_key(unsigned long long a, unsigned long long b) {
-    return a < b ? a : b;
 }
 
 // Nearest centroid of every point against its own codebook, s <= 64 and a
@@ -1723,6 +1640,257 @@ int launch_assign_narrow(const float* x, const float* c, int B, int n, int k, in
 }
 
 
+// ---- kernel 4: the build's paired assignment and the IMI histogram -------
+// (the design and its margin are in the header)
+
+// Points a thread of the narrow pair kernel takes a tile: 64 coordinates in
+// registers (at most 8 points), so that each centroid read from shared
+// memory serves them all and the loop's overhead is shared among them.
+__host__ __device__ constexpr int pair_pts(int maxs) { return maxs <= 8 ? 8 : 64 / maxs; }
+
+// The narrow pair kernel's instantiation (its padded width) at s <= 64.
+__host__ __device__ constexpr int pair_maxs(int s) {
+    return s <= 4 ? 4 : s <= 8 ? 8 : s <= 16 ? 16 : s <= 32 ? 32 : 64;
+}
+
+// Dynamic shared memory of a narrow pair block: both codebooks (rows of
+// maxs, zero-padded), -||c_j||^2 / 2 per centroid of each, the k*k
+// histogram, each of a tile's points' two centroids and the tile's re-check
+// queue (one (point, half) an entry).  The op wrapper reads it through
+// kmeans_pair_smem_bytes.
+__host__ __device__ inline size_t pair_smem_bytes(int k, int maxs) {
+    const size_t tile = (size_t)pair_pts(maxs) * kThreads;
+    return sizeof(float) * (2 * (size_t)k * maxs + 2 * (size_t)k) +
+           sizeof(int) * ((size_t)k * k + 4 * tile);
+}
+
+// The FFMA screen of PTS points in registers against one codebook in shared
+// memory (rows of MAXS, zero-padded; hn[j] = -||c_j||^2 / 2), in index
+// order: t_j = x.c_j - ||c_j||^2 / 2 as MAXS fused multiply-adds from hn[j];
+// per point the largest t (m1; j1 its first index) and the runner-up (m2).
+// PROBE: scr[q] (null for a dead point) takes point q's row of t.
+template <int MAXS, int PTS, bool PROBE>
+__device__ __forceinline__ void pair_screen(const float (&xv)[PTS][MAXS], const float* cs,
+                                            const float* hn, int k, float (&m1)[PTS],
+                                            float (&m2)[PTS], int (&j1)[PTS],
+                                            float* (&scr)[PTS]) {
+#pragma unroll
+    for (int q = 0; q < PTS; ++q) {
+        m1[q] = -CUDART_INF_F;
+        m2[q] = -CUDART_INF_F;
+        j1[q] = 0;
+    }
+#pragma unroll 4
+    for (int j = 0; j < k; ++j) {
+        const float4* cj = reinterpret_cast<const float4*>(cs + j * MAXS);
+        float t[PTS];
+        const float h = hn[j];
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) t[q] = h;
+#pragma unroll
+        for (int t4 = 0; t4 < MAXS / 4; ++t4) {
+            const float4 cv = cj[t4];
+#pragma unroll
+            for (int q = 0; q < PTS; ++q) {
+                t[q] = __fmaf_rn(xv[q][4 * t4], cv.x, t[q]);
+                t[q] = __fmaf_rn(xv[q][4 * t4 + 1], cv.y, t[q]);
+                t[q] = __fmaf_rn(xv[q][4 * t4 + 2], cv.z, t[q]);
+                t[q] = __fmaf_rn(xv[q][4 * t4 + 3], cv.w, t[q]);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            const bool up = t[q] > m1[q];
+            m2[q] = fmaxf(m2[q], fminf(t[q], m1[q]));
+            m1[q] = fmaxf(m1[q], t[q]);
+            j1[q] = up ? j : j1[q];
+            if (PROBE && scr[q]) scr[q][j] = t[q];
+        }
+    }
+}
+
+// Both halves' argmins of each point and the IMI histogram, s <= 64, both
+// codebooks and the k*k histogram in shared memory, bit-equal to the plain
+// version (grid: chunks of whole tiles x subspaces; counts zeroed by the
+// caller).  Per tile of PTS * kThreads points (a thread's points kThreads
+// apart): each half's FFMA screen settles a point at its j1, or queues it;
+// the warps re-check the queue in the plain arithmetic; then each point's
+// two centroids go to assign and its cell to the shared histogram, which
+// the block adds into counts once at its end.  PROBE: rechecks takes each
+// block's re-checked (point, half)s, screen (if not null) every t.
+template <int MAXS, bool PROBE>
+__global__ void __launch_bounds__(kThreads)
+kmeans_pair_assign_hist_kernel(const float* __restrict__ x,  // (2ns, n, s)
+                               const float* __restrict__ c,  // (2ns, k, s)
+                               int ns, int n, int k, int s, int chunk, float mu,
+                               int* __restrict__ assign,     // (2ns, n)
+                               int* __restrict__ counts,     // (ns, k*k)
+                               int* __restrict__ rechecks,   // (ns, blocks) if PROBE
+                               float* __restrict__ screen)   // (2ns, n, k) or null, if PROBE
+{
+    constexpr int PTS = pair_pts(MAXS);
+    constexpr int kTile = PTS * kThreads;
+    extern __shared__ __align__(16) float smem[];
+    float* cs = smem;                                // [2][k][MAXS]
+    float* hn = cs + 2 * k * MAXS;                   // [2][k]: -||c_j||^2 / 2
+    int* hist = reinterpret_cast<int*>(hn + 2 * k);  // [k*k]
+    int* sel = hist + k * k;                         // [2][kTile]: each point's centroid
+    int* queue = sel + 2 * kTile;                    // [2 * kTile]: 2 * point + half
+    __shared__ unsigned cmax_bits[2];  // each codebook's largest ||c||^2 (NaN: +inf)
+    __shared__ int qn[2];              // the queue's length, by the tile's parity
+
+    const int i = blockIdx.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long half0 = (long long)i * n, half1 = (long long)(ns + i) * n;  // first rows
+    if (tid < 2) {
+        cmax_bits[tid] = 0u;
+        qn[tid] = 0;
+    }
+    for (int u = tid; u < 2 * k * MAXS; u += kThreads) {
+        const int r = u / MAXS, t = u - r * MAXS;  // r = h * k + j
+        const int h = r / k, j = r - h * k;
+        cs[u] = t < s ? c[((long long)(h ? ns + i : i) * k + j) * s + t] : 0.f;
+    }
+    for (int u = tid; u < k * k; u += kThreads) hist[u] = 0;
+    __syncthreads();
+    for (int r = tid; r < 2 * k; r += kThreads) {
+        const float* row = cs + r * MAXS;
+        float a = 0.f;
+        for (int t = 0; t < s; ++t) a = __fadd_rn(a, __fmul_rn(row[t], row[t]));
+        hn[r] = -0.5f * a;
+        atomicMax(&cmax_bits[r / k], __float_as_uint(a != a ? CUDART_INF_F : a));
+    }
+    __syncthreads();
+    const float hmu = 0.5f * mu;
+
+    int nre = 0;
+    const int start = blockIdx.x * chunk, end = min(start + chunk, n);
+    for (int t0 = start, par = 0; t0 < end; t0 += kTile, par ^= 1) {
+#pragma unroll 1
+        for (int h = 0; h < 2; ++h) {
+            const long long r0 = h ? half1 : half0;
+            float xv[PTS][MAXS], nx[PTS], m1[PTS], m2[PTS];
+            float* scr[PTS];
+            int j1[PTS];
+#pragma unroll
+            for (int q = 0; q < PTS; ++q) {
+                const int p = t0 + q * kThreads + tid;
+                if (p < end) {
+                    load_point<MAXS>(x + (r0 + p) * s, s, xv[q]);
+                } else {
+#pragma unroll
+                    for (int t = 0; t < MAXS; ++t) xv[q][t] = 0.f;
+                }
+                float sq = 0.f;  // any order: it sets only the margin
+#pragma unroll
+                for (int t = 0; t < MAXS; ++t) sq = __fmaf_rn(xv[q][t], xv[q][t], sq);
+                nx[q] = sq;
+                scr[q] = PROBE && screen && p < end ? screen + (r0 + p) * k : nullptr;
+            }
+            pair_screen<MAXS, PTS, PROBE>(xv, cs + h * k * MAXS, hn + h * k, k, m1, m2, j1, scr);
+            const float cmax = __uint_as_float(cmax_bits[h]);
+#pragma unroll
+            for (int q = 0; q < PTS; ++q) {
+                const int at = q * kThreads + tid;
+                if (t0 + at >= end) continue;
+                const float np = __fadd_rn(nx[q], cmax);
+                if (screen_covers(np) && !(m2[q] >= m1[q] - hmu * np))
+                    sel[h * kTile + at] = j1[q];
+                else
+                    queue[atomicAdd(&qn[par], 1)] = 2 * at + h;
+            }
+        }
+        __syncthreads();
+        if (tid == 0) qn[par ^ 1] = 0;  // the next tile's; last read before this tile began
+        const int nq = qn[par];
+        // the queue: every centroid of each queued (point, half), by a warp
+        for (int e = warp; e < nq; e += kWarps) {
+            const int at = queue[e] >> 1, h = queue[e] & 1;
+            const float* xr = x + ((h ? half1 : half0) + t0 + at) * s;
+            const float* ch = cs + h * k * MAXS;
+            unsigned long long key = ~0ull;
+            for (int j = lane; j < k; j += 32)
+                key = min_key(key, dist_key(plain_dist<1>(xr, ch + j * MAXS, s), j));
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1)
+                key = min_key(key, __shfl_xor_sync(0xffffffffu, key, o));
+            if (lane == 0) sel[h * kTile + at] = (int)(unsigned)(key & 0xffffffffu);
+        }
+        nre += nq;
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < PTS; ++q) {
+            const int at = q * kThreads + tid, p = t0 + at;
+            if (p >= end) continue;
+            const int a1 = sel[at], a2 = sel[kTile + at];
+            assign[half0 + p] = a1;
+            assign[half1 + p] = a2;
+            atomicAdd(&hist[a1 * k + a2], 1);
+        }
+    }
+    __syncthreads();
+    for (int u = tid; u < k * k; u += kThreads)
+        if (hist[u]) atomicAdd(&counts[(long long)i * k * k + u], hist[u]);
+    if (PROBE && rechecks && tid == 0) rechecks[(long long)i * gridDim.x + blockIdx.x] = nre;
+}
+
+template <int MAXS, bool PROBE>
+int launch_pair_v(const float* x, const float* c, int ns, int n, int k, int s, float mu,
+                  int* assign, int* counts, int* rechecks, float* screen, cudaStream_t stream) {
+    constexpr long long kTile = pair_pts(MAXS) * kThreads;
+    auto kern = kmeans_pair_assign_hist_kernel<MAXS, PROBE>;
+    const size_t smem = pair_smem_bytes(k, MAXS);
+    cudaError_t e = allow_smem(kern, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    // one wave: the card's resident blocks shared among the subspaces, each
+    // block a run of whole tiles
+    const long long tiles = (n + kTile - 1) / kTile;
+    const long long slots = (long long)sms * std::max(per_sm, 1);
+    const long long per_sub = std::max(1LL, std::min(tiles, (slots + ns - 1) / ns));
+    const long long chunk = (tiles + per_sub - 1) / per_sub * kTile;
+    kern<<<dim3((unsigned)((n + chunk - 1) / chunk), ns), kThreads, smem, stream>>>(
+        x, c, ns, n, k, s, (int)chunk, mu, assign, counts, rechecks, screen);
+    return (int)cudaGetLastError();
+}
+
+// The IMI histogram from the argmins of both halves (assign (2ns, n)):
+// cells a1 * k + a2 of each subspace into counts (zeroed by the caller)
+// with device-memory atomics (grid: blocks x subspaces).
+__global__ void __launch_bounds__(kThreads)
+kmeans_pair_hist_kernel(const int* __restrict__ assign, int ns, int n, int k,
+                        int* __restrict__ counts) {
+    const int i = blockIdx.y;
+    int* out = counts + i * (long long)k * k;
+    const int* a1 = assign + (long long)i * n;
+    const int* a2 = assign + (long long)(ns + i) * n;
+    for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < n;
+         p += (long long)gridDim.x * kThreads)
+        atomicAdd(&out[(long long)a1[p] * k + a2[p]], 1);
+}
+
+// Kernel 4 past the narrow kernel: the screened kernel's argmins of all 2ns
+// codebooks (mu: kernel.screen_margin; norms 2ns*k + 2ns floats of
+// scratch), then the histogram, two blocks an SM over the subspaces.
+int launch_pair_wide(const float* x, const float* c, int ns, int n, int k, int s, float mu,
+                     float* norms, int* assign, int* counts, cudaStream_t stream) {
+    int e = launch_assign_streamed(x, c, 2 * ns, n, k, s, mu, norms, assign, nullptr, nullptr,
+                                   nullptr, stream);
+    if (e != (int)cudaSuccess) return e;
+    int dev = 0, sms = 0;
+    cudaError_t ce = cudaGetDevice(&dev);
+    if (ce == cudaSuccess) ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (ce != cudaSuccess) return (int)ce;
+    const long long need = ((long long)n + kThreads - 1) / kThreads;
+    const dim3 grid((unsigned)std::min<long long>(need, std::max(1, 2 * sms / ns)), ns);
+    kmeans_pair_hist_kernel<<<grid, kThreads, 0, stream>>>(assign, ns, n, k, counts);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* repro_cuda_error_string(int code) {
@@ -1761,22 +1929,36 @@ extern "C" int kmeans_stats(const float* x, const float* c, int B, int n, int k,
     return (int)cudaErrorInvalidValue;
 }
 
+// Shared memory of a narrow pair block at (k, s <= 64), in bytes (at most
+// INT_MAX): the op wrapper takes the wide variant past the card's limit.
+extern "C" int kmeans_pair_smem_bytes(int k, int s) {
+    return (int)std::min<size_t>(pair_smem_bytes(k, pair_maxs(s)), INT_MAX);
+}
+
+// `wide` (chosen by the op wrapper from the shape): the screened kernel's
+// argmins and the histogram kernel (mu: kernel.screen_margin; norms 2ns*k +
+// 2ns floats of scratch); otherwise the FFMA screen at s <= 64 (mu:
+// kernel.narrow_margin), its PROBE instantiation when rechecks or screen is
+// not null.  counts zeroed by the caller.
 extern "C" int kmeans_pair_assign_hist(const float* x, const float* c, int ns, int n, int k, int s,
-                                       int block_n, int* assign, int* counts, int wide,
-                                       void* stream) {
+                                       int* assign, int* counts, int wide, float mu, float* norms,
+                                       int* rechecks, float* screen, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (wide) {
-        const int nblk = (n + block_n - 1) / block_n;
-        kmeans_pair_assign_hist_wide_kernel<<<dim3(nblk, ns), kThreads, 0, st>>>(
-            x, c, ns, n, k, s, block_n, assign, counts);
-        return (int)cudaGetLastError();
+    if (wide) return launch_pair_wide(x, c, ns, n, k, s, mu, norms, assign, counts, st);
+    if (s > 64) return (int)cudaErrorInvalidValue;
+    const bool probe = rechecks || screen;
+#define REPRO_PAIR(M)                                                                           \
+    return probe ? launch_pair_v<M, true>(x, c, ns, n, k, s, mu, assign, counts, rechecks,      \
+                                          screen, st)                                           \
+                 : launch_pair_v<M, false>(x, c, ns, n, k, s, mu, assign, counts, rechecks,     \
+                                           screen, st)
+    switch (pair_maxs(s)) {
+        case 4: REPRO_PAIR(4);
+        case 8: REPRO_PAIR(8);
+        case 16: REPRO_PAIR(16);
+        case 32: REPRO_PAIR(32);
+        default: REPRO_PAIR(64);
     }
-#define REPRO_PAIR(M) return launch_pair<M>(x, c, ns, n, k, s, block_n, assign, counts, st)
-    if (s <= 4) REPRO_PAIR(4);
-    if (s <= 8) REPRO_PAIR(8);
-    if (s <= 16) REPRO_PAIR(16);
-    if (s <= 32) REPRO_PAIR(32);
-    if (s <= 64) REPRO_PAIR(64);
 #undef REPRO_PAIR
     return (int)cudaErrorInvalidValue;
 }

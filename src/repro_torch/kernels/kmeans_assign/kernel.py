@@ -1,23 +1,28 @@
 """Launches of the CUDA kernels ``csrc/kmeans_assign.cu``, which replace the
 four TPU kernels of ``repro/kernels/kmeans_assign/kernel.py``:
-``kmeans_stats_kernel`` and ``kmeans_pair_assign_hist_kernel`` (grid: chunks
-of ``block_n`` points x codebooks; narrow: the codebook's centroids in
-shared memory, one or two points per thread in registers; ``wide``: the
-centroids streamed through shared memory, for any width and any ``k``),
+``kmeans_stats_kernel`` (grid: chunks of ``block_n`` points x codebooks;
+narrow: the codebook's centroids in shared memory, one or two points per
+thread in registers; ``wide``: see below), ``kmeans_pair_assign_hist_kernel``,
 ``kmeans_assign_batched_kernel`` and ``kmeans_assign_kernel`` (one problem
-of any width and any ``k``).  The fourth and the wide batched assignment
-are one CUDA kernel, ``kmeans_assign_streamed_kernel``, at one codebook and
-at ``B``: a 3xTF32 tensor-core screen whose candidates within the margin
+of any width and any ``k``).  The fourth, the wide batched assignment and
+the wide pair assignment are one CUDA kernel,
+``kmeans_assign_streamed_kernel``, at one codebook, at ``B`` and at ``2Ns``:
+a 3xTF32 tensor-core screen whose candidates within the margin
 :func:`screen_margin` are re-checked in the plain arithmetic, so its argmins
-are the plain version's bit for bit (see the source's header).  The narrow
-batched assignment (``s <= 64``, the split codebook in shared memory) is
-``kmeans_assign_narrow_kernel``: a 3xTF32 screen too, with the codebook
+are the plain version's bit for bit (see the source's header); the wide
+pair assignment then adds its cells with ``kmeans_pair_hist_kernel``.  The
+narrow batched assignment (``s <= 64``, the split codebook in shared memory)
+is ``kmeans_assign_narrow_kernel``: a 3xTF32 screen too, with the codebook
 resident and the points' fragments in registers, its margin
-:func:`narrow_margin`; its blocks take their own chunks of points, whatever
-``block_n``.  The wide statistics take their argmins, and each point's
-exact best distance, from the streamed kernel, then add each point once in
-(centroid, index) order, as the narrow statistics kernel does: both give
-the same bits.
+:func:`narrow_margin`.  The narrow pair assignment (``s <= 64``, both
+codebooks and the ``k^2`` histogram in shared memory) is
+``kmeans_pair_assign_hist_kernel``: an FFMA screen, points in registers,
+whose points with a runner-up within :func:`narrow_margin` are re-checked
+in the plain arithmetic.  The narrow and wide assignment kernels' blocks
+take their own chunks of points, whatever ``block_n``.  The wide statistics
+take their argmins, and each point's exact best distance, from the
+streamed kernel, then add each point once in (centroid, index) order, as
+the narrow statistics kernel does: both give the same bits.
 
 The op wrappers (:mod:`.ops`) have checked every argument; this module
 allocates outputs and scratch, launches on the current stream and raises on
@@ -26,7 +31,7 @@ any CUDA error.  ``stats_launches``, ``pair_hist_launches``,
 :func:`kmeans_assign_probe` is the screened kernel with its instruments on
 (re-checks per block, the screen's distances, each point's best distance),
 for the checks only; :func:`kmeans_assign_narrow_probe` is the narrow
-kernel's.
+kernel's and :func:`kmeans_pair_assign_hist_probe` the narrow pair kernel's.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ assign_launches = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
 _STATS_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P]
-_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P]
+_PAIR_ARGTYPES = [_P, _P, _I, _I, _I, _I, _P, _P, _I, _F, _P, _P, _P, _P]
 _ASSIGN_BATCHED_ARGTYPES = [_P, _P, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P]
 _ASSIGN_ARGTYPES = [_P, _P, _I, _I, _I, _F, _P, _P, _P]
 _U = 2.0**-24  # unit roundoff of fp32
@@ -75,7 +80,10 @@ def narrow_margin(s: int) -> float:
     at ``-|c_j|^2 / 2``, so ``3 s + 1`` terms of absolute sum up to ``N_p``
     are added (9.006 s + 16 at first order; the header of
     ``csrc/kmeans_assign.cu`` derives it).  ``mu_s = 8 E_s``, as in
-    :func:`screen_margin`."""
+    :func:`screen_margin`.  The narrow pair kernel's FFMA screen (``t_j`` a
+    chain of ``s`` fused multiply-adds from ``-|c_j|^2 / 2``) takes the same
+    margin: its error is 5 s + 4 at first order (derived in the same
+    header), half of ``E_s``."""
     return 8.0 * (10 * s + 20) * _U
 
 
@@ -84,6 +92,14 @@ def narrow_smem_bytes(k: int, s: int) -> int:
     bytes, as the source lays it out (the split codebook and the centroids'
     norms; at most 2^31 - 1); builds the library if needed."""
     return _build.entry("kmeans_assign", "kmeans_assign_narrow_smem_bytes", [_I, _I])(k, s)
+
+
+def pair_smem_bytes(k: int, s: int) -> int:
+    """Shared memory of a narrow pair block at ``(k, s <= 64)``, in bytes, as
+    the source lays it out (both codebooks, their norms, the ``k^2``
+    histogram and a tile's bookkeeping; at most 2^31 - 1); builds the library
+    if needed."""
+    return _build.entry("kmeans_assign", "kmeans_pair_smem_bytes", [_I, _I])(k, s)
 
 
 def stats_smem_bytes(k: int, s: int) -> int:
@@ -131,9 +147,7 @@ def kmeans_stats(
     return (assign if with_assign else None), sums, counts, inertia
 
 
-def kmeans_pair_assign_hist(
-    x: torch.Tensor, centroids: torch.Tensor, block_n: int, wide: bool
-) -> tuple[torch.Tensor, torch.Tensor]:
+def _pair(x, centroids, wide, rechecks=None, screen=None) -> tuple[torch.Tensor, torch.Tensor]:
     global pair_hist_launches
     b, n, s = x.shape
     k = centroids.shape[1]
@@ -141,16 +155,53 @@ def kmeans_pair_assign_hist(
     dev = x.device
     assign = torch.empty((b, n), dtype=torch.int32, device=dev)
     counts = torch.zeros((ns, k * k), dtype=torch.int32, device=dev)
+    # the wide route's scratch: every |c|^2, then each codebook's largest
+    norms = torch.empty((b * k + b,), dtype=torch.float32, device=dev) if wide else None
     fn = _build.entry("kmeans_assign", "kmeans_pair_assign_hist", _PAIR_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(
-            x.data_ptr(), centroids.data_ptr(), ns, n, k, s, block_n,
-            assign.data_ptr(), counts.data_ptr(), int(wide),
+            x.data_ptr(), centroids.data_ptr(), ns, n, k, s, assign.data_ptr(),
+            counts.data_ptr(), int(wide), screen_margin(s) if wide else narrow_margin(s),
+            None if norms is None else norms.data_ptr(),
+            None if rechecks is None else rechecks.data_ptr(),
+            None if screen is None else screen.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check("kmeans_assign", rc, "kmeans_pair_assign_hist")
     pair_hist_launches += 1
     return assign, counts
+
+
+def kmeans_pair_assign_hist(
+    x: torch.Tensor, centroids: torch.Tensor, wide: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return _pair(x, centroids, wide)
+
+
+class PairProbe(NamedTuple):
+    assign: torch.Tensor  # (2Ns, n) int32
+    counts: torch.Tensor  # (Ns, k*k) int32
+    rechecks: torch.Tensor  # (Ns * blocks,) int32: re-checked (point, half)s per block
+    screen: torch.Tensor | None  # (2Ns, n, k) f32: every t, if asked
+
+
+def kmeans_pair_assign_hist_probe(
+    x: torch.Tensor, centroids: torch.Tensor, *, screen: bool = False
+) -> PairProbe:
+    """The narrow pair kernel (``s <= 64``, its block within shared memory)
+    on ``x: (2Ns, n, s)``, ``centroids: (2Ns, k, s)`` with its instruments
+    on: each block's re-checked (point, half)s (a point the screen does not
+    settle is scanned over every centroid), and with ``screen`` every screen
+    value ``t_j = x.c_j - |c_j|^2 / 2`` (the screen distance is ``|x|^2 -
+    2 t_j``).  For the checks only."""
+    b, n, _ = x.shape
+    k = centroids.shape[1]
+    dev = x.device
+    # the blocks take whole tiles of at least 256 points: room for every block
+    rechecks = torch.zeros((b // 2 * -(-n // 256),), dtype=torch.int32, device=dev)
+    out = torch.empty((b, n, k), dtype=torch.float32, device=dev) if screen else None
+    assign, counts = _pair(x, centroids, False, rechecks, out)
+    return PairProbe(assign, counts, rechecks, out)
 
 
 def _batched(x, centroids, wide, rechecks=None, screen=None, best=None) -> torch.Tensor:

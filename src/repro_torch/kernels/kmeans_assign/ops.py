@@ -10,17 +10,20 @@ the points each block of the kernel takes.
 
 Every op takes any width ``s`` and any ``k``, as the JAX package's do.  The
 batched kernels come in two variants, chosen here by shape: the narrow one
-holds a point in registers (``s <= MAX_DIM``) and the codebook in shared
-memory (:func:`_fits`, at the size the source states); the wide one streams
-the centroids through shared memory for any other shape (the batched
+holds a point in registers (``s <= MAX_DIM``) and the codebook (the pair
+assignment: both codebooks and the ``k^2`` histogram) in shared memory
+(:func:`_fits`, at the size the source states); the wide one streams the
+centroids through shared memory for any other shape (the batched
 assignment also past 32 dims where two narrow blocks do not fit an SM, as
-it is faster there).  Both give the same results.  Both assignment variants, and :func:`kmeans_assign`'s kernel
-(the wide one), rank the centroids on the tensor cores and re-check every
-one within their margin in the plain arithmetic, so they give the plain
-version's argmins bit for bit; their blocks take chunks of their own size
-whatever ``block_n``.  The wide statistics take their argmins from the wide
-assignment and add each chunk's points in the narrow kernel's order: the
-same bits as the narrow statistics.
+it is faster there).  Both give the same results.  Every assignment
+variant, and :func:`kmeans_assign`'s kernel (the wide one), screens the
+centroids -- on the tensor cores, or with fused multiply-adds for the
+narrow pair assignment -- and re-checks in the plain arithmetic every one
+its margin does not rule out, so they give the plain version's argmins bit
+for bit; their blocks take chunks of their own size whatever ``block_n``.
+The wide statistics take their argmins from the wide assignment and add
+each chunk's points in the narrow kernel's order: the same bits as the
+narrow statistics.
 """
 
 from __future__ import annotations
@@ -107,9 +110,9 @@ def kmeans_pair_assign_hist(
     if x.device.type == "cpu":
         return kmeans_pair_assign_hist_ref(x, centroids, block_n=block_n)
     if x.device.type == "cuda":
-        # both codebooks and the k*k histogram in shared memory
-        wide = not _fits(s, 4 * (2 * k * s + k * k))
-        return kernel.kmeans_pair_assign_hist(x, centroids, block_n, wide)
+        # both codebooks and the k*k histogram, as the source lays them out
+        wide = not _fits(s, kernel.pair_smem_bytes(k, s))
+        return kernel.kmeans_pair_assign_hist(x, centroids, wide)
     raise ValueError(f"no kmeans_pair_assign_hist route for device {x.device}")
 
 

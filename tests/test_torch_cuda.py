@@ -265,6 +265,101 @@ def test_wide_pair_assign_hist_kernel_equals_plain(dev, s, k):
         assert torch.equal(a.cpu(), b)
 
 
+#: row 4's narrow kernel at each instantiation's width (s = 1, 3: MAXS 4;
+#: 8; 16; 17, 32: MAXS 32; 64) and k from one centroid to 128
+PAIR_SHAPES = [(s, k) for s in (1, 3, 8, 16, 17, 32, 64) for k in (1, 2, 50, 128)]
+
+
+@pytest.mark.parametrize("s,k", PAIR_SHAPES)
+def test_narrow_pair_kernel_equals_plain(dev, s, k):
+    """Row 4's FFMA screen (the op's narrow route at these shapes) against
+    the plain version: n = 20,011 off every tile and chunk, the plain
+    version's chunks an odd block_n (999); two launches give equal bits and
+    the histogram counts every point once."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    assert kmeans_ops._fits(s, kmeans_kernel.pair_smem_bytes(k, s))
+    x, c = (a.to(dev) for a in _blobs(40 + s, 6, 20_011, k, s))
+    before = kernels.launch_counts()["kmeans_pair_assign_hist"]
+    got = kmeans_ops.kmeans_pair_assign_hist(x, c, block_n=999)
+    again = kmeans_ops.kmeans_pair_assign_hist(x, c, block_n=999)
+    want = kmeans_pair_assign_hist_ref(x, c, block_n=999)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["kmeans_pair_assign_hist"] == before + 2
+    assert all(torch.equal(g, w) and torch.equal(a, g) for g, a, w in zip(got, again, want))
+    assert int(got[1].sum()) == 3 * 20_011
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("kind", ["duplicates", "mirrored", "integer", "offset", "one", "ragged",
+                                  "unaligned"])
+def test_pair_kernels_equal_plain_on_adversarial_data(dev, kind, wide):
+    """Row 4, both routes forced, on the screened kernels' adversarial cases
+    (at most 64 dims and 128 centroids, so the narrow route takes them all)
+    in the pair layout (the case, then its rows and centroids reversed, as
+    the two halves): exact ties, equidistant pairs, integer data, a large
+    common offset (every (point, half) re-checked on the narrow route),
+    n = k = s = 1, ragged shapes; two launches give equal bits.  The narrow
+    route's probe: the same outputs, every screen value within a quarter of
+    its margin, re-checks per (point, half) in [0, 1]."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = _screen_case(kind, _gen(42))
+    x, c = x[:, :64], c[:128, :64]
+    xs, cs = torch.stack([x, x.flip(0)]), torch.stack([c, c.flip(0)])
+    want = kmeans_pair_assign_hist_ref(xs, cs, block_n=4096)
+    xd, cd = xs.to(dev), cs.to(dev)
+    got = kmeans_kernel.kmeans_pair_assign_hist(xd, cd, wide)
+    again = kmeans_kernel.kmeans_pair_assign_hist(xd, cd, wide)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) and torch.equal(a, g) for g, a, w in zip(got, again, want))
+    if wide:
+        return
+    probe = kmeans_kernel.kmeans_pair_assign_hist_probe(xd, cd, screen=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(probe[:2], want))
+    for h in range(2):
+        _screen_within_quarter(probe.screen[h].cpu(), xs[h], cs[h],
+                               kmeans_kernel.narrow_margin(x.shape[1]))
+    per_point = int(probe.rechecks.sum()) / (2 * x.shape[0])
+    assert 0 <= per_point <= 1
+    if kind == "offset":
+        assert per_point >= 0.9
+
+
+@pytest.mark.parametrize("s,k", [(8, 50), (16, 128), (3, 7), (64, 50), (1, 2), (17, 50),
+                                 (32, 128)])
+def test_pair_probe_holds_its_margin(dev, s, k):
+    """Row 4's narrow kernel's probe on clustered data: its outputs the
+    plain version's and the op's, every screen value within a quarter of its
+    margin, and re-checked (point, half)s in [0, 2 Ns n]."""
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+
+    x, c = (a.to(dev) for a in _blobs(33, 4, 5_003, k, s))
+    probe = kmeans_kernel.kmeans_pair_assign_hist_probe(x, c, screen=True)
+    want = kmeans_pair_assign_hist_ref(x, c, block_n=4096)
+    op = kmeans_ops.kmeans_pair_assign_hist(x, c, block_n=4096)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) and torch.equal(o, w) for g, o, w in zip(probe[:2], op, want))
+    for i in range(4):
+        _screen_within_quarter(probe.screen[i], x[i], c[i], kmeans_kernel.narrow_margin(s))
+    assert 0 <= int(probe.rechecks.sum()) <= 4 * 5_003
+
+
+@pytest.mark.parametrize("s,k", [(65, 2), (128, 50), (100, 241), (70, 242)])
+def test_wide_pair_routes_equal_plain(dev, s, k):
+    """Row 4 past the narrow kernel (s > 64): the screened kernel's argmins
+    of all 2 Ns codebooks, then the histogram in device memory, at k^2 up
+    to 58,564 cells (k = 242); Ns = 3, ragged n; two launches give equal
+    bits."""
+    x, c = (a.to(dev) for a in _blobs(34, 6, 5_001, k, s))
+    got = kmeans_ops.kmeans_pair_assign_hist(x, c, block_n=2000)
+    again = kmeans_ops.kmeans_pair_assign_hist(x, c, block_n=2000)
+    want = kmeans_pair_assign_hist_ref(x, c, block_n=2000)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) and torch.equal(a, g) for g, a, w in zip(got, again, want))
+
+
 def test_kmeans_at_d128_on_the_card_equals_the_cpu(dev):
     """IVF-style Lloyd training at d = 128 (row 3 wide, row 5 wide)."""
     from repro_torch.core import kmeans
@@ -1050,11 +1145,14 @@ def _nan_inf_data(kind, b, n, k, s, seed):
 
 #: (row, wide variant, s, k): both variants of rows 3-5 at s <= 64, the
 #: wide ones (and row 6) also at s = 70; row 4's narrow variant holds its
-#: k^2 histogram in shared memory, so k = 100 there in place of 256
+#: k^2 histogram in shared memory, so k = 100 there in place of 256; row 4
+#: also at its narrowest and widest instantiations (s = 1, 64)
 NAN_CASES = [(row, wide, s, 100 if (row, wide, k) == (4, False, 256) else k)
              for row, wide in [(3, False), (3, True), (4, False), (4, True), (5, False),
                                (5, True), (6, True)]
              for s, k in [(5, 23), (8, 50), (16, 256), (70, 40)] if wide or s <= 64]
+NAN_CASES += [(4, wide, s, k) for wide in (False, True)
+              for s, k in [(1, 3), (17, 50), (32, 29), (64, 50)]]
 
 
 @pytest.mark.parametrize("kind", ["nan", "inf", "mixed"])
@@ -1076,7 +1174,7 @@ def test_assign_kernels_equal_plain_on_nan_and_inf_data(dev, row, wide, s, k, ki
             torch.testing.assert_close(g_, w_, rtol=0, atol=0, equal_nan=True)
         a = got[0]
     elif row == 4:
-        got = kmeans_kernel.kmeans_pair_assign_hist(x, c, bn, wide)
+        got = kmeans_kernel.kmeans_pair_assign_hist(x, c, wide)
         want = kmeans_pair_assign_hist_ref(x, c, block_n=bn)
         assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
         a = got[0]

@@ -18,10 +18,11 @@
 * **Skewed statistics** (row 3 at the (s, k) of its three shapes on the
   card): one centroid taking every point, most centroids empty, a ragged
   last chunk; exact on integer data against the Pallas kernel.
-* **The screen of rows 6 and 5-wide** (the card's kernel): its arithmetic
+* **The screens of rows 6, 5 and 4** (the card's kernels): their arithmetic
   emulated in fp64 on adversarial inputs stays within ``delta_p / 8`` of the
-  plain distances, with the margin the wrapper passes, and the one-pass
-  re-check rule on it gives the plain argmins.
+  plain distances, with the margin the wrapper passes, and each kernel's
+  re-check rule on it gives the plain argmins.  Row 4's op also equals the
+  Pallas kernel in interpret mode at the build's layout.
 * **Helpers**: the chunking helpers and the paired histogram (the padded
   tail counts nothing), kmeans++ seeding, the argument checks.
 """
@@ -197,6 +198,11 @@ def _adversarial(kind, s, seed):
         x, c = 1e3 + rng.normal(size=(n, s)), 1e3 + rng.normal(size=(k, s))
     elif kind == "integer":
         x, c = rng.integers(-50, 51, (n, s)), rng.integers(-50, 51, (k, s))
+    elif kind == "far_clusters":  # 4 clusters 1e3 from the origin: |x| >> |x - c|
+        centers = rng.normal(size=(4, s))
+        centers *= 1e3 / np.linalg.norm(centers, axis=1, keepdims=True)
+        c = centers[rng.integers(0, 4, k)] + rng.normal(size=(k, s))
+        x = c[rng.integers(0, k, n)] + 0.3 * rng.normal(size=(n, s))
     else:  # duplicated and mirrored: c[2i + 1] = 2 x[i] - c[2i], c[30:] = c[:10]
         x = rng.normal(size=(n, s)) * 30
         v = rng.normal(size=(k // 2, s)) * 30
@@ -340,6 +346,86 @@ def test_narrow_margin_holds_the_emulated_screen_to_its_derivation(s, kind):
     np.testing.assert_array_equal(got, want)
     if kind == "offset_1e3" and s >= 16:
         assert whole > 0.9 * len(x)
+
+
+def _pair_screen_emulated(x, c):
+    """The narrow pair kernel's screen values ``t (n, k) = x.c_j - |c_j|^2 /
+    2`` emulated in fp64: fp32 ``|c_j|^2`` summed in dim order, halved
+    (exact); then per dim in order one fused multiply-add, the exact product
+    added to the fp32 accumulator with one rounding to fp32 (after fp64's
+    own, far below it)."""
+    xd, cd = x.astype(np.float64), c.astype(np.float64)
+    cn = np.zeros(len(c))
+    for i in range(x.shape[1]):
+        cn = _f32(cn + _f32(cd[:, i] ** 2))
+    t = np.broadcast_to(-cn / 2, (len(x), len(c))).copy()
+    for i in range(x.shape[1]):
+        t = _f32(xd[:, i, None] * cd[None, :, i] + t)
+    return t
+
+
+@pytest.mark.parametrize("kind", ["uniform_1e4", "offset_1e3", "far_clusters",
+                                  "mirrored_duplicates", "integer"])
+@pytest.mark.parametrize("s", [1, 3, 8, 16, 33, 64])
+def test_pair_margin_holds_the_emulated_ffma_screen(s, kind):
+    """Row 4's narrow kernel: its screen distance ``|x_p|^2 - 2 t_j`` (an
+    FFMA chain from ``-|c_j|^2 / 2``) within ``delta_p / 8`` of the plain
+    distance with the ``narrow_margin`` the wrapper passes (the derivation
+    gives delta_p / 16; exactness needs delta_p / 2); and its rule on those
+    values gives the op's outputs: a point whose runner-up t lies below
+    ``lim = max t - delta_p / 2`` takes the first index of the largest t,
+    any other point the plain argmin.  Far clusters (|x| >> |x - c|, the
+    worst cancellation) and a large common offset re-check most points;
+    integer data, duplicated and mirrored centroids give exact ties.  The
+    pair layout: the case, then its rows and centroids reversed."""
+    from repro_torch.core.distances import sqdist_rowwise
+    from repro_torch.kernels.kmeans_assign.kernel import narrow_margin
+
+    x, c = _adversarial(kind, s, seed=s + 2)
+    xs, cs = np.stack([x, x[::-1]]), np.stack([c, c[::-1]])
+    got = []
+    whole = 0
+    for h in range(2):
+        t = _pair_screen_emulated(xs[h], cs[h])
+        d = sqdist_rowwise(T(xs[h].copy()), T(cs[h].copy())).double().numpy()
+        nx = (xs[h].astype(np.float64) ** 2).sum(1)
+        delta = narrow_margin(s) * (nx + (cs[h].astype(np.float64) ** 2).sum(1).max())
+        ratio = np.abs(nx[:, None] - 2 * t - d) / delta[:, None]
+        assert (ratio <= 1 / 8).all(), float(ratio.max())
+        runner_up = np.sort(t, axis=1)[:, -2]
+        settled = runner_up < t.max(1) - delta / 2
+        whole += int((~settled).sum())
+        got.append(np.where(settled, np.argmax(t, axis=1), np.argmin(d, axis=1)))
+    a, counts = kmeans_ops.kmeans_pair_assign_hist(T(xs.copy()), T(cs.copy()), block_n=17)
+    np.testing.assert_array_equal(a.numpy(), np.stack(got))
+    k = c.shape[0]
+    np.testing.assert_array_equal(counts.numpy()[0], np.bincount(got[0] * k + got[1],
+                                                                 minlength=k * k))
+    if kind in ("offset_1e3", "far_clusters") and s >= 8:
+        assert whole > 0.9 * 2 * len(x)
+
+
+@pytest.mark.parametrize("kind", ["integer", "nan"])
+def test_pair_assign_hist_matches_the_jax_kernel_at_the_build_layout(kind):
+    """Row 4's op on the CPU (its plain version, which the card is held to)
+    against the Pallas kernel in interpret mode at the SuCo build's layout,
+    Ns = 8 (16 half-subspace codebooks), s = 8, k = 50, on integer data
+    (exact in both arithmetics, ties included) and with NaN entries (a NaN
+    centroid in codebook 0, NaN points in codebook 1); n off the Pallas
+    kernel's chunk and the op's odd block_n."""
+    b, n, k, s = 16, 2_500, 50, 8
+    if kind == "nan":
+        x, c = _nan_data(b, n, k, s, seed=26)
+    else:
+        rng = np.random.default_rng(26)
+        x = rng.integers(-4, 5, size=(b, n, s)).astype(np.float32)
+        c = rng.integers(-4, 5, size=(b, k, s)).astype(np.float32)
+    ja, jcounts = j_pair_hist(jnp.asarray(x), jnp.asarray(c), bn=256, impl="pallas",
+                              interpret=True)
+    a, counts = kmeans_ops.kmeans_pair_assign_hist(T(x), T(c), block_n=999)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    assert counts.shape == (b // 2, k * k) and int(counts.sum()) == b // 2 * n
 
 
 # --------------------------------------------------------------------------

@@ -74,3 +74,31 @@ def wall(fn, n: int) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return dict(median=statistics.median(times), readings=times)
+
+
+def clocks(fn, seconds: float = 2.0, samples: int = 4) -> list[str]:
+    """``nvidia-smi``'s SM clock, its maximum and the power draw, sampled
+    ``samples`` times while ``fn`` runs back to back for about ``seconds``:
+    the clock a kernel's time was read at."""
+    import threading
+
+    import torch
+
+    out: list[str] = []
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"]
+
+    def sample():
+        for _ in range(samples):
+            time.sleep(seconds / (samples + 1))
+            out.append(subprocess.run(query, capture_output=True, text=True, timeout=60,
+                                      check=True).stdout.strip())
+
+    th = threading.Thread(target=sample)
+    th.start()
+    while th.is_alive():
+        fn()
+        torch.cuda.synchronize()
+    th.join()
+    return out
+
