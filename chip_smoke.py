@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives six paths, each with every kernel's launch count set to 0 just before
-it and read just after.  Five run over SIFT1M's shape (n = 1,000,000,
+drives seven paths, each with every kernel's launch count set to 0 just before
+it and read just after.  Six run over SIFT1M's shape (n = 1,000,000,
 d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
@@ -25,9 +25,22 @@ d = 128, data from ``gaussian_mixture``):
   4,000 points, one delete of 50,000 ids, batches of 1, 8 and 64 in the
   fused and dense modes before and after, with checks (a)-(f) of the
   answers, the counts and the warm state; then ``SuCoIndex.save`` / ``load``
-  on the card.
+  on the card;
+* ``ann_serve``: the ANN serving layer (``repro_torch.serve``) over the main
+  path's engine: a 2-level ``DegradationLadder`` warmed for batches of 1-16
+  at k = 5 and 10; the JAX package's traffic mixes ``steady_b8``,
+  ``mixed_batch`` and ``mixed_batch_k`` (``benchmarks/serve.py``: one step
+  after each burst) through ``AnnServer`` and ``AsyncAnnServer(depth=2)``,
+  their answers equal request by request; a forced 0, 1, 2, 1, 0 ladder
+  cycle over the 64 queries, each level's success rate (the exact nearest
+  neighbour in the top 10) at least its Theorem-2 ``quality_bound`` and rows
+  1 and 2 launched at each; 192 requests at once under an
+  ``OverloadController``; ``engine.autoscaled()`` warmed on the observed
+  sizes and replaying ``mixed_batch``; one sync step and one async window
+  under the profiler.  No (bucket, k) pair and no kernel library may be
+  added after the warm-up.
 
-The sixth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
+The seventh, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
 layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
 on the card from the seed) through ``repro_torch.launch.serve.Server``: 16
 requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
@@ -148,6 +161,18 @@ PATH_OF = {
 #: scores for dense ones
 LIFECYCLE_KERNELS = ("kmeans_stats", "sc_score_cells_prefilter_compact", "gather_rerank",
                      "sc_score_cells")
+#: the kernels the ANN serving path runs: every ladder level answers through
+#: the fused query (each reports its launches on the main path above)
+ANN_SERVE_KERNELS = ("sc_score_cells_prefilter_compact", "gather_rerank")
+#: the JAX package's serving traffic mixes (``benchmarks/serve.py``): bursts
+#: of single-query requests, the burst sizes the admission queue sees
+#: between steps and the per-request k mix
+SERVE_MIXES = (
+    dict(name="steady_b8", sizes=(8,), ks=(10,), bursts=24),
+    dict(name="mixed_batch", sizes=(1, 2, 5, 8, 16), ks=(10,), bursts=20),
+    dict(name="mixed_batch_k", sizes=(1, 4, 16), ks=(5, 10), bursts=20),
+)
+SERVE_MAX_BATCH, SERVE_OVERLOAD_REQUESTS = 16, 192
 #: the library call each kernel is timed beside, where one PyTorch call
 #: computes the same function (TF32 off)
 LIBRARY = {
@@ -1701,6 +1726,189 @@ def lifecycle_phase(data, q64, gt, index, policy, seed: int, k: int) -> dict:
     return launches
 
 
+def serve_trace(pool, mix: dict, rng) -> list[list[tuple]]:
+    """A mix's requests as bursts of ``(query, k)``, the queries drawn from
+    ``pool`` (deterministic in ``rng``)."""
+    bursts = []
+    for b in range(mix["bursts"]):
+        size = int(mix["sizes"][b % len(mix["sizes"])])
+        bursts.append([(pool[int(rng.integers(0, len(pool)))], int(rng.choice(mix["ks"])))
+                       for _ in range(size)])
+    return bursts
+
+
+def replay(server, bursts, engine) -> dict:
+    """Submit each burst and take one step after it, then drain: the
+    completed requests, ``latency_summary``, steps and the engine's host
+    synchronisations a batch."""
+    from repro_torch.serve import AnnRequest, latency_summary
+
+    st0 = engine.stats()
+    rid = 0
+    for burst in bursts:
+        server.submit_many([AnnRequest(rid + i, q, k=k) for i, (q, k) in enumerate(burst)])
+        rid += len(burst)
+        server.step()
+    server.run_until_drained()
+    st1 = engine.stats()
+    batches = st1.batches - st0.batches
+    if len(server.completed) != rid or not all(r.done for r in server.completed):
+        raise AssertionError(f"{type(server).__name__}: a request was not answered")
+    return dict(requests=rid, steps=len(server.steps), batches=batches,
+                host_syncs_per_batch=(st1.host_syncs - st0.host_syncs) / max(batches, 1),
+                summary=latency_summary(server.completed))
+
+
+def ann_serve_phase(x_np, q64, gt, engine, seed: int, k: int) -> dict:
+    """The ANN serving layer (``repro_torch.serve.ann``) over the main path's
+    fused engine: a 2-level degradation ladder warmed for batches of 1-16 at
+    k = 5 and 10; the JAX package's three traffic mixes through the
+    synchronous and the pipelined server (answers equal request by
+    request); a forced 0, 1, 2, 1, 0 ladder cycle over the 64 queries, each
+    level's success rate held to its Theorem-2 floor; an overload burst
+    under the controller; an autoscaled engine replaying ``mixed_batch``;
+    and one sync step and one async window under the profiler.  No (bucket,
+    k) pair and no kernel library may be added after the warm-up.  Returns
+    the path's launches."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core.suco import padding_waste
+    from repro_torch.data import make_queries, recall
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (AnnRequest, AnnServer, AsyncAnnServer, DegradationLadder,
+                                   OverloadController, latency_summary)
+
+    mb = SERVE_MAX_BATCH
+    t_phase = time.perf_counter()
+    engine.policy.reset_traffic()  # the autoscaler sees this phase's traffic alone
+    kernels.reset_launch_counts()
+
+    # 1. warm up the ladder
+    t0 = time.perf_counter()
+    ladder = DegradationLadder(engine, levels=2)
+    ladder_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = ladder.warmup(batch_sizes=range(1, mb + 1), ks=(5, k))
+    warm_s = time.perf_counter() - t0
+    executables, loaded = ladder.compile_count, _build.loaded()
+    levels = [dict(level=lv, alpha=e.policy.alpha, beta=e.policy.beta,
+                   quality_bound=ladder.quality_bound(lv, k))
+              for lv, e in enumerate(ladder.engines)]
+
+    def warm_state(where: str) -> None:
+        if ladder.compile_count != executables or _build.loaded() != loaded:
+            raise AssertionError(f"{where}: (bucket, k) pairs {ladder.compile_count} (warm "
+                                 f"{executables}), libraries {_build.loaded()} (warm {loaded})")
+
+    # 2. the JAX package's three mixes, sync and pipelined over the same trace
+    pool = make_queries(x_np, 1024, seed=seed + 2)
+    mixes = {}
+    for i, mix in enumerate(SERVE_MIXES):
+        bursts = serve_trace(pool, mix, np.random.default_rng(seed + 10 + i))
+        sync, pipe = AnnServer(engine, max_batch=mb), AsyncAnnServer(engine, max_batch=mb, depth=2)
+        rec = {"sync": replay(sync, bursts, engine), "async": replay(pipe, bursts, engine)}
+        want = {r.rid: r.ids for r in sync.completed}
+        rec["async_ids_equal_sync"] = all(np.array_equal(r.ids, want[r.rid])
+                                          for r in pipe.completed)
+        rec["async_dispatch_over_step_median"] = float(np.median(
+            [s.dispatch_s / s.step_s for s in pipe.steps if s.step_s > 0]))
+        # an async step_s spans the window (dispatch to retire); its dispatch
+        # alone against a sync step says what the window overlaps
+        rec["sync_step_ms_median"] = float(np.median([s.step_s for s in sync.steps])) * 1e3
+        rec["async_dispatch_ms_median"] = float(np.median([s.dispatch_s for s in pipe.steps])) * 1e3
+        rec["batch_sizes"] = sorted({s.n_requests for s in sync.steps})
+        mixes[mix["name"]] = rec
+        if not rec["async_ids_equal_sync"]:
+            raise AssertionError(f"{mix['name']}: async answers differ from sync answers")
+        warm_state(mix["name"])
+
+    # 3. the forced 0, 1, 2, 1, 0 cycle over the 64 queries, k = 10
+    q_np = q64.cpu().numpy()
+    server = AnnServer(engine, max_batch=mb, ladder=ladder)
+    cycle = []
+    for level in (0, 1, 2, 1, 0):
+        server.level = level
+        c0 = kernels.launch_counts()
+        n0 = len(server.completed)
+        server.submit_many([AnnRequest(n0 + i, q_np[i], k=k) for i in range(len(q_np))])
+        server.run_until_drained()
+        c1 = kernels.launch_counts()
+        done = sorted(server.completed[n0:], key=lambda r: r.rid)
+        ids = np.stack([r.ids for r in done])
+        success = float(np.mean([int(gt[i, 0]) in set(ids[i].tolist()) for i in range(len(ids))]))
+        bound_ = ladder.quality_bound(level, k)
+        row = dict(level=level, success_rate=success, quality_bound=bound_,
+                   recall_at_10=recall(ids, gt),
+                   served_at_level=all(r.degrade_level == level and r.quality_bound == bound_
+                                       for r in done),
+                   launches={n_: c1[n_] - c0[n_] for n_ in ANN_SERVE_KERNELS})
+        cycle.append(row)
+        if success < bound_ or not row["served_at_level"]:
+            raise AssertionError(f"ladder level {level}: success rate {success} below its "
+                                 f"bound {bound_}, or an answer without the level's bound")
+        if min(row["launches"].values()) < 1:
+            raise AssertionError(f"ladder level {level} did not launch rows 1 and 2: {row}")
+    warm_state("ladder cycle")
+
+    # 4. an overload burst under the controller
+    rng = np.random.default_rng(seed + 20)
+    burst = AnnServer(engine, max_batch=mb, ladder=ladder,
+                      controller=OverloadController(high_depth=4, low_depth=1))
+    burst.submit_many([AnnRequest(i, pool[int(rng.integers(0, len(pool)))], k=k)
+                       for i in range(SERVE_OVERLOAD_REQUESTS)])
+    burst.run_until_drained()
+    s_burst = latency_summary(burst.completed)
+    if len(burst.completed) != SERVE_OVERLOAD_REQUESTS or s_burst["n_degraded"] < 1:
+        raise AssertionError(f"overload burst: {s_burst}")
+    overload = dict(requests=SERVE_OVERLOAD_REQUESTS, steps=len(burst.steps),
+                    levels=[s.level for s in burst.steps], n_degraded=s_burst["n_degraded"],
+                    quality_bound_min=s_burst["quality_bound_min"], summary=s_burst)
+    warm_state("overload burst")
+
+    # 5. autoscale: the observed traffic's buckets, warmed, then mixed_batch again
+    observed = {int(m): int(c) for m, c in sorted(engine.policy.traffic.items())}
+    auto = engine.autoscaled()
+    auto_fresh = auto.warmup(None, ks=(5, k))
+    auto_exec, auto_loaded = auto.compile_count, _build.loaded()
+    bursts = serve_trace(pool, SERVE_MIXES[1], np.random.default_rng(seed + 11))
+    auto_rec = replay(AsyncAnnServer(auto, max_batch=mb, depth=2), bursts, auto)
+    if auto.compile_count != auto_exec or _build.loaded() != auto_loaded:
+        raise AssertionError("the autoscaled engine met a (bucket, k) pair it had not warmed")
+    autoscale = dict(observed=observed, default_buckets=list(engine.policy.batch_buckets),
+                     proposed_buckets=list(auto.policy.batch_buckets),
+                     padding_waste_default=padding_waste(observed, engine.policy.batch_buckets),
+                     padding_waste_autoscaled=padding_waste(observed, auto.policy.batch_buckets),
+                     warmup_new_pairs=auto_fresh, replay=auto_rec)
+    del auto
+
+    # 6. one sync step and one full async window under the profiler
+    def sync_step():
+        one = AnnServer(engine, max_batch=mb)
+        one.submit_many([AnnRequest(i, pool[i], k=k) for i in range(mb)])
+        one.step()
+
+    def async_window():
+        win = AsyncAnnServer(engine, max_batch=mb, depth=2)
+        win.submit_many([AnnRequest(i, pool[i], k=k) for i in range(3 * mb)])
+        win.run_until_drained()
+
+    profiles = dict(sync_step=profile_batch(sync_step), async_window=profile_batch(async_window))
+    warm_state("profiles")
+    launches = kernels.launch_counts()
+    emit(dict(phase="ann_serve", seconds=time.perf_counter() - t_phase, max_batch=mb,
+              ladder_seconds=ladder_s,
+              warmup_seconds=warm_s, warmup_new_pairs=fresh, executables=executables,
+              libraries_loaded=list(loaded), m_stat=ladder.m_stat, sigma_stat=ladder.sigma_stat,
+              levels=levels, mixes=mixes, cycle=cycle,
+              overload=overload, autoscale=autoscale, profile=profiles,
+              stats=engine.stats()._asdict(), launches=launches))
+    missing = [name for name in ANN_SERVE_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the ann_serve path: {missing}")
+    return launches
+
+
 def linear_attn_ops(bh: int, t: int, dk: int, dv: int, chunk: int, shift: int) -> float:
     """fp32 operations of chunked linear attention on these shapes: per
     chunk of c live tokens, an exponential, two multiplies and an add per
@@ -2179,13 +2387,17 @@ def main() -> int:
     launches_by_path["lifecycle"] = lifecycle_phase(data, q64, gt, engine.index, policy,
                                                     args.seed, k)
 
-    # 8. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
+    # 8. the ANN serving layer over the main path's engine: a degradation
+    # ladder, the sync and pipelined servers, overload and autoscale
+    launches_by_path["ann_serve"] = ann_serve_phase(x_np, q64, gt, engine, args.seed, k)
+
+    # 9. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
     # the same width on the card and again on the CPU
     lm_cfg = get_config("rwkv6-1.6b")
     launches_by_path["lm_serve"] = lm_serve_phase(dev, args.seed, lm_cfg)
     lm_cpu_recheck_phase(dev, args.seed, lm_cfg)
 
-    # 9. each kernel against its plain version at its path's shapes
+    # 10. each kernel against its plain version at its path's shapes
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
     checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k, args.seed)
     del both
@@ -2195,7 +2407,7 @@ def main() -> int:
     checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
-    # 10. the same 8 queries on the CPU: plain versions over the same index
+    # 11. the same 8 queries on the CPU: plain versions over the same index
     t0 = time.perf_counter()
     cpu_policy = EnginePolicy(alpha=0.05, beta=0.02, tiles=engine.tiles_for(8, k))
     cpu_engine = SuCoEngine(x_np, engine.index.to("cpu"), cpu_policy, device="cpu")

@@ -6,9 +6,12 @@ paths on one NVIDIA H100: build an index in any of the four build modes,
 insert into it, delete from it and persist it (``build_index``,
 ``SuCoIndex``, ``SuCoEngine(capacity=...)``), serve queries in the fused,
 dense and streaming modes (``SuCoEngine``, ``suco_query``), the
-index-free SC-Linear (``sc_linear_query``), and the K-means library
+index-free SC-Linear (``sc_linear_query``), the K-means library
 (``repro_torch.core.kmeans``: ``kmeans``, ``kmeans_batched``, ``assign``,
-``init_centroids_pp``).  Every TPU kernel of those
+``init_centroids_pp``), and the ANN serving layer over the engine
+(``repro_torch.serve``: ``AnnServer``, ``AsyncAnnServer``, the
+``DegradationLadder`` with its Theorem-2 floors from
+``repro_torch.core.theory``).  Every TPU kernel of those
 paths is a hand-written CUDA kernel for ``sm_90a`` in ``csrc/``, built at
 first use; a tensor on the CPU takes each kernel's plain PyTorch version
 instead.  The package imports neither JAX nor anything of ``repro``.

@@ -41,17 +41,22 @@ The counterpart of ``repro.core.suco``'s index and engine:
   policy resolved to at construction.  Built with ``capacity=``, it takes
   live inserts into pre-allocated slots and deletes, without changing a
   tensor's shape, and hands over to a warmed successor with
-  :meth:`SuCoEngine.swap`.
+  :meth:`SuCoEngine.swap`.  The policy counts served batch sizes, from
+  which :func:`autoscale_buckets` proposes the buckets of
+  :meth:`SuCoEngine.autoscaled`; :meth:`EnginePolicy.degraded` gives the
+  reduced budgets of the serving layer's degradation ladder
+  (:mod:`repro_torch.serve.ann`).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import tempfile
 import zipfile
 import zlib
-from typing import Mapping, NamedTuple, Sequence
+from typing import Iterable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -98,6 +103,8 @@ __all__ = [
     "suco_query_streaming",
     "suco_query_fused",
     "batch_bucket",
+    "padding_waste",
+    "autoscale_buckets",
     "DEFAULT_BATCH_BUCKETS",
     "EnginePolicy",
     "EngineStats",
@@ -952,6 +959,79 @@ def batch_bucket(m: int, buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS) -> int:
     return b
 
 
+def padding_waste(
+    histogram: Mapping[int, int], buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS
+) -> int:
+    """Padding rows of serving ``histogram`` (batch size -> count) with
+    ``buckets``: ``sum(count * (batch_bucket(m) - m))``, the all-zero query
+    rows the engine computes and throws away."""
+    return sum(
+        int(c) * (batch_bucket(int(m), buckets) - int(m))
+        for m, c in histogram.items()
+        if c
+    )
+
+
+def autoscale_buckets(
+    histogram: Mapping[int, int],
+    max_buckets: int = 8,
+    *,
+    fallback: Sequence[int] = DEFAULT_BATCH_BUCKETS,
+) -> tuple[int, ...]:
+    """At most ``max_buckets`` bucket sizes minimising the padding waste
+    (:func:`padding_waste`) of replaying ``histogram``, by exact dynamic
+    programming over the distinct observed sizes (an optimal bucket always
+    equals some observed size, so the proposal always covers the largest
+    observed batch).  An empty or all-zero histogram returns ``fallback``."""
+    if max_buckets < 1:
+        raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+    hist = {int(m): int(c) for m, c in histogram.items() if int(c) > 0}
+    if not hist:
+        fb = tuple(sorted(set(int(b) for b in fallback)))
+        if not fb:
+            raise ValueError(
+                "autoscale_buckets: empty traffic histogram and empty "
+                "fallback bucket set — configure at least one bucket"
+            )
+        return fb
+    if min(hist) < 1:
+        raise ValueError(f"batch sizes must be >= 1, got {sorted(hist)[0]}")
+    sizes = sorted(hist)
+    u = len(sizes)
+    n_b = min(max_buckets, u)
+    # prefix sums: serving sizes[i..j] with bucket sizes[j] wastes
+    # sizes[j] * sum(count) - sum(count * size) over the segment
+    pc = [0] * (u + 1)
+    pm = [0] * (u + 1)
+    for i, sz in enumerate(sizes):
+        pc[i + 1] = pc[i] + hist[sz]
+        pm[i + 1] = pm[i] + hist[sz] * sz
+
+    def seg(i: int, j: int) -> int:
+        return sizes[j] * (pc[j + 1] - pc[i]) - (pm[j + 1] - pm[i])
+
+    inf = float("inf")
+    dp = [[inf] * u for _ in range(n_b + 1)]
+    parent: list[list[int]] = [[-1] * u for _ in range(n_b + 1)]
+    for j in range(u):
+        dp[1][j] = seg(0, j)
+    for t in range(2, n_b + 1):
+        for j in range(t - 1, u):
+            for i in range(t - 2, j):
+                c = dp[t - 1][i] + seg(i + 1, j)
+                if c < dp[t][j]:
+                    dp[t][j] = c
+                    parent[t][j] = i
+    best_t = min(range(1, n_b + 1), key=lambda t: (dp[t][u - 1], t))
+    chosen = []
+    t, j = best_t, u - 1
+    while j >= 0 and t >= 1:
+        chosen.append(sizes[j])
+        j = parent[t][j]
+        t -= 1
+    return tuple(sorted(chosen))
+
+
 @dataclasses.dataclass(frozen=True)
 class EnginePolicy:
     """Query-serving policy of a :class:`SuCoEngine`: the Alg. 4 knobs, the
@@ -959,7 +1039,17 @@ class EnginePolicy:
     ``"auto"`` resolves once, at engine construction: fused iff the data
     has at least :data:`STREAMING_MIN_N` points, else dense), the streaming
     mode's chunk ``block_n``, the fused query's tiling (``None`` autotunes
-    per padded bucket and ``k``) and the batch buckets."""
+    per padded bucket and ``k``) and the batch buckets.
+
+    ``traffic`` is a histogram of served batch sizes (:meth:`observe`, fed
+    by every engine query) from which :meth:`autoscale_buckets` proposes a
+    bucket set.  It is observed state, not configuration: it takes no part
+    in equality or hashing, and holds at most :attr:`TRAFFIC_MAX_BINS`
+    sizes."""
+
+    #: distinct batch sizes the traffic histogram holds; past it a new size
+    #: evicts the least frequent bin (the smallest size on ties)
+    TRAFFIC_MAX_BINS = 512
 
     alpha: float = 0.05
     beta: float = 0.02
@@ -968,9 +1058,64 @@ class EnginePolicy:
     block_n: int = 4096
     tiles: TileConfig | None = None
     batch_buckets: tuple[int, ...] = DEFAULT_BATCH_BUCKETS
+    traffic: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter, init=False, repr=False, compare=False
+    )
+
+    def observe(self, batch_sizes: Iterable[int]) -> None:
+        """Count served batch sizes into the traffic histogram."""
+        for m in batch_sizes:
+            m = int(m)
+            if m < 1:
+                raise ValueError(f"batch size must be >= 1, got {m}")
+            if m not in self.traffic and len(self.traffic) >= self.TRAFFIC_MAX_BINS:
+                victim = min(self.traffic.items(), key=lambda kv: (kv[1], kv[0]))
+                del self.traffic[victim[0]]
+            self.traffic[m] += 1
+
+    def reset_traffic(self) -> None:
+        """Drop the traffic histogram."""
+        self.traffic.clear()
+
+    def autoscale_buckets(self, max_buckets: int | None = None) -> tuple[int, ...]:
+        """:func:`autoscale_buckets` of the observed traffic (at most as many
+        buckets as configured); the configured buckets before any traffic."""
+        if max_buckets is None:
+            max_buckets = max(len(self.batch_buckets), 1)
+        return autoscale_buckets(self.traffic, max_buckets, fallback=self.batch_buckets)
+
+    def autoscaled(self, max_buckets: int | None = None) -> "EnginePolicy":
+        """This policy with the autoscale proposal as its buckets; the
+        histogram is carried over, so ``SuCoEngine.warmup(None)`` can warm
+        exactly the observed sizes."""
+        new = dataclasses.replace(self, batch_buckets=self.autoscale_buckets(max_buckets))
+        new.traffic.update(self.traffic)
+        return new
+
+    def degraded(self, level: int) -> "EnginePolicy":
+        """The reduced-budget policy at degradation-ladder step ``level``
+        (0: this policy): ``beta`` halves and ``alpha`` shrinks by 0.8 a
+        level, and pinned ``tiles`` halve their ``survivor_cap`` a level
+        (a multiple of 64, at least 64; autotuned tiles re-derive it from
+        the smaller pool).  A fresh traffic histogram."""
+        if level < 0:
+            raise ValueError(f"degradation level must be >= 0, got {level}")
+        if level == 0:
+            return self
+        tiles = self.tiles
+        if tiles is not None:
+            cap = max(64, (tiles.survivor_cap >> level) // 64 * 64)
+            tiles = dataclasses.replace(tiles, survivor_cap=cap)
+        return dataclasses.replace(
+            self,
+            alpha=max(self.alpha * 0.8**level, 1e-6),
+            beta=self.beta * 0.5**level,
+            tiles=tiles,
+        )
 
 
 class EngineStats(NamedTuple):
+    executables: int  # (bucket, k) pairs warmed or served: the compile_count
     batches: int  # query() calls served
     queries: int  # individual queries served (before padding)
     padded_queries: int  # padding rows across all batches
@@ -1228,19 +1373,15 @@ class SuCoEngine:
             limits=device_limits(self.device), n_subspaces=self.index.spec.n_subspaces,
         )
 
-    @torch.inference_mode()
-    def query(self, q, k: int) -> QueryResult:
-        """Serve a batch ``q: (m, d)`` (or one ``(d,)`` query) -> top-k, on
-        the engine's device."""
-        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
-        single = q.dim() == 1
-        if single:
-            q = q[None]
-        d = self.index.spec.d
-        if q.dim() != 2 or q.shape[1] != d:
-            raise ValueError(f"queries must be (m, {d}) or ({d},), got {tuple(q.shape)}")
+    def _check_k(self, k: int) -> None:
+        # k is bounded by the live points: a larger k would answer empty slots
         if not 1 <= k <= self._n_live:
             raise ValueError(f"k={k} must be in [1, n={self._n_live}]")
+
+    def _padded_query(self, q: torch.Tensor, k: int) -> tuple[QueryResult, int, int]:
+        """Answer ``q: (m, d)`` padded to its bucket: the first ``m`` rows'
+        result, the bucket and the host synchronisations made.  Counts
+        nothing."""
         m = q.shape[0]
         b = batch_bucket(m, self.policy.batch_buckets)
         if b != m:
@@ -1251,31 +1392,82 @@ class SuCoEngine:
             metric=p.metric, mode=self._mode, block_n=p.block_n,
             tiles=self.tiles_for(m, k) if self._mode == "fused" else None,
         )
+        if b != m:
+            res = QueryResult(res.ids[:m], res.dists[:m], res.scores[:m])
+        return res, b, syncs
+
+    @torch.inference_mode()
+    def query(self, q, k: int) -> QueryResult:
+        """Serve a batch ``q: (m, d)`` (or one ``(d,)`` query) -> top-k, on
+        the engine's device; the batch size goes into the policy's traffic
+        histogram."""
+        q = torch.as_tensor(q, dtype=torch.float32).to(self.device)
+        single = q.dim() == 1
+        if single:
+            q = q[None]
+        d = self.index.spec.d
+        if q.dim() != 2 or q.shape[1] != d:
+            raise ValueError(f"queries must be (m, {d}) or ({d},), got {tuple(q.shape)}")
+        self._check_k(k)
+        m = q.shape[0]
+        res, b, syncs = self._padded_query(q, k)
         self._batches += 1
         self._queries += m
         self._padded += b - m
         self._syncs += syncs
         self._buckets_seen.add((b, k))
+        self.policy.observe((m,))
         if single:
             return QueryResult(res.ids[0], res.dists[0], res.scores[0])
-        if b != m:
-            res = QueryResult(res.ids[:m], res.dists[:m], res.scores[:m])
         return res
 
-    def warmup(self, batch_sizes: Sequence[int] = (1,), ks: Sequence[int] = (10,)) -> int:
+    @torch.inference_mode()
+    def warmup(
+        self, batch_sizes: Sequence[int] | None = (1,), ks: Sequence[int] = (10,)
+    ) -> int:
         """Answer one zero batch per (bucket, k) of the traffic mix: builds
-        the kernels on first use and touches every path the mix will take.
-        Returns the number of (bucket, k) pairs not seen before."""
-        before = len(self._buckets_seen)
+        the kernels on first use and touches every path the mix will take,
+        without counting as traffic (no batch, query, sync or histogram
+        entry).  ``batch_sizes=None`` warms the sizes the policy's traffic
+        histogram holds (``(1,)`` when it is empty).  Returns the number of
+        (bucket, k) pairs not seen before."""
+        if batch_sizes is None:
+            batch_sizes = tuple(sorted(self.policy.traffic)) or (1,)
+        before = self.compile_count
+        d = self.index.spec.d
         for b in sorted({batch_bucket(m, self.policy.batch_buckets) for m in batch_sizes}):
             for k in sorted(set(ks)):
-                self.query(torch.zeros((b, self.index.spec.d)), k)
+                self._check_k(k)
+                self._padded_query(torch.zeros((b, d), device=self.device), k)
+                self._buckets_seen.add((b, k))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return len(self._buckets_seen) - before
+        return self.compile_count - before
+
+    @property
+    def compile_count(self) -> int:
+        """(bucket, k) pairs warmed or served: one for each executable the
+        JAX package's engine would have compiled.  After a warm-up that
+        covers the traffic mix it stays flat."""
+        return len(self._buckets_seen)
+
+    def autoscaled(self, max_buckets: int | None = None) -> "SuCoEngine":
+        """A new engine over the same ``(x, index)`` and device whose buckets
+        are the autoscale proposal for this engine's observed traffic
+        (:meth:`EnginePolicy.autoscaled`); warm it (``warmup(None)`` warms
+        the observed sizes) before serving."""
+        return SuCoEngine(self.x, self.index, self.policy.autoscaled(max_buckets),
+                          device=self.device)
+
+    def host_rows(self, ids) -> np.ndarray:
+        """Rows ``ids`` of ``x`` (slots, live or not) as a host array: a
+        gather on the device and one copy of just those rows."""
+        rows = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=self.device)
+        return self.x[rows].cpu().numpy()
 
     def stats(self) -> EngineStats:
         return EngineStats(
+            executables=self.compile_count,
             batches=self._batches,
             queries=self._queries,
             padded_queries=self._padded,

@@ -1410,3 +1410,104 @@ def test_init_cache_defaults_to_the_card(dev):
 
 def _to(tree, dev):
     return {k_: _to(v_, dev) if isinstance(v_, dict) else v_.to(dev) for k_, v_ in tree.items()}
+
+
+# ---- the ANN serving layer on the card -------------------------------------
+
+_SERVE_KS = (10, 10, 5, 10, 5, 5, 10, 5, 10, 10, 5, 10, 5, 10, 10, 5, 10, 5)
+
+
+@pytest.fixture(scope="module")
+def serve_data():
+    """The CPU serving tests' size (4,000 x 32, Ns = 8, sqrt_k = 16) with an
+    index built on the CPU, served in the fused mode (rows 1 and 2) with
+    the tiling pinned, so card and CPU run the same chunks."""
+    x = gaussian_mixture(4000, 32, 0)
+    index = suco.build_index(torch.from_numpy(x),
+                             suco.SuCoConfig(n_subspaces=8, sqrt_k=16, kmeans_iters=4))
+    policy = dict(alpha=0.05, beta=0.02, mode="fused", tiles=TileConfig(2048, 256),
+                  batch_buckets=(4, 16))
+    return x, make_queries(x, 40, seed=1), index, policy
+
+
+def _serve_engine(serve_data, device):
+    x, _, index, policy = serve_data
+    return suco.SuCoEngine(x, index, suco.EnginePolicy(**policy), device=device)
+
+
+def _same_request_answers(want, got, rtol=2e-5):
+    """Request by request: ids equal except at the CPU's fp-distance ties."""
+    by = {r.rid: r for r in want}
+    assert sorted(by) == sorted(r.rid for r in got)
+    for r in got:
+        w = by[r.rid]
+        assert r.done and w.done and r.ids.dtype == w.ids.dtype
+        torch.testing.assert_close(torch.from_numpy(r.dists), torch.from_numpy(w.dists),
+                                   rtol=rtol, atol=0)
+        for c in (r.ids != w.ids).nonzero()[0]:
+            assert ((abs(w.dists - w.dists[c]) <= rtol * w.dists[c]).sum() > 1), (r.rid, c)
+
+
+def test_ann_servers_on_the_card_answer_as_the_cpu(dev, serve_data):
+    from repro_torch.serve import AnnRequest, AnnServer, AsyncAnnServer
+
+    q = serve_data[1]
+    reqs = lambda: [AnnRequest(i, q[i], k=k) for i, k in enumerate(_SERVE_KS)]
+    cpu = AnnServer(_serve_engine(serve_data, "cpu"), max_batch=4)
+    cpu.submit_many(reqs())
+    cpu.run_until_drained()
+    card = _serve_engine(serve_data, dev)
+    card.warmup(batch_sizes=(1, 4), ks=(5, 10))
+    kernels.reset_launch_counts()
+    for server in (AnnServer(card, max_batch=4), AsyncAnnServer(card, max_batch=4, depth=2)):
+        server.submit_many(reqs())
+        server.run_until_drained()
+        _same_request_answers(cpu.completed, server.completed)
+        assert [(s.k, s.n_requests, s.bucket) for s in server.steps] == [
+            (s.k, s.n_requests, s.bucket) for s in cpu.steps]
+    counts = kernels.launch_counts()
+    assert counts["sc_score_cells_prefilter_compact"] > 0 and counts["gather_rerank"] > 0
+
+
+def test_ladder_on_the_card_carries_its_bounds(dev, serve_data):
+    from repro_torch.serve import AnnRequest, AnnServer, DegradationLadder
+
+    q = serve_data[1]
+    servers = []
+    for device in ("cpu", dev):
+        engine = _serve_engine(serve_data, device)
+        ladder = DegradationLadder(engine, levels=2)
+        ladder.warmup(batch_sizes=(4,), ks=(10,))
+        assert all(e.device == engine.device and e.x is engine.x for e in ladder.engines)
+        server = AnnServer(engine, max_batch=4, ladder=ladder)
+        for level in (0, 1, 2, 1, 0):
+            server.level = level
+            n0 = len(server.completed)
+            server.submit_many([AnnRequest(n0 + i, q[n0 + i], k=10) for i in range(4)])
+            for r in server.step():
+                assert r.degrade_level == level
+                assert r.quality_bound == ladder.quality_bound(level, 10)
+        servers.append(server)
+    cpu, card = servers
+    assert (card.ladder.m_stat, card.ladder.sigma_stat) == (cpu.ladder.m_stat, cpu.ladder.sigma_stat)
+    _same_request_answers(cpu.completed, card.completed)
+
+
+def test_loaded_libraries_stay_flat_after_warmup(dev, serve_data):
+    from repro_torch.kernels import _build
+    from repro_torch.serve import AnnRequest, AsyncAnnServer, DegradationLadder
+
+    q = serve_data[1]
+    engine = _serve_engine(serve_data, dev)
+    ladder = DegradationLadder(engine, levels=2)
+    ladder.warmup(batch_sizes=range(1, 5), ks=(5, 10))
+    warm, loaded = ladder.compile_count, _build.loaded()
+    assert {"sc_score", "gather_rerank"} <= set(loaded)
+    for level in range(3):
+        server = AsyncAnnServer(engine, max_batch=4, ladder=ladder, depth=2)
+        server.level = level
+        server.submit_many([AnnRequest(i, q[i], k=k) for i, k in enumerate(_SERVE_KS)])
+        server.run_until_drained()
+        assert all(r.done for r in server.completed)
+        assert [s.compile_count for s in server.steps] == [warm] * len(server.steps)
+    assert ladder.compile_count == warm and _build.loaded() == loaded

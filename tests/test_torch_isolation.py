@@ -12,6 +12,8 @@ _PROBE = """
 import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+assert {"repro_torch.serve", "repro_torch.serve.ann", "repro_torch.core.theory",
+        "repro_torch.core.da_numpy", "repro_torch.data.datasets"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

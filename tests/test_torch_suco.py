@@ -251,6 +251,7 @@ def test_engine_matches_jax_engine(shared, tomb):
         repro_torch.EnginePolicy(alpha=ALPHA, beta=BETA, mode="fused", tiles=PTiles(4096, 256)),
         device="cpu",
     )
+    assert jeng.warmup(batch_sizes=(1, 3, 8), ks=(K,)) == 3
     assert peng.warmup(batch_sizes=(1, 3, 8), ks=(K,)) == 3
     queries = make_queries(x, 8, seed=4)
     for m in (1, 3, 8):
@@ -260,11 +261,15 @@ def test_engine_matches_jax_engine(shared, tomb):
         assert_same_answers(want, got)
     single = peng.query(queries[0], K)
     assert single.ids.shape == (K,)
+    jeng.query(jnp.asarray(queries[0]), K)
     st = peng.stats()
-    assert st.batches == 7 and st.queries == (1 + 4 + 8) + (1 + 3 + 8) + 1
+    # warm-up probes are not traffic: only the four served batches count
+    assert st.batches == 4 and st.queries == 1 + 3 + 8 + 1
     assert st.padded_queries == 1  # 3 queries -> bucket 4
     assert st.buckets == ((1, K), (4, K), (8, K))
     assert st.host_syncs == st.batches * -(-N // 4096)  # one per chunk
+    assert tuple(st)[:5] == tuple(jeng.stats())  # executables .. buckets
+    assert peng.policy.traffic == jeng.policy.traffic == {1: 2, 3: 1, 8: 1}
     with pytest.raises(ValueError):
         peng.query(queries[:2], peng.n_live + 1)
 
