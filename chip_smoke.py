@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives seven paths, each with every kernel's launch count set to 0 just before
-it and read just after.  Six run over SIFT1M's shape (n = 1,000,000,
+drives eight paths, each with every kernel's launch count set to 0 just before
+it and read just after.  Seven run over SIFT1M's shape (n = 1,000,000,
 d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
@@ -39,8 +39,21 @@ d = 128, data from ``gaussian_mixture``):
   sizes and replaying ``mixed_batch``; one sync step and one async window
   under the profiler.  No (bucket, k) pair and no kernel library may be
   added after the warm-up.
+* ``mutable_serve``: the durable mutable serving stack
+  (``repro_torch.serve.mutation`` / ``durability`` / ``chaos``) over the main
+  path's index: a 1.2M-capacity engine under a 2-level ladder,
+  ``AnnServer``, ``MutationManager`` and a group-commit ``Durability`` root;
+  25 inserts of 4,000 and a delete of 50,000 keys between ``steady_b8``
+  bursts (no answer may hold a deleted key; the drift monitor must name
+  the fill); ``reindex_async`` prepared on the manager's stream while this
+  thread serves bursts (one profiled: busy share per stream), committed
+  with its snapshot, and a second successor built from the same gather on
+  the serving stream, bit for bit equal (fingerprint and 64 answers); two
+  more inserts, a kill and ``recover`` on the card, bit for bit; then
+  ``recovery_drill`` at every crash point under both fsync policies at
+  n = 65,536.  No (bucket, k) pair and no library after the commit.
 
-The seventh, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
+The eighth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
 layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
 on the card from the seed) through ``repro_torch.launch.serve.Server``: 16
 requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
@@ -1909,6 +1922,345 @@ def ann_serve_phase(x_np, q64, gt, engine, seed: int, k: int) -> dict:
     return launches
 
 
+#: the kernels the durable mutable serving path runs: every insert's
+#: assignment, the drift baseline and the minibatch re-cluster (row 3), every
+#: served batch and warm-up in the fused mode (rows 1 and 2)
+MUTABLE_SERVE_KERNELS = ("sc_score_cells_prefilter_compact", "gather_rerank", "kmeans_stats")
+MUTABLE_CAPACITY, MUTABLE_INSERTS, MUTABLE_INSERT_ROWS, MUTABLE_DELETES = 1_200_000, 25, 4_000, 50_000
+DRILL_N = 65_536
+
+
+def serve_burst(server, pool, rng, rid0: int, size: int = 8, k: int = 10) -> list:
+    """One ``steady_b8`` burst: ``size`` single-query requests submitted at
+    once, served in one step and retired (the synchronous server copies the
+    answers to the host)."""
+    from repro_torch.serve import AnnRequest
+
+    reqs = [AnnRequest(rid0 + i, pool[int(rng.integers(0, len(pool)))], k=k)
+            for i in range(size)]
+    server.submit_many(reqs)
+    server.step()
+    if not all(r.done for r in reqs):
+        raise AssertionError(f"a burst was not answered: {[r.error for r in reqs]}")
+    return reqs
+
+
+def latencies(reqs) -> dict:
+    """p50 / p99 / max of requests' host-clock latencies, in ms."""
+    import numpy as np
+
+    lat = np.asarray([r.latency_s for r in reqs]) * 1e3
+    return dict(requests=len(reqs), p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), max_ms=float(lat.max()))
+
+
+def stream_shares(trace_path: Path, window: str) -> dict:
+    """Per CUDA stream, the device's busy time inside the host span of the
+    ``record_function`` named ``window`` in a chrome trace: kernels, copies
+    and sets on that stream, clipped to the span; its busy and idle shares;
+    and the union over streams."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == window and e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"]
+    if not span:
+        raise AssertionError(f"the trace has no {window!r} span")
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    by_stream: dict[int, list[tuple[float, float]]] = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        a, b = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+        if b > a:
+            by_stream.setdefault(int(e.get("args", {}).get("stream", -1)), []).append((a, b))
+
+    def union(iv):
+        total, end = 0.0, -1e30
+        for a, b in sorted(iv):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    wall = t1 - t0
+    streams = {str(s): dict(busy_ms=union(iv) / 1e3, busy_share=union(iv) / wall,
+                            idle_share=1 - union(iv) / wall, events=len(iv))
+               for s, iv in sorted(by_stream.items())}
+    every = union([x for iv in by_stream.values() for x in iv])
+    return dict(window_ms=wall / 1e3, streams=streams, device_busy_share=every / wall,
+                device_idle_share=1 - every / wall)
+
+
+def mutable_serve_phase(x_np, data, q64, index, policy, seed: int, k: int) -> dict:
+    """The durable mutable serving stack (``repro_torch.serve.mutation``,
+    ``durability``, ``chaos``) over the main path's index at 1M: a mutable
+    engine (capacity 1.2M) under a 2-level ladder, ``AnnServer``,
+    ``MutationManager`` and a group-commit ``Durability`` root; 25 inserts of
+    4,000 and a delete of 50,000 keys between ``steady_b8`` bursts; the drift
+    monitor's fill reason; ``reindex_async`` prepared on the manager's stream
+    while this thread serves bursts, then committed (with its snapshot), held
+    bit for bit to a synchronous build of the same gather; two more inserts,
+    a kill and ``recover`` on the card, bit for bit; then ``recovery_drill``
+    at every crash point under both fsync policies at n = 65,536.  One JSON
+    line a step; returns the phase's launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import EnginePolicy, SuCoConfig, SuCoEngine, build_index, kernels
+    from repro_torch.data import gaussian_mixture, make_queries
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (CRASH_POINTS, AnnServer, DegradationLadder, Durability,
+                                   DurabilityConfig, MutationManager, drill_steps, recover,
+                                   recovery_drill)
+    from repro_torch.serve.durability import fingerprint_diff, state_fingerprint
+
+    dev = data.device
+    n, d = data.shape
+    mb = SERVE_MAX_BATCH
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    pool = make_queries(x_np, 1024, seed=seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    rid = [0]
+
+    def serve(srv, count=1):
+        out = []
+        for _ in range(count):
+            out += serve_burst(srv, pool, rng, rid[0], 8, k)
+            rid[0] += 8
+        return out
+
+    def answers(engine):
+        """The 64 queries' ids and distances, 16 a batch (a warmed bucket)."""
+        res = [engine.query(q64[i:i + mb], k) for i in range(0, len(q64), mb)]
+        return torch.cat([r.ids for r in res]).cpu(), torch.cat([r.dists for r in res]).cpu()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    root = Path(tempfile.mkdtemp(prefix="suco-durable-"))
+    try:
+        # 1. the stack, a group-commit root with its worker, the baseline snapshot
+        t0 = time.perf_counter()
+        eng = SuCoEngine(data, index, policy, capacity=MUTABLE_CAPACITY, device=dev)
+        ladder = DegradationLadder(eng, levels=2)
+        fresh = ladder.warmup(batch_sizes=range(1, mb + 1), ks=(k,))
+        server = AnnServer(eng, max_batch=mb, ladder=ladder)
+        mgr = MutationManager(server, SuCoConfig())
+        dur = Durability(root, DurabilityConfig(fsync="group")).attach(server, mgr)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        flushes: list[float] = []
+        worker_flush = dur.worker._flush
+
+        def timed_flush():  # the worker calls it every loop: group-commit times
+            flushes.append(time.perf_counter())
+            return worker_flush()
+
+        dur.worker._flush = timed_flush
+        snaps: list[dict] = []
+        take_snapshot = dur.snapshot
+
+        def timed_snapshot():  # the commit's snapshot_on_reindex calls it too
+            t = time.perf_counter()
+            path = take_snapshot()
+            snaps.append(dict(seconds=time.perf_counter() - t, bytes=path.stat().st_size,
+                              name=path.name))
+            return path
+
+        dur.snapshot = timed_snapshot
+        dur.snapshot()
+        executables, loaded = server.executables, _build.loaded()
+        emit(dict(phase="mutable_serve", step="setup", seconds=setup_s, capacity=MUTABLE_CAPACITY,
+                  fill=n / MUTABLE_CAPACITY, warmup_new_pairs=fresh, executables=executables,
+                  libraries_loaded=list(loaded), baseline_snapshot=snaps[-1],
+                  drift=dataclasses.asdict(mgr.check())))
+
+        # 2. mutate while serving: 25 inserts of 4,000, one delete of 50,000 keys
+        new = gaussian_mixture(MUTABLE_INSERTS * MUTABLE_INSERT_ROWS + 2 * MUTABLE_INSERT_ROWS, d,
+                               seed + 4)
+        insert_ms, inserted = [], []
+        for i in range(MUTABLE_INSERTS):
+            rows = new[i * MUTABLE_INSERT_ROWS:(i + 1) * MUTABLE_INSERT_ROWS]
+            t0 = time.perf_counter()
+            inserted.append(mgr.insert(rows))
+            torch.cuda.synchronize()
+            insert_ms.append((time.perf_counter() - t0) * 1e3)
+            serve(server)
+        inserted = np.concatenate(inserted)
+        del_rng = np.random.default_rng(seed + 32)
+        dead = np.concatenate([del_rng.choice(n, MUTABLE_DELETES // 2, replace=False),
+                               del_rng.choice(inserted, MUTABLE_DELETES // 2, replace=False)])
+        t0 = time.perf_counter()
+        newly = mgr.delete(dead)
+        torch.cuda.synchronize()
+        delete_ms = (time.perf_counter() - t0) * 1e3
+        dead_set = set(dead.tolist())
+
+        def no_dead(reqs, where):
+            for r in reqs:
+                if dead_set & set(mgr.keys_of(r.ids).tolist()):
+                    raise AssertionError(f"{where}: request {r.rid} answered a deleted key")
+
+        no_dead(serve(server, 4), "after the delete")
+        drift = mgr.check()
+        emit(dict(phase="mutable_serve", step="mutate", inserts=MUTABLE_INSERTS,
+                  rows_each=MUTABLE_INSERT_ROWS, insert_ms=insert_ms,
+                  insert_median_ms=float(np.median(insert_ms)), delete_ms=delete_ms,
+                  deleted=newly, n_live=server.engine.n_live, wal_seq=dur.wal.appended_seq,
+                  drift=dataclasses.asdict(drift)))
+        if newly != MUTABLE_DELETES or not any(r.startswith("fill fraction") for r in drift.reasons):
+            raise AssertionError(f"mutation: {newly} deleted, drift {drift}")
+        if server.executables != executables:
+            raise AssertionError("mutation met a (bucket, k) pair the warm-up had not")
+
+        # 3. the re-index prepared on the manager's stream while this thread serves
+        before = serve(server, 24)
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        job = mgr.reindex_async()
+        t_gathered = time.perf_counter()
+        trace_path = root / "burst_during_prepare.json"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("burst_during_prepare"):
+                during = serve(server)
+        prof.export_chrome_trace(str(trace_path))
+        profiled_while_preparing = not job.done
+        while not job.done:
+            during += serve(server)
+        t_done = time.perf_counter()
+        engine = mgr.finish_reindex(timeout=600)
+        commit_s = time.perf_counter() - t_done
+        t_end = time.perf_counter()
+        prepared = job._result
+        gaps = [b - a for a, b in zip(flushes, flushes[1:]) if b > t_start and a < t_end]
+        new_pairs = server.executables - executables
+        after = serve(server, 4)
+        no_dead(during + after, "around the re-index")
+        loaded_after = _build.loaded()
+        shares = stream_shares(trace_path, "burst_during_prepare")
+        # a second successor from the same gather, on this thread's stream
+        t0 = time.perf_counter()
+        again = mgr._build_successor(job._gathered)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        fp_diff = fingerprint_diff(state_fingerprint(server),
+                                   state_fingerprint(AnnServer(again.successor)))
+        answers_equal = same(answers(engine), answers(again.successor))
+        del again
+        rec = dict(phase="mutable_serve", step="reindex",
+                   gather_ms=job._gathered.gather_s * 1e3,
+                   reindex_async_return_ms=(t_gathered - t_start) * 1e3,
+                   prepare_s=prepared.prepare_s, prepare_wall_s=t_done - t_start,
+                   n_live=engine.n_live, capacity=engine.capacity,
+                   bursts_during=len(during) // 8, during=latencies(during),
+                   before=latencies(before), after=latencies(after),
+                   commit_ms=commit_s * 1e3, commit_snapshot=snaps[-1],
+                   group_commit_gap_max_s=max(gaps) if gaps else None,
+                   group_commit_calls=len(flushes),
+                   new_pairs_after_commit=new_pairs, libraries_before=list(loaded),
+                   libraries_after=list(loaded_after),
+                   profiled_burst=dict(while_preparing=profiled_while_preparing, **shares),
+                   second_successor=dict(seconds=sync_s, fingerprint_diff=list(fp_diff),
+                                         answers_equal=answers_equal),
+                   drift_after=dataclasses.asdict(mgr.check()), reindexes=mgr.reindexes)
+        emit(rec)
+        if (new_pairs or loaded_after != loaded or fp_diff or not answers_equal
+                or snaps[-1]["name"] == snaps[0]["name"] or not profiled_while_preparing):
+            raise AssertionError(f"re-index checks failed: {rec}")
+
+        # 4. a crash at full width: two more inserts, a kill, recover on the card
+        for i in range(2):
+            lo = (MUTABLE_INSERTS + i) * MUTABLE_INSERT_ROWS
+            mgr.insert(new[lo:lo + MUTABLE_INSERT_ROWS])
+        want = state_fingerprint(server, mgr)
+        want_answers = answers(server.engine)
+        dur.abandon()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = recover(root, device=dev)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        rec_diff = fingerprint_diff(state_fingerprint(res.server, res.manager), want)
+        rec_answers = same(answers(res.server.engine), want_answers)
+        exe = res.server.executables
+        serve(res.server, 4)
+        rec_new_pairs = res.server.executables - exe
+        res.durability.close()
+        rec = dict(phase="mutable_serve", step="recover", seconds=recover_s,
+                   replayed=res.report.replayed, snapshot=Path(res.report.snapshot_path).name,
+                   snapshot_records=res.report.snapshot_records, warmed=res.report.warmed,
+                   dropped_bytes=res.report.dropped_bytes, fingerprint_diff=list(rec_diff),
+                   answers_equal=rec_answers, new_pairs=rec_new_pairs)
+        emit(rec)
+        if rec_diff or not rec_answers or rec_new_pairs or res.report.replayed != 2:
+            raise AssertionError(f"recovery at full width failed: {rec}")
+        del res, server, mgr, dur, eng, ladder, engine, prepared, job
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # 5. the drill sweep at n = 65,536: every crash point, both fsync policies
+    t0 = time.perf_counter()
+    sub_x = data[:DRILL_N].contiguous()
+    cfg = SuCoConfig()
+    sub_index = build_index(sub_x, cfg)
+    drill_policy = EnginePolicy(alpha=policy.alpha, beta=policy.beta, mode="fused")
+    # the ladder's subspace statistics of this data, sampled once for every build
+    probe = DegradationLadder(SuCoEngine(sub_x, sub_index, drill_policy, device=dev), levels=1)
+    drill_stats = (probe.m_stat, probe.sigma_stat)
+    del probe
+
+    def drill_build(fsync):
+        def build(droot, injector):
+            engine = SuCoEngine(sub_x, sub_index, drill_policy, capacity=DRILL_N + 1024,
+                                device=dev)
+            lad = DegradationLadder(engine, levels=1, stats=drill_stats)
+            srv = AnnServer(engine, ladder=lad)
+            lad.warmup([1], [k])
+            manager = MutationManager(srv, cfg)
+            dur_ = Durability(droot, DurabilityConfig(fsync=fsync), crash=injector,
+                              start_worker=False).attach(srv, manager)
+            return srv, manager, dur_
+
+        return build
+
+    drills = []
+    for fsync in ("group", "always"):
+        for point in CRASH_POINTS:
+            droot = Path(tempfile.mkdtemp(prefix="suco-drill-"))
+            t1 = time.perf_counter()
+            try:
+                rep = recovery_drill(droot, drill_build(fsync), drill_steps(d, seed=3), point,
+                                     queries=q64[:4].cpu().numpy(), k=k)
+            finally:
+                shutil.rmtree(droot, ignore_errors=True)
+            row = dict(fsync=fsync, point=point, fired=rep.fired, acked=rep.acked,
+                       applied=rep.applied, lost_acked=rep.lost_acked,
+                       bit_identical=rep.bit_identical, answers_match=rep.answers_match,
+                       retraces_after_warmup=rep.retraces_after_warmup,
+                       quality_bounds_match=rep.quality_bounds_match,
+                       dropped_bytes=rep.dropped_bytes, seconds=time.perf_counter() - t1)
+            drills.append(row)
+            if not (rep.fired and rep.lost_acked == 0 and rep.bit_identical and rep.answers_match
+                    and rep.retraces_after_warmup == 0 and rep.quality_bounds_match):
+                raise AssertionError(f"recovery drill failed: {row}, {rep.fingerprint_diff}")
+    launches = kernels.launch_counts()
+    emit(dict(phase="mutable_serve", step="drills", n=DRILL_N, d=d, drills=drills,
+              seconds=time.perf_counter() - t0))
+    emit(dict(phase="mutable_serve", step="done", seconds=time.perf_counter() - t_phase,
+              launches={name: launches[name] for name in MUTABLE_SERVE_KERNELS}))
+    missing = [name for name in MUTABLE_SERVE_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mutable_serve path: {missing}")
+    return launches
+
+
+
+
 def linear_attn_ops(bh: int, t: int, dk: int, dv: int, chunk: int, shift: int) -> float:
     """fp32 operations of chunked linear attention on these shapes: per
     chunk of c live tokens, an exponential, two multiplies and an add per
@@ -2391,13 +2743,18 @@ def main() -> int:
     # ladder, the sync and pipelined servers, overload and autoscale
     launches_by_path["ann_serve"] = ann_serve_phase(x_np, q64, gt, engine, args.seed, k)
 
-    # 9. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
+    # 9. the durable mutable serving stack over the main path's index: live
+    # mutation, a re-index prepared on a stream of its own, a crash and recovery
+    launches_by_path["mutable_serve"] = mutable_serve_phase(x_np, data, q64, engine.index,
+                                                            policy, args.seed, k)
+
+    # 10. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
     # the same width on the card and again on the CPU
     lm_cfg = get_config("rwkv6-1.6b")
     launches_by_path["lm_serve"] = lm_serve_phase(dev, args.seed, lm_cfg)
     lm_cpu_recheck_phase(dev, args.seed, lm_cfg)
 
-    # 10. each kernel against its plain version at its path's shapes
+    # 11. each kernel against its plain version at its path's shapes
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
     checks = check_kernels(dev, data, both, c0, engine, q64, cfg, k, args.seed)
     del both
@@ -2407,7 +2764,7 @@ def main() -> int:
     checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
-    # 11. the same 8 queries on the CPU: plain versions over the same index
+    # 12. the same 8 queries on the CPU: plain versions over the same index
     t0 = time.perf_counter()
     cpu_policy = EnginePolicy(alpha=0.05, beta=0.02, tiles=engine.tiles_for(8, k))
     cpu_engine = SuCoEngine(x_np, engine.index.to("cpu"), cpu_policy, device="cpu")

@@ -1441,7 +1441,9 @@ class SuCoEngine:
                 self._padded_query(torch.zeros((b, d), device=self.device), k)
                 self._buckets_seen.add((b, k))
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream only: a re-index prepare on another
+            # stream is not waited for
+            torch.cuda.current_stream(self.device).synchronize()
         return self.compile_count - before
 
     @property

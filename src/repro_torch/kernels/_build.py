@@ -13,6 +13,10 @@ memory and spills; :func:`ptxas_report` returns those lines.
 
 Each library exports plain C entry points that return ``cudaGetLastError()``
 after their launches, and ``repro_cuda_error_string`` to name a code.
+
+:func:`load` and :func:`entry` hold one lock, so two threads that first use
+the same library (a serving thread and a re-index prepare) start one build
+and load it once.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = [
@@ -38,6 +43,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()  # guards _LOADED, the builds load starts and entry's argtypes
 
 
 def _nvcc() -> str:
@@ -115,14 +121,15 @@ def ptxas_report(name: str) -> list[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            _LOADED[name] = lib
+        return lib
 
 
 def loaded() -> tuple[str, ...]:
@@ -134,11 +141,12 @@ def entry(name: str, fn_name: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C entry point ``fn_name`` of ``csrc/<name>.cu`` with its
     ``argtypes`` set (``c_void_p`` for every pointer and the stream, so
     ctypes never cuts a pointer to 32 bits) and an ``int`` result."""
-    fn = getattr(load(name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+    with _LOCK:
+        fn = getattr(load(name), fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return fn
 
 
 def check(name: str, rc: int, what: str) -> None:

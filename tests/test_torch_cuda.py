@@ -1511,3 +1511,138 @@ def test_loaded_libraries_stay_flat_after_warmup(dev, serve_data):
         assert all(r.done for r in server.completed)
         assert [s.compile_count for s in server.steps] == [warm] * len(server.steps)
     assert ladder.compile_count == warm and _build.loaded() == loaded
+
+
+# ---- the durable mutable serving stack on the card ---------------------------
+
+_MCFG = dict(n_subspaces=8, sqrt_k=16, kmeans_iters=4, seed=0, block_n=1024)
+
+
+def _mutable_stack(serve_data, device, root=None):
+    """A mutable fused engine (capacity 5,000) over the serving data, a
+    1-level ladder warmed at batches 1-4, ``AnnServer``, a
+    ``MutationManager``, and with ``root`` a ``Durability`` (no worker)."""
+    from repro_torch.serve import AnnServer, DegradationLadder, Durability, MutationManager
+
+    x, _, index, policy = serve_data
+    engine = suco.SuCoEngine(x, index, suco.EnginePolicy(**policy), capacity=5000,
+                             device=device)
+    ladder = DegradationLadder(engine, levels=1)
+    ladder.warmup(batch_sizes=range(1, 5), ks=(10,))
+    server = AnnServer(engine, max_batch=4, ladder=ladder)
+    manager = MutationManager(server, suco.SuCoConfig(**_MCFG), capacity_factor=1.25)
+    dur = None
+    if root is not None:
+        dur = Durability(root, start_worker=False).attach(server, manager)
+    return server, manager, dur
+
+
+def _mutate_stack(manager, seed=5):
+    manager.insert(gaussian_mixture(300, 32, seed))
+    manager.delete(torch.arange(0, 4000, 9).numpy())
+
+
+def _answers(engine, q):
+    res = engine.query(q, k=10)
+    return res.ids.cpu(), res.dists.cpu()
+
+
+def test_reindex_async_on_its_own_stream_equals_a_sync_reindex(dev, serve_data):
+    """The prepare runs on the manager's stream while this thread serves on
+    its own; the committed successor is bit for bit a synchronous build of
+    the same gather on this thread's stream, and its answers are too."""
+    from repro_torch.serve import AnnRequest, AnnServer, mutation
+    from repro_torch.serve.durability import fingerprint_diff, state_fingerprint
+    from repro_torch.kernels import _build
+
+    server, manager, _ = _mutable_stack(serve_data, dev)
+    _mutate_stack(manager)
+    q = serve_data[1]
+    serving = torch.cuda.current_stream(dev)
+    seen = {}
+    real = mutation.build_index
+
+    def spy(x, config, **kw):
+        seen["stream"] = torch.cuda.current_stream(dev)
+        seen["inference"] = torch.is_inference_mode_enabled()
+        return real(x, config, **kw)
+
+    mutation.build_index = spy
+    loaded = _build.loaded()
+    try:
+        job = manager.reindex_async()
+        served = 0
+        while not job.done or served == 0:
+            server.submit_many([AnnRequest(served + i, q[(served + i) % 40], k=10)
+                                for i in range(4)])
+            server.step()
+            served += 4
+        engine = manager.finish_reindex(timeout=600)
+    finally:
+        mutation.build_index = real
+    assert seen["stream"] != serving and seen["stream"] == job._stream
+    assert seen["inference"] and torch.cuda.current_stream(dev) == serving
+    assert all(r.done for r in server.completed)
+    assert _build.loaded() == loaded
+    prepared = manager._build_successor(job._gathered)  # synchronously, this stream
+    again = AnnServer(prepared.successor)
+    assert not fingerprint_diff(state_fingerprint(server), state_fingerprint(again))
+    for a, b in zip(_answers(engine, q[:16]), _answers(prepared.successor, q[:16])):
+        assert torch.equal(a, b)
+
+
+def test_durable_recover_on_the_card_is_bit_identical(dev, serve_data, tmp_path):
+    """Snapshot, insert, delete, re-index, insert, kill: ``recover`` on the
+    card gives the live stack's fingerprint and answers bit for bit, serving
+    with no new (bucket, k) pair."""
+    from repro_torch.serve import recover
+    from repro_torch.serve.durability import fingerprint_diff, state_fingerprint
+
+    server, manager, dur = _mutable_stack(serve_data, dev, tmp_path / "root")
+    dur.snapshot()
+    _mutate_stack(manager)
+    manager.reindex()
+    manager.insert(gaussian_mixture(50, 32, 6))
+    want = state_fingerprint(server, manager)
+    dur.abandon()
+    res = recover(tmp_path / "root", device=dev, start_worker=False)
+    assert res.server.engine.device.type == "cuda" and res.report.replayed == 1
+    assert not fingerprint_diff(state_fingerprint(res.server, res.manager), want)
+    q = serve_data[1]
+    exe = res.server.executables
+    for a, b in zip(_answers(res.server.engine, q[:4]), _answers(server.engine, q[:4])):
+        assert torch.equal(a, b)
+    assert res.server.executables == exe
+    res.durability.close()
+
+
+@pytest.mark.parametrize("point", ["wal.append.torn", "reindex.mid-prepare"])
+def test_durable_drill_on_the_card(dev, serve_data, tmp_path, point):
+    from repro_torch.serve import Durability, drill_steps, recovery_drill
+
+    def build(root, injector):
+        server, manager, _ = _mutable_stack(serve_data, dev)
+        dur = Durability(root, crash=injector, start_worker=False).attach(server, manager)
+        return server, manager, dur
+
+    rep = recovery_drill(tmp_path, build, drill_steps(32, seed=3), point,
+                         queries=serve_data[1][:4], k=10)
+    assert rep.fired and rep.lost_acked == 0 and rep.bit_identical and rep.answers_match
+    assert rep.retraces_after_warmup == 0 and rep.quality_bounds_match
+
+
+def test_warmup_during_a_reindex_waits_for_its_own_stream_only(dev, serve_data):
+    """A warm-up synchronises its thread's current stream, not the card: work
+    queued on another stream (a re-index prepare's) is still running when it
+    returns.  Its answers and pair count are a plain warm-up's."""
+    engine = _serve_engine(serve_data, dev)
+    engine.warmup(batch_sizes=(4,), ks=(10,))
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(2_000_000_000)  # about a second of spinning
+        busy = torch.cuda.Event()
+        busy.record(side)
+    assert engine.warmup(batch_sizes=(16,), ks=(10,)) == 1
+    assert not busy.query()  # the warm-up returned before the side stream finished
+    torch.cuda.synchronize(dev)
+    assert engine.compile_count == 2

@@ -13,7 +13,9 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 assert {"repro_torch.serve", "repro_torch.serve.ann", "repro_torch.core.theory",
-        "repro_torch.core.da_numpy", "repro_torch.data.datasets"} <= set(names), names
+        "repro_torch.core.da_numpy", "repro_torch.data.datasets",
+        "repro_torch.serve.mutation", "repro_torch.serve.durability",
+        "repro_torch.serve.chaos"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

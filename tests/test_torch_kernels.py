@@ -563,3 +563,62 @@ def test_build_names_libraries_by_source_hash_and_needs_nvcc(tmp_path, monkeypat
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("sc_score")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_first_load_from_two_threads_builds_and_loads_once(monkeypatch):
+    """A serving thread and a re-index prepare that first use one library at
+    once start one build and load it once; ``entry`` sets its argtypes once."""
+    import ctypes
+    import threading
+    import time
+
+    calls = {"start": 0, "finish": 0, "cdll": 0, "argtypes": 0}
+
+    class _Fn:
+        def __init__(self):
+            self._argtypes = None
+
+        @property
+        def argtypes(self):
+            return self._argtypes
+
+        @argtypes.setter
+        def argtypes(self, value):
+            calls["argtypes"] += 1
+            time.sleep(0.01)  # widen the window between check and set
+            self._argtypes = value
+
+    class _Lib:
+        def __init__(self, path):
+            calls["cdll"] += 1
+            self.repro_cuda_error_string = _Fn()
+            self.kernel = _Fn()
+
+    def start(name):
+        calls["start"] += 1
+        time.sleep(0.05)  # a build that takes time: the other thread arrives
+        return None
+
+    def finish(name, started):
+        calls["finish"] += 1
+
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(_build, "_start", start)
+    monkeypatch.setattr(_build, "_finish", finish)
+    monkeypatch.setattr(ctypes, "CDLL", _Lib)
+    barrier = threading.Barrier(4)
+    got = []
+
+    def first_use():
+        barrier.wait()
+        got.append(_build.entry("gather_rerank", "kernel", [ctypes.c_int]))
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    # one build, one load, the error-string and kernel argtypes set once each
+    assert calls == {"start": 1, "finish": 1, "cdll": 1, "argtypes": 2}
+    assert len(got) == 4 and all(fn is got[0] for fn in got)
+    assert _build.loaded() == ("gather_rerank",)

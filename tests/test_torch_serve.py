@@ -536,8 +536,9 @@ _OK = re.compile(r"#\s*host-sync: ok — \S")
 
 def host_syncs(source: str) -> list[tuple[int, str, bool]]:
     """``(line, what, annotated)`` for each ``.item()`` / ``.cpu()`` /
-    ``.numpy()`` / ``.tolist()`` call and each ``torch.cuda.synchronize``
-    in ``source``; annotated where the line carries ``# host-sync: ok —
+    ``.numpy()`` / ``.tolist()`` call, each ``torch.cuda.synchronize`` and
+    each ``.synchronize()`` call on any other object (a stream, an event) in
+    ``source``; annotated where the line carries ``# host-sync: ok —
     <reason>``."""
     lines = source.splitlines()
     found = []
@@ -548,6 +549,10 @@ def host_syncs(source: str) -> list[tuple[int, str, bool]]:
             what = f".{node.func.attr}()"
         elif isinstance(node, ast.Attribute) and ast.unparse(node) == "torch.cuda.synchronize":
             what = "torch.cuda.synchronize"
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "synchronize"
+              and ast.unparse(node.func) != "torch.cuda.synchronize"):
+            what = ".synchronize()"
         if what is not None:
             line = node.end_lineno if isinstance(node, ast.Call) else node.lineno
             found.append((line, what, bool(_OK.search(lines[line - 1]))))
@@ -556,7 +561,8 @@ def host_syncs(source: str) -> list[tuple[int, str, bool]]:
 
 def test_serve_package_host_syncs_are_annotated():
     files = sorted((ROOT / "src" / "repro_torch" / "serve").glob("*.py"))
-    assert {f.name for f in files} >= {"__init__.py", "ann.py"}
+    assert {f.name for f in files} >= {"__init__.py", "ann.py", "mutation.py", "durability.py",
+                                       "chaos.py"}
     flagged = {f.name: [s for s in host_syncs(f.read_text()) if not s[2]] for f in files}
     assert all(not v for v in flagged.values()), flagged
     ann = (ROOT / "src" / "repro_torch" / "serve" / "ann.py").read_text()
@@ -577,3 +583,16 @@ def test_host_sync_rule_flags_an_unannotated_copy():
     # a reason is required after the dash
     assert host_syncs(snippet) == [(3, ".cpu()", False), (4, ".item()", True),
                                    (5, "torch.cuda.synchronize", False), (6, ".tolist()", False)]
+
+
+def test_host_sync_rule_flags_synchronize_on_any_object():
+    snippet = ("import torch\n"
+               "def f(stream, ev, dev):\n"
+               "    stream.synchronize()\n"
+               "    ev.synchronize()  # host-sync: ok — a reason\n"
+               "    torch.cuda.current_stream(dev).synchronize()\n"
+               "    torch.cuda.synchronize(dev)\n"
+               "    ev.query()\n")
+    assert host_syncs(snippet) == [(3, ".synchronize()", False), (4, ".synchronize()", True),
+                                   (5, ".synchronize()", False),
+                                   (6, "torch.cuda.synchronize", False)]
