@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives eight paths, each with every kernel's launch count set to 0 just before
+drives nine paths, each with every kernel's launch count set to 0 just before
 it and read just after.  Seven run over SIFT1M's shape (n = 1,000,000,
 d = 128, data from ``gaussian_mixture``):
 
@@ -60,6 +60,18 @@ requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
 ``lm_cpu_recheck`` then runs a 2-layer model of the same width on the card
 and, with the same weights and the card's tokens, on the CPU.
 
+The ninth, ``lm_serve_dense``, runs last, after the kernel checks and the
+CPU re-check below (the profiler loses kernels far more often in traces
+taken after it), and serves Gemma2-9B (``get_config("gemma2-9b")``
+unchanged: 42 layers, d_model 3,584, 16 query and 8 KV heads of 256, d_ff
+14,336, vocab 256,000, local / global windows, softcaps, GeGLU, sandwich
+norms, tied embeddings) the same way and with the same traffic, the fp32
+master dropped once the server holds its bf16 compute tree; the path is
+PyTorch ops only and must launch no port kernel.  ``lm_cpu_recheck_dense``
+then runs a 2-layer Gemma2 of that width (``local_window`` 32, as
+``reduced_config`` sets it: layer 0 local, layer 1 global; a 64-token
+prompt, 8 tokens) on the card and on the CPU, held as ``lm_cpu_recheck``.
+
 It checks recall@10 against an exact k-NN, answers 8 queries of the fused
 (before and after mutation) and SC-Linear paths again on the CPU with the
 plain versions, and holds each kernel against its plain PyTorch version at
@@ -107,6 +119,7 @@ card, or outside a checkout of the repository, it fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -236,7 +249,8 @@ def device_ms(fn, reps: int, n: int = 5, warmup: int = 2) -> dict:
     counts at its mean time for the launches a call that its count rounds
     to; and a trace that shows fewer launches a call than the most any
     trace showed is taken again (``RETAKES`` times at most) before it
-    fails."""
+    falls back to CUDA events around ``reps`` back-to-back calls
+    (:func:`time_ms`), with ``clock`` saying which clock read the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -267,12 +281,15 @@ def device_ms(fn, reps: int, n: int = 5, warmup: int = 2) -> dict:
     for i in range(n):
         while sum(k for _, _, k in traces[i]) < most:
             if retakes == RETAKES or most < 1:
-                raise RuntimeError(f"device_ms: a trace kept missing kernels ({most} a call)")
+                warnings.warn(f"device_ms: a trace kept missing kernels ({most} a call); "
+                              "timed by CUDA events instead")
+                return dict(ms=time_ms(fn, reps), readings=[], events_per_call=most,
+                            events_lost=None, retakes=retakes, clock="cuda_events")
             traces[i], retakes = trace(), retakes + 1
     readings = [sum(mean * k for mean, _, k in t) / 1e3 for t in traces]
     lost = sum(k * reps - count for t in traces for _, count, k in t)
     return dict(ms=statistics.median(readings), readings=readings, events_per_call=most,
-                events_lost=lost, retakes=retakes)
+                events_lost=lost, retakes=retakes, clock="profiler")
 
 
 def timed(fn, reps: int) -> dict:
@@ -281,7 +298,7 @@ def timed(fn, reps: int) -> dict:
     (:func:`time_ms`), and the device readings."""
     dev = device_ms(fn, reps)
     return dict(ms=dev["ms"], call_ms=time_ms(fn, reps), ms_readings=dev["readings"],
-                device_events_per_call=dev["events_per_call"],
+                ms_clock=dev["clock"], device_events_per_call=dev["events_per_call"],
                 device_events_lost=dev["events_lost"], device_retakes=dev["retakes"])
 
 
@@ -552,7 +569,7 @@ def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int, seed: int) 
                                 bound_ms=bms, bound_by=by, launches_per_batch=len(chunks),
                                 ms_readings=[r / len(chunks) for r in t["ms_readings"]],
                                 device_events_lost=t["device_events_lost"],
-                                device_retakes=t["device_retakes"])
+                                device_retakes=t["device_retakes"], ms_clock=t["ms_clock"])
 
     # the L2 route: an index width whose one-query bitmap is past shared memory
     l2 = l2_route_inputs(dev, 16, 341, 8, tiles.block_n)
@@ -2470,7 +2487,7 @@ def check_linear_attn(dev, seed: int, bh: int = 256, t: int = 2048) -> dict:
         del o, st, po, ps, padded, args, mag
     main_case = out["rwkv6_prefill"]
     return dict(max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
-                call_ms=main_case["call_ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+                ms_clock=main_case["ms_clock"], call_ms=main_case["call_ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
                 bound_by=main_case["bound_by"], library_ms=None,
                 detail=dict(out, fp32_bound_ms=main_case["fp32_bound_ms"],
                             equal_bits=equal_bits, dk_limits=linear_attn_dk_limits()))
@@ -2497,13 +2514,15 @@ def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
-def lm_serve_phase(dev, seed: int, cfg, n_req: int = 16, slots: int = 8,
-                   prompt_len: int = 2048, gen_len: int = 32) -> dict:
-    """RWKV6 served through the port's ``Server``: fp32 master weights drawn
-    on the card from ``seed``, ``n_req`` requests of ``prompt_len`` random
-    tokens in batches of ``slots``, ``gen_len`` greedy tokens each; then one
-    prefill batch and one decode step under the profiler.  Returns the
-    path's launches."""
+def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16,
+                   slots: int = 8, prompt_len: int = 2048, gen_len: int = 32) -> dict:
+    """``cfg`` served through the port's ``Server``: fp32 master weights
+    drawn on the card from ``seed`` and dropped once the server holds its
+    compute tree, ``n_req`` requests of ``prompt_len`` random tokens in
+    batches of ``slots``, ``gen_len`` greedy tokens each; then one prefill
+    batch and one decode step under the profiler.  RWKV6 (``ssm``) must
+    launch row 11 once a layer per prefill batch; a dense model runs no port
+    kernel, and must launch none.  Returns the path's launches."""
     import numpy as np
     import torch
 
@@ -2514,7 +2533,9 @@ def lm_serve_phase(dev, seed: int, cfg, n_req: int = 16, slots: int = 8,
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(dev).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves(params))
     server = Server(model, params, slots, prompt_len + gen_len + 1)
+    del params  # the fp32 master's linear weights (37 GB at Gemma2-9B)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
@@ -2529,26 +2550,29 @@ def lm_serve_phase(dev, seed: int, cfg, n_req: int = 16, slots: int = 8,
     run_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check_launched("lm_serve", launches)
     batches = len(server.timings)
-    if launches["linear_attn"] != cfg.n_layers * batches:
-        raise AssertionError(f"linear_attn launched {launches['linear_attn']} times, not "
-                             f"{cfg.n_layers} per prefill batch")
+    if cfg.family == "ssm":
+        check_launched(phase, launches)
+        if launches["linear_attn"] != cfg.n_layers * batches:
+            raise AssertionError(f"linear_attn launched {launches['linear_attn']} times, not "
+                                 f"{cfg.n_layers} per prefill batch")
+    elif any(launches.values()):
+        raise AssertionError(f"{phase} launched a port kernel: {launches}")
     tokens = np.array([r.generated for r in done])
     if tokens.shape != (n_req, gen_len) or not (tokens < cfg.vocab_size).all():
         raise AssertionError("the server's answers are not gen_len in-vocabulary tokens each")
     decode_ms = [1e3 * x for tm in server.timings for x in tm["decode_s"]]
     toks = torch.as_tensor(prompts[:slots], device=dev)
-    logits, cache = model.prefill(server.params, toks)
+    logits, cache = model.prefill(server.params, toks, max_seq=server.max_seq)
     if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
         raise AssertionError("prefill logits are not finite")
     nxt = logits.argmax(-1)
-    prof = dict(prefill=profile_batch(lambda: model.prefill(server.params, toks)),
+    prof = dict(prefill=profile_batch(
+                    lambda: model.prefill(server.params, toks, max_seq=server.max_seq)),
                 decode_step=profile_batch(
                     lambda: model.decode_step(server.params, cache, nxt, prompt_len)))
-    emit(dict(phase="lm_serve", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-              vocab=cfg.vocab_size, dtype=cfg.dtype,
-              params=sum(t.numel() for t in leaves(params)), init_seconds=init_s,
+    emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+              vocab=cfg.vocab_size, dtype=cfg.dtype, params=n_params, init_seconds=init_s,
               requests=n_req, slots=slots, prompt_len=prompt_len, gen_len=gen_len,
               prefill_seconds_per_batch=[tm["prefill_s"] for tm in server.timings],
               decode_ms_median=float(np.median(decode_ms)), decode_ms_p90=float(
@@ -2556,7 +2580,7 @@ def lm_serve_phase(dev, seed: int, cfg, n_req: int = 16, slots: int = 8,
               run_seconds=run_s, generated_tokens_per_s=tokens.size / run_s,
               max_memory_allocated=peak, linear_attn_launches=launches["linear_attn"],
               launches=launches, profile=prof, first_tokens=tokens[:2, :8].tolist()))
-    del params, server, cache, logits
+    del server, cache, logits
     torch.cuda.empty_cache()
     return launches
 
@@ -2572,7 +2596,7 @@ def _forced(model, params, prompt, tokens):
     step fed ``tokens`` in turn (teacher forcing)."""
     import torch
 
-    logits, cache = model.prefill(params, prompt)
+    logits, cache = model.prefill(params, prompt, max_seq=prompt.shape[1] + tokens.shape[1])
     out = [logits.float().cpu()]
     for i in range(tokens.shape[1] - 1):
         logits, cache = model.decode_step(params, cache, tokens[:, i], prompt.shape[1] + i)
@@ -2580,7 +2604,8 @@ def _forced(model, params, prompt, tokens):
     return torch.stack(out)
 
 
-def lm_cpu_recheck_phase(dev, seed: int, cfg, prompt_len: int = 64, gen_len: int = 8) -> dict:
+def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
+                         prompt_len: int = 64, gen_len: int = 8) -> dict:
     """A 2-layer model of ``cfg``'s full width, one request of
     ``prompt_len`` tokens and ``gen_len`` greedy tokens on the card; the
     same weights on the CPU, fed the card's tokens.  Tolerance: the model's
@@ -2589,7 +2614,6 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, prompt_len: int = 64, gen_len: int
     within ``tol`` of the CPU's, and each of the card's tokens must be the
     CPU's greedy token, or a near tie there (top two within twice the
     card-CPU distance at that step)."""
-    import dataclasses
 
     import numpy as np
     import torch
@@ -2624,14 +2648,18 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, prompt_len: int = 64, gen_len: int
     top2 = cpu.topk(2, dim=-1).values
     near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * dist
     equal = greedy == want
-    emit(dict(phase="lm_cpu_recheck", layers=2, d_model=cfg.d_model, vocab=v,
+    emit(dict(phase=phase, model=cfg.name, layers=2, d_model=cfg.d_model, vocab=v,
               prompt_len=prompt_len, gen_len=gen_len, seconds_cpu=cpu_s,
               linear_attn_launches=launches["linear_attn"], card_tokens=req.generated,
               cpu_greedy_tokens=greedy[:, 0].tolist(), tokens_equal=int(equal.sum()),
               near_ties=int((~equal & near_tie).sum()), max_abs_logit_diff=float(dist.max()),
               tolerance_bf16_vs_fp32=tol, logit_scale=float(cpu.abs().max())))
-    if launches["linear_attn"] != 2 or not torch.isfinite(card).all():
-        raise AssertionError("the 2-layer card run did not go through the kernel once a layer")
+    want_launches = dict.fromkeys(launches, 0)
+    if cfg.family == "ssm":
+        want_launches["linear_attn"] = 2
+    if launches != want_launches or not torch.isfinite(card).all():
+        raise AssertionError(f"the 2-layer card run launched {launches}, not {want_launches}, "
+                             "or its logits are not finite")
     if not (float(dist.max()) <= tol and (equal | near_tie).all()):
         raise AssertionError("the card's logits or greedy tokens disagree with the CPU's")
     return dict(tokens_equal=int(equal.sum()), steps=gen_len)
@@ -2773,6 +2801,17 @@ def main() -> int:
     emit(dict(phase="cpu_recheck", seconds=time.perf_counter() - t0,
               **same_answers(card_res, cpu_res)))
 
+    # 13. the dense LM family: Gemma2-9B served at full width, then a 2-layer
+    # Gemma2 of that width (layer 0 local at reduced_config's window of 32,
+    # layer 1 global) on the card and again on the CPU.  Last, after every
+    # kernel is timed: traces taken after it lose their kernels far more often
+    del cpu_engine, cpu_res, card_res
+    dense_cfg = get_config("gemma2-9b")
+    launches_by_path["lm_serve_dense"] = lm_serve_phase(dev, args.seed, dense_cfg,
+                                                        phase="lm_serve_dense")
+    lm_cpu_recheck_phase(dev, args.seed, dataclasses.replace(dense_cfg, local_window=32),
+                         phase="lm_cpu_recheck_dense")
+
     rows = []
     for name, (src, replaces) in SOURCES.items():
         rec_ = checks[name]
@@ -2782,7 +2821,8 @@ def main() -> int:
                          path=path,
                          launches_by_path={p_: c[name] for p_, c in launches_by_path.items()},
                          max_abs_err=rec_["max_abs_err"],
-                         ms=rec_["ms"], call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
+                         ms=rec_["ms"], ms_clock=rec_.get("ms_clock"),
+                         call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
                          bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
                          library_ms=rec_["library_ms"]))
         extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point",
@@ -2804,6 +2844,7 @@ def main() -> int:
             rows[-1][variant] = {key: other[key] for key in (
                 "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
+            rows[-1][variant]["ms_clock"] = other.get("ms_clock")
             rows[-1][variant].update({key: other["detail"][key] for key in (*extras, "launches")
                                       if key in other.get("detail", {})})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))

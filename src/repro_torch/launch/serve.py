@@ -1,10 +1,10 @@
 """Serving driver: batched prefill + greedy decode over fixed slots (the
 counterpart of ``repro.launch.serve``).
 
-On the card, the full RWKV6-1.6B:
-  PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
+On the card, Gemma2-9B (or ``--arch rwkv6-1.6b``) at full width:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --no-reduced \
       --requests 16 --slots 8 --prompt-len 2048 --gen-len 32
-On the CPU, the reduced config:
+On the CPU, the reduced config of the default arch, granite-3-2b:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 
 ``--reduced`` is a ``BooleanOptionalAction`` with the reference's default
@@ -83,7 +83,7 @@ class Server:
 
 def main(argv: list[str] | None = None) -> list[Request]:
     ap = argparse.ArgumentParser(description="batched prefill + greedy decode")
-    ap.add_argument("--arch", default="rwkv6-1.6b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)

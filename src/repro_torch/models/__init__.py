@@ -1,5 +1,6 @@
-"""The LM stack of the port: the ``ssm`` family (RWKV6) for serving, the
-counterpart of ``repro.models``."""
+"""The LM stack of the port: the ``dense`` family (qwen1.5, phi4-mini,
+granite, Gemma2) and the ``ssm`` family (RWKV6) for serving, the counterpart
+of ``repro.models``."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import SHAPES, Model, ShapeSpec

@@ -1,8 +1,12 @@
-"""Backbone assembly for the ``ssm`` family (RWKV6): parameters stacked on
-a leading layer axis, the full-sequence forward pass and the logits of one
-position.  The counterpart of ``repro.models.backbone``; where the reference
-scans over the stacked layer axis, the port loops over layers in Python.
-The other families, ``chunked_ce_loss`` and training are not ported yet
+"""Backbone assembly for the ``dense`` family (qwen1.5, phi4-mini, granite,
+Gemma2) and the ``ssm`` family (RWKV6): parameters stacked on a leading
+layer axis, the full-sequence forward pass and the logits of one position.
+The counterpart of ``repro.models.backbone``; where the reference scans over
+the stacked layer axis, the port loops over layers in Python, so a layer's
+attention window is a Python ``int`` or ``None`` (global) and one
+``flash_attention`` serves every layer (the reference's traced-window twin,
+``_flash_dynwin``, has no counterpart).  The ``moe``, ``hybrid``, ``audio``
+and ``vlm`` families, ``chunked_ce_loss`` and training are not ported yet
 (ROADMAP queue 1).
 """
 
@@ -17,16 +21,16 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
-__all__ = ["init_params", "init_rwkv_block", "forward_hidden", "logits_for_position",
-           "layer_params", "check_family"]
+__all__ = ["init_params", "init_dense_block", "init_rwkv_block", "forward_hidden",
+           "logits_for_position", "layer_params", "check_family"]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``'s family (only ``ssm`` so far)."""
-    if cfg.family != "ssm":
+    """Raise unless the port serves ``cfg``'s family (``dense`` or ``ssm``)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port serves the "
-            "'ssm' family (RWKV6) only (see ROADMAP.md, queue 1)")
+            "'dense' family and the 'ssm' family (RWKV6) only (see ROADMAP.md, queue 1)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -39,6 +43,27 @@ def _stack_init(generator: torch.Generator, n: int, init_fn) -> Params:
     reference vmaps one init over ``n`` keys; the distributions are the
     same)."""
     return init_fn(generator, (n,))
+
+
+def init_dense_block(generator: torch.Generator, cfg: ModelConfig,
+                     lead: tuple[int, ...] = ()) -> Params:
+    """Attention and MLP with their pre-norms, and Gemma2's post-norms
+    (``sandwich_norm``).  A ``moe`` config raises: its MoE layer is not
+    ported yet."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the 'moe' block is not ported yet (see ROADMAP.md, queue 1)")
+    dev = generator.device
+    p = {
+        "ln1": L.init_norm(cfg, lead=lead, device=dev),
+        "attn": L.init_attention(generator, cfg, lead=lead),
+        "ln2": L.init_norm(cfg, lead=lead, device=dev),
+        "mlp": L.init_mlp(generator, cfg, lead),
+    }
+    if cfg.sandwich_norm:
+        p["ln1_post"] = L.init_norm(cfg, lead=lead, device=dev)
+        p["ln2_post"] = L.init_norm(cfg, lead=lead, device=dev)
+    return p
 
 
 def init_rwkv_block(generator: torch.Generator, cfg: ModelConfig,
@@ -66,8 +91,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(generator, d, cfg.padded_vocab)
-    p["blocks"] = _stack_init(generator, cfg.n_layers,
-                              lambda g, lead: init_rwkv_block(g, cfg, lead))
+    block = init_dense_block if cfg.family == "dense" else init_rwkv_block
+    p["blocks"] = _stack_init(generator, cfg.n_layers, lambda g, lead: block(g, cfg, lead))
     return p
 
 
@@ -77,19 +102,48 @@ def layer_params(blocks: Params, i: int) -> Params:
 
 
 def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows in the compute dtype; Gemma's ``embed_scale``
+    multiplies them by ``sqrt(d_model)`` rounded to that dtype, as the
+    reference's weakly typed constant is."""
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     if cfg.embed_scale:
-        x = x * math.sqrt(cfg.d_model)
+        x = x * L._scalar(math.sqrt(cfg.d_model), x)
     return x
 
 
+def _dense_block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     window: int | None) -> torch.Tensor:
+    h = L.attn_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, window=window)
+    if cfg.sandwich_norm:
+        h = L.apply_norm(p["ln1_post"], h, cfg)
+    x = x + h
+    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    if cfg.sandwich_norm:
+        y = L.apply_norm(p["ln2_post"], y, cfg)
+    return x + y
+
+
+def _layer_windows(cfg: ModelConfig) -> list[int | None]:
+    """Each layer's attention window, ``None`` for a global layer: Gemma2's
+    even layers are local (``local_global``), a ``sliding_window`` applies
+    to every layer."""
+    if cfg.local_global:
+        return [cfg.local_window if i % 2 == 0 else None for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """``tokens: (B, S)`` -> final hidden states ``(B, S, D)``, through the
-    ``(B, H, T, D)`` entry of the linear-attention kernel."""
+    """``tokens: (B, S)`` -> final hidden states ``(B, S, D)``; the ``ssm``
+    family goes through the ``(B, H, T, D)`` entry of the linear-attention
+    kernel."""
     check_family(cfg)
     x = embed(cfg, params, tokens)
+    windows = _layer_windows(cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
+        if cfg.family == "dense":
+            x = _dense_block_fwd(p, x, cfg, windows[i])
+            continue
         x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)
         x = x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
     return L.apply_norm(params["final_norm"], x, cfg)

@@ -1,10 +1,15 @@
-"""Single-token decode with the ``ssm`` family's cache (the counterpart of
-``repro.models.decode``):
+"""Single-token decode with the ``dense`` and ``ssm`` families' caches (the
+counterpart of ``repro.models.decode``):
 
+  dense       {"k", "v": (L, B, Hkv, Smax, hd)}  in the cache dtype
   ssm (rwkv6) {"prev1", "prev2": (L, B, D), "wkv": (L, B, H, hd, hd) f32}
 
-The state is O(1) in context length.  The reference scans over the stacked
-layer axis; the port loops over layers and stacks the new cache.
+The dense cache is updated **in place**: each step writes the new token's
+K / V at ``pos`` into the tensors it was given (the reference's
+``dynamic_update_slice`` under its server's buffer donation), so a step
+moves no copy of the cache.  The ``ssm`` state is O(1) in context length and
+is left as it was: the step returns a new one.  The reference scans over the
+stacked layer axis; the port loops over layers.
 """
 
 from __future__ import annotations
@@ -13,7 +18,13 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.backbone import check_family, embed, layer_params, logits_for_position
+from repro_torch.models.backbone import (
+    _layer_windows,
+    check_family,
+    embed,
+    layer_params,
+    logits_for_position,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
@@ -22,8 +33,13 @@ __all__ = ["init_cache", "decode_step"]
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
                device: torch.device | str = "cuda") -> Params:
-    """An all-zero cache (``max_seq`` goes unused: the state does not grow)."""
+    """An all-zero cache (the ``ssm`` state does not grow, so it ignores
+    ``max_seq``)."""
     check_family(cfg)
+    if cfg.family == "dense":
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     d, h = cfg.d_model, cfg.n_heads
     hd = d // h
     return {
@@ -39,11 +55,27 @@ def decode_step(
     params: Params,
     cache: Params,
     token: torch.Tensor,  # (B,)
-    pos: int,  # current write position (unused by the ssm state)
+    pos: int,  # current write position
 ) -> tuple[torch.Tensor, Params]:
-    """-> ``(logits (B, V) f32, new cache)``; ``cache`` is left as it was."""
+    """-> ``(logits (B, V) f32, cache)``.  A dense ``cache`` is written in
+    place at ``pos`` and returned; an ``ssm`` ``cache`` is left as it was
+    and a new one returned."""
     check_family(cfg)
     x = embed(cfg, params, token)  # (B, D)
+    if cfg.family == "dense":
+        for i, window in enumerate(_layer_windows(cfg)):
+            x = _dense_block_decode(layer_params(params["blocks"], i), x, cache["k"][i],
+                                    cache["v"][i], pos, cfg, window)
+    else:
+        x, cache = _rwkv_decode(cfg, params, cache, x)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return logits_for_position(cfg, params, x), cache
+
+
+def _rwkv_decode(cfg: ModelConfig, params: Params, cache: Params,
+                 x: torch.Tensor) -> tuple[torch.Tensor, Params]:
+    """The RWKV6 layers for ``x: (B, D)``; ``cache`` is left as it was and a
+    new one returned."""
     prev1, prev2, wkv = [], [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
@@ -57,7 +89,20 @@ def decode_step(
         prev1.append(np1.to(p1.dtype))
         prev2.append(np2.to(p2.dtype))
         wkv.append(state)
-    new_cache = dict(cache, prev1=torch.stack(prev1), prev2=torch.stack(prev2),
-                     wkv=torch.stack(wkv))
-    x = L.apply_norm(params["final_norm"], x, cfg)
-    return logits_for_position(cfg, params, x), new_cache
+    return x, dict(cache, prev1=torch.stack(prev1), prev2=torch.stack(prev2),
+                   wkv=torch.stack(wkv))
+
+
+def _dense_block_decode(p: Params, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                        pos: int, cfg: ModelConfig, window: int | None) -> torch.Tensor:
+    """One dense layer for ``x: (B, D)``; ``ck`` / ``cv`` (the layer's views
+    of the cache) are written in place at ``pos``."""
+    h = L.attn_decode(p["attn"], L.apply_norm(p["ln1"], x[:, None], cfg), ck, cv, pos, cfg,
+                      window=window)[0][:, 0]
+    if cfg.sandwich_norm:
+        h = L.apply_norm(p["ln1_post"], h, cfg)
+    x = x + h
+    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x[:, None], cfg), cfg)[:, 0]
+    if cfg.sandwich_norm:
+        y = L.apply_norm(p["ln2_post"], y, cfg)
+    return x + y

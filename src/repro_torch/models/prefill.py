@@ -1,10 +1,13 @@
 """Prefill: the full-sequence forward pass that also builds the decode
-cache, for the ``ssm`` family (the counterpart of ``repro.models.prefill``).
+cache, for the ``dense`` and ``ssm`` families (the counterpart of
+``repro.models.prefill``).
 
 Returns ``(last-token logits, cache)`` with the cache laid out as
-:func:`repro_torch.models.decode.init_cache`: ``prev1`` / ``prev2`` (the
-last normalised input of each layer's two mixes) in the cache dtype and
-``wkv`` (the linear-attention state) in fp32.
+:func:`repro_torch.models.decode.init_cache`: for ``dense``, ``k`` / ``v``
+``(L, B, Hkv, max_seq, hd)`` in the cache dtype, keys after RoPE, zero past
+the prompt; for ``ssm``, ``prev1`` / ``prev2`` (the last normalised input of
+each layer's two mixes) in the cache dtype and ``wkv`` (the linear-attention
+state) in fp32.
 """
 
 from __future__ import annotations
@@ -14,7 +17,13 @@ import torch
 from repro_torch.kernels.linear_attn.ops import linear_attention_with_state
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.backbone import check_family, embed, layer_params, logits_for_position
+from repro_torch.models.backbone import (
+    _layer_windows,
+    check_family,
+    embed,
+    layer_params,
+    logits_for_position,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
@@ -30,11 +39,22 @@ def prefill(
     max_seq: int | None = None,
     cache_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, Params]:
-    """``extras`` and ``max_seq`` are the reference's arguments for the
-    families with an encoder or a KV cache; the ``ssm`` state does not grow
-    with the sequence, so both go unused."""
+    """``extras`` is the reference's argument for the families with an
+    encoder (none ported yet) and goes unused.  ``max_seq`` (the prompt's
+    length by default) sizes the dense KV cache; the ``ssm`` state does not
+    grow with the sequence and ignores it."""
     check_family(cfg)
     x = embed(cfg, params, tokens)
+    if cfg.family == "dense":
+        x, cache = _dense_prefill(cfg, params, x, max_seq or tokens.shape[1], cache_dtype)
+    else:
+        x, cache = _rwkv_prefill(cfg, params, x, cache_dtype)
+    x_last = L.apply_norm(params["final_norm"], x[:, -1:], cfg)[:, 0]
+    return logits_for_position(cfg, params, x_last), cache
+
+
+def _rwkv_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                  cache_dtype: torch.dtype) -> tuple[torch.Tensor, Params]:
     prev1, prev2, wkv = [], [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
@@ -46,9 +66,7 @@ def prefill(
         prev1.append(xn1[:, -1].to(cache_dtype))
         prev2.append(xn2[:, -1].to(cache_dtype))
         wkv.append(state)
-    cache = {"prev1": torch.stack(prev1), "prev2": torch.stack(prev2), "wkv": torch.stack(wkv)}
-    x_last = L.apply_norm(params["final_norm"], x[:, -1:], cfg)[:, 0]
-    return logits_for_position(cfg, params, x_last), cache
+    return x, {"prev1": torch.stack(prev1), "prev2": torch.stack(prev2), "wkv": torch.stack(wkv)}
 
 
 def _rwkv_time_mix_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig):
@@ -68,3 +86,54 @@ def _rwkv_time_mix_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig):
     o, state = linear_attention_with_state(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
                                            u_b, shift=1)
     return S._group_norm_out(p, o.reshape(b, h, t, hd), g), state.reshape(b, h, hd, hd)
+
+
+def _kv(p: Params, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor | None = None):
+    """K (after RoPE where ``positions`` are given) and V, ``(B, Hkv, S, hd)``."""
+    dtype = xn.dtype
+    k = L._split_heads(L.linear(p["wk"], xn, dtype), cfg.n_kv_heads)
+    v = L._split_heads(L.linear(p["wv"], xn, dtype), cfg.n_kv_heads)
+    if cfg.use_rope and positions is not None:
+        k = L.rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _self_attn_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, window: int | None):
+    """Self-attention that also returns ``(k, v)`` for the cache."""
+    dtype = x.dtype
+    b, s, _ = x.shape
+    q = L._split_heads(L.linear(p["wq"], x, dtype), cfg.n_heads)
+    pos = torch.arange(s, device=x.device)
+    k, v = _kv(p, x, cfg, positions=pos)
+    if cfg.use_rope:
+        q = L.rope(q, pos, cfg.rope_theta)
+    o = L.flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
+    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return L.linear(p["wo"], o, dtype), k, v
+
+
+def _dense_block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, window: int | None):
+    xn = L.apply_norm(p["ln1"], x, cfg)
+    h, k, v = _self_attn_with_kv(p["attn"], xn, cfg, window)
+    if cfg.sandwich_norm:
+        h = L.apply_norm(p["ln1_post"], h, cfg)
+    x = x + h
+    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    if cfg.sandwich_norm:
+        y = L.apply_norm(p["ln2_post"], y, cfg)
+    return x + y, k, v
+
+
+def _dense_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: int,
+                   cache_dtype: torch.dtype) -> tuple[torch.Tensor, Params]:
+    """The dense layers over ``x: (B, S, D)``; the cache is allocated once,
+    zero, and each layer's K / V is written into its first ``S`` positions
+    (stacking the layers and then padding would hold a second cache)."""
+    b, s, _ = x.shape
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    cache = {name: torch.zeros(shape, dtype=cache_dtype, device=x.device) for name in "kv"}
+    for i, window in enumerate(_layer_windows(cfg)):
+        x, k, v = _dense_block_prefill(layer_params(params["blocks"], i), x, cfg, window)
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+    return x, cache

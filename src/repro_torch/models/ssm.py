@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.linear_attn.ops import linear_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Params, init_linear, linear
+from repro_torch.models.layers import Params, _sigmoid, _silu, init_linear, linear
 
 __all__ = [
     "init_rwkv_time_mix", "rwkv_time_mix", "init_rwkv_channel_mix",
@@ -47,18 +47,6 @@ def init_rwkv_time_mix(generator: torch.Generator, cfg: ModelConfig,
         "w_b": normal(lora, d) * 0.01,
         "u": normal(d) * 0.1,  # bonus
     }
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 + exp(-x))`` one step at a time in ``x``'s dtype: the
-    reference's ``jax.nn.sigmoid``, so a bf16 value rounds where the
-    reference's does (``torch.sigmoid`` rounds once and differs from it on a
-    third of bf16 inputs)."""
-    return 1 / (1 + torch.exp(-x))
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    return x * _sigmoid(x)
 
 
 def _token_shift(x: torch.Tensor) -> torch.Tensor:

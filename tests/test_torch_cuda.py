@@ -16,8 +16,8 @@ index exactly and its answers up to fp-distance ties.  The wide variants of
 rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
 at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
-bf16 ulp in bf16 (sums in another order), and the reduced RWKV6 model on
-the card gives the CPU's logits.  Row 3 also runs on skewed inputs (one
+bf16 ulp in bf16 (sums in another order), and the reduced RWKV6, granite
+and Gemma2 models on the card give the CPU's logits.  Row 3 also runs on skewed inputs (one
 centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
 which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
 launches give equal bits and the screened kernel's best distances equal the
@@ -1400,12 +1400,50 @@ def test_rwkv_model_on_the_card_equals_the_cpu(dev):
     torch.testing.assert_close(hc.cpu(), hp, rtol=1e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b"])
+def test_dense_model_on_the_card_equals_the_cpu(dev, arch):
+    """Reduced granite (GQA 4) and Gemma2 (GQA 2, local / global windows at
+    a prompt past the window, softcaps, GeGLU) in fp32: prefill into an fp32
+    cache, two decode steps with the cache written in place, the forward
+    pass; no port kernel is launched on this path."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model, backbone
+    from repro_torch.models import prefill as P
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    card = _to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(33))
+    kernels.reset_launch_counts()
+    lc, cache_c = P.prefill(cfg, card, toks.to(dev), max_seq=43, cache_dtype=torch.float32)
+    lp, cache_p = P.prefill(cfg, params, toks, max_seq=43, cache_dtype=torch.float32)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=2e-4)
+    ptr = cache_c["k"].data_ptr()
+    nxt = lp.argmax(-1)
+    for pos in (40, 41):
+        dc, cache_c = model.decode_step(card, cache_c, nxt.to(dev), pos)
+        dp, cache_p = model.decode_step(params, cache_p, nxt, pos)
+        torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=2e-4)
+        nxt = dp.argmax(-1)
+    assert cache_c["k"].data_ptr() == ptr
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache_c[name].cpu(), cache_p[name], rtol=1e-3, atol=2e-4)
+    hc = backbone.forward_hidden(cfg, card, toks.to(dev))
+    torch.testing.assert_close(hc.cpu(), backbone.forward_hidden(cfg, params, toks),
+                               rtol=1e-3, atol=2e-4)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
 def test_init_cache_defaults_to_the_card(dev):
     from repro_torch.configs import reduced_config
     from repro_torch.models import Model
 
-    cache = Model(reduced_config("rwkv6-1.6b")).init_cache(2, 8)
-    assert all(t.is_cuda for t in cache.values())
+    for arch in ("rwkv6-1.6b", "gemma2-9b"):
+        cache = Model(reduced_config(arch)).init_cache(2, 8)
+        assert all(t.is_cuda for t in cache.values())
 
 
 def _to(tree, dev):

@@ -472,7 +472,8 @@ def test_init_draws_the_reference_shapes_and_scales():
     assert compute["blocks"]["time_mix"]["w_a"] is params["blocks"]["time_mix"]["w_a"]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if get_config(a).family not in ("ssm", "dense")])
 def test_model_refuses_the_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(reduced_config(arch))
@@ -496,4 +497,4 @@ def test_serve_main_runs_on_the_cpu(capsys):
     done = serve.main(["--device", "cpu", "--reduced", "--requests", "3", "--slots", "2",
                        "--prompt-len", "9", "--gen-len", "4"])
     assert len(done) == 3 and all(len(r.generated) == 4 and r.done for r in done)
-    assert "[serve] rwkv6-1.6b on cpu: 3 requests, 12 tokens" in capsys.readouterr().out
+    assert "[serve] granite-3-2b on cpu: 3 requests, 12 tokens" in capsys.readouterr().out
