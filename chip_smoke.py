@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives nine paths, each with every kernel's launch count set to 0 just before
+drives ten paths, each with every kernel's launch count set to 0 just before
 it and read just after.  Seven run over SIFT1M's shape (n = 1,000,000,
 d = 128, data from ``gaussian_mixture``):
 
@@ -60,7 +60,19 @@ requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
 ``lm_cpu_recheck`` then runs a 2-layer model of the same width on the card
 and, with the same weights and the card's tokens, on the CPU.
 
-The ninth, ``lm_serve_dense``, runs last, after the kernel checks and the
+The ninth, ``lm_serve_hybrid``, runs after the kernel checks and the CPU
+re-check below and serves Zamba2-1.2B (``get_config("zamba2-1.2b")``
+unchanged: 38 Mamba2 layers, d_model 2,048, 32 heads, inner width 4,096,
+state 64, conv 4, and one shared dense block, 32 heads of 64 with SwiGLU
+d_ff 8,192, applied after every 6th layer; vocab 32,000) with the same
+traffic, the fp32 master dropped once the server holds its compute tree;
+each prefill batch must launch row 11 (in SSD mode) once a Mamba2 layer, 38
+times, and no other port kernel.  ``lm_cpu_recheck_hybrid`` then runs 3
+layers of that width at period 2 (one unit and a tail layer, so the shared
+block and its KV cache run; a 64-token prompt, 8 tokens) on the card and
+on the CPU, held as ``lm_cpu_recheck``.
+
+The tenth, ``lm_serve_dense``, runs last, after the kernel checks and the
 CPU re-check below (the profiler loses kernels far more often in traces
 taken after it), and serves Gemma2-9B (``get_config("gemma2-9b")``
 unchanged: 42 layers, d_model 3,584, 16 query and 8 KV heads of 256, d_ff
@@ -112,7 +124,9 @@ kernel: its launches on its path, its error against the plain version, its
 time, the plain version's time, the card's bound for the same work, and a
 library call's time where one PyTorch call computes the same function); then
 ``nvidia-smi``'s name and power limit; last, ``{"ok": true, "device": ...}``.
-Any failure raises, exits non-zero and prints no last line.  Without a CUDA
+Row 11's entry also carries an ``ssd`` variant, its
+check at Zamba2's SSD shape.  Any failure raises, exits non-zero and prints
+no last line.  Without a CUDA
 card, or outside a checkout of the repository, it fails.
 """
 
@@ -2520,9 +2534,10 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
     drawn on the card from ``seed`` and dropped once the server holds its
     compute tree, ``n_req`` requests of ``prompt_len`` random tokens in
     batches of ``slots``, ``gen_len`` greedy tokens each; then one prefill
-    batch and one decode step under the profiler.  RWKV6 (``ssm``) must
-    launch row 11 once a layer per prefill batch; a dense model runs no port
-    kernel, and must launch none.  Returns the path's launches."""
+    batch and one decode step under the profiler.  RWKV6 (``ssm``) and
+    Zamba2 (``hybrid``) must launch row 11 once a layer per prefill batch
+    and no other port kernel; a dense model runs no port kernel, and must
+    launch none.  Returns the path's launches."""
     import numpy as np
     import torch
 
@@ -2551,13 +2566,12 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     batches = len(server.timings)
-    if cfg.family == "ssm":
-        check_launched(phase, launches)
-        if launches["linear_attn"] != cfg.n_layers * batches:
-            raise AssertionError(f"linear_attn launched {launches['linear_attn']} times, not "
-                                 f"{cfg.n_layers} per prefill batch")
-    elif any(launches.values()):
-        raise AssertionError(f"{phase} launched a port kernel: {launches}")
+    want = dict.fromkeys(launches, 0)
+    if cfg.family in ("ssm", "hybrid"):
+        want["linear_attn"] = cfg.n_layers * batches
+    if launches != want:
+        raise AssertionError(f"{phase} launched {launches}, not {want} (row 11 once a layer "
+                             "per prefill batch for ssm and hybrid, else no port kernel)")
     tokens = np.array([r.generated for r in done])
     if tokens.shape != (n_req, gen_len) or not (tokens < cfg.vocab_size).all():
         raise AssertionError("the server's answers are not gen_len in-vocabulary tokens each")
@@ -2606,14 +2620,16 @@ def _forced(model, params, prompt, tokens):
 
 def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
                          prompt_len: int = 64, gen_len: int = 8) -> dict:
-    """A 2-layer model of ``cfg``'s full width, one request of
+    """``cfg`` (a few layers at a served model's full width, cut by the
+    caller), one request of
     ``prompt_len`` tokens and ``gen_len`` greedy tokens on the card; the
     same weights on the CPU, fed the card's tokens.  Tolerance: the model's
     own bf16 error, ``tol`` = the largest distance of the CPU's bf16 logits
     from its fp32 logits on the same weights.  The card's logits must lie
     within ``tol`` of the CPU's, and each of the card's tokens must be the
     CPU's greedy token, or a near tie there (top two within twice the
-    card-CPU distance at that step)."""
+    card-CPU distance at that step).  The ``ssm`` and ``hybrid`` models must
+    launch row 11 once a layer in the card's run, the others nothing."""
 
     import numpy as np
     import torch
@@ -2622,8 +2638,7 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import Model
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    model = Model(cfg2)
+    model = Model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(seed + 10))
     prompt = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, (1, prompt_len))
     kernels.reset_launch_counts()
@@ -2636,7 +2651,7 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     cpu_params = _to(params, "cpu")
     del params, server
     cpu = _forced(model, model.compute_params(cpu_params), torch.as_tensor(prompt), tokens)
-    f32 = Model(dataclasses.replace(cfg2, dtype="float32"))
+    f32 = Model(dataclasses.replace(cfg, dtype="float32"))
     ref32 = _forced(f32, cpu_params, torch.as_tensor(prompt), tokens)
     cpu_s = time.perf_counter() - t0
     v = cfg.vocab_size
@@ -2648,18 +2663,18 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     top2 = cpu.topk(2, dim=-1).values
     near_tie = (top2[..., 0] - top2[..., 1]) <= 2 * dist
     equal = greedy == want
-    emit(dict(phase=phase, model=cfg.name, layers=2, d_model=cfg.d_model, vocab=v,
+    emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=v,
               prompt_len=prompt_len, gen_len=gen_len, seconds_cpu=cpu_s,
               linear_attn_launches=launches["linear_attn"], card_tokens=req.generated,
               cpu_greedy_tokens=greedy[:, 0].tolist(), tokens_equal=int(equal.sum()),
               near_ties=int((~equal & near_tie).sum()), max_abs_logit_diff=float(dist.max()),
               tolerance_bf16_vs_fp32=tol, logit_scale=float(cpu.abs().max())))
     want_launches = dict.fromkeys(launches, 0)
-    if cfg.family == "ssm":
-        want_launches["linear_attn"] = 2
+    if cfg.family in ("ssm", "hybrid"):
+        want_launches["linear_attn"] = cfg.n_layers
     if launches != want_launches or not torch.isfinite(card).all():
-        raise AssertionError(f"the 2-layer card run launched {launches}, not {want_launches}, "
-                             "or its logits are not finite")
+        raise AssertionError(f"the {cfg.n_layers}-layer card run launched {launches}, not "
+                             f"{want_launches}, or its logits are not finite")
     if not (float(dist.max()) <= tol and (equal | near_tie).all()):
         raise AssertionError("the card's logits or greedy tokens disagree with the CPU's")
     return dict(tokens_equal=int(equal.sum()), steps=gen_len)
@@ -2780,7 +2795,7 @@ def main() -> int:
     # the same width on the card and again on the CPU
     lm_cfg = get_config("rwkv6-1.6b")
     launches_by_path["lm_serve"] = lm_serve_phase(dev, args.seed, lm_cfg)
-    lm_cpu_recheck_phase(dev, args.seed, lm_cfg)
+    lm_cpu_recheck_phase(dev, args.seed, dataclasses.replace(lm_cfg, n_layers=2))
 
     # 11. each kernel against its plain version at its path's shapes
     both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
@@ -2801,15 +2816,31 @@ def main() -> int:
     emit(dict(phase="cpu_recheck", seconds=time.perf_counter() - t0,
               **same_answers(card_res, cpu_res)))
 
-    # 13. the dense LM family: Gemma2-9B served at full width, then a 2-layer
+    # 13. the hybrid LM family: Zamba2-1.2B served at full width (row 11 in SSD
+    # mode, once a Mamba2 layer per prefill batch), then 3 layers of that
+    # width at period 2 (one unit, the shared block, a tail layer) on the card
+    # and again on the CPU
+    del cpu_engine, cpu_res, card_res
+    hybrid_cfg = get_config("zamba2-1.2b")
+    launches_by_path["lm_serve_hybrid"] = lm_serve_phase(dev, args.seed, hybrid_cfg,
+                                                         phase="lm_serve_hybrid")
+    lm_cpu_recheck_phase(dev, args.seed,
+                         dataclasses.replace(hybrid_cfg, n_layers=3, hybrid_period=2),
+                         phase="lm_cpu_recheck_hybrid")
+    ssd = checks["linear_attn"]["detail"]["zamba2_ssd"]
+    checks["linear_attn (ssd)"] = dict(ssd, library_ms=None, detail=dict(
+        shape=ssd["shape"], fp32_bound_ms=ssd["fp32_bound_ms"],
+        launches=launches_by_path["lm_serve_hybrid"]["linear_attn"]))
+
+    # 14. the dense LM family: Gemma2-9B served at full width, then a 2-layer
     # Gemma2 of that width (layer 0 local at reduced_config's window of 32,
     # layer 1 global) on the card and again on the CPU.  Last, after every
     # kernel is timed: traces taken after it lose their kernels far more often
-    del cpu_engine, cpu_res, card_res
     dense_cfg = get_config("gemma2-9b")
     launches_by_path["lm_serve_dense"] = lm_serve_phase(dev, args.seed, dense_cfg,
                                                         phase="lm_serve_dense")
-    lm_cpu_recheck_phase(dev, args.seed, dataclasses.replace(dense_cfg, local_window=32),
+    lm_cpu_recheck_phase(dev, args.seed,
+                         dataclasses.replace(dense_cfg, n_layers=2, local_window=32),
                          phase="lm_cpu_recheck_dense")
 
     rows = []
@@ -2836,8 +2867,8 @@ def main() -> int:
             for m, p_ in profiles.items():
                 rows[-1]["in_path"][str(m)]["profile"] = compact_in_profile(p_)
         # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
-        # over all n columns ("dense")
-        for variant in ("wide", "pq", "dense"):
+        # over all n columns ("dense"), row 11 at Zamba2's SSD shape ("ssd")
+        for variant in ("wide", "pq", "dense", "ssd"):
             other = checks.get(f"{name} ({variant})")
             if other is None:
                 continue
@@ -2845,7 +2876,8 @@ def main() -> int:
                 "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
             rows[-1][variant]["ms_clock"] = other.get("ms_clock")
-            rows[-1][variant].update({key: other["detail"][key] for key in (*extras, "launches")
+            rows[-1][variant].update({key: other["detail"][key]
+                                      for key in (*extras, "launches", "shape")
                                       if key in other.get("detail", {})})
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     emit({"kernels": rows})

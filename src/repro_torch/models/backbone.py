@@ -1,17 +1,20 @@
 """Backbone assembly for the ``dense`` family (qwen1.5, phi4-mini, granite,
-Gemma2) and the ``ssm`` family (RWKV6): parameters stacked on a leading
-layer axis, the full-sequence forward pass and the logits of one position.
-The counterpart of ``repro.models.backbone``; where the reference scans over
-the stacked layer axis, the port loops over layers in Python, so a layer's
-attention window is a Python ``int`` or ``None`` (global) and one
-``flash_attention`` serves every layer (the reference's traced-window twin,
-``_flash_dynwin``, has no counterpart).  The ``moe``, ``hybrid``, ``audio``
-and ``vlm`` families, ``chunked_ce_loss`` and training are not ported yet
-(ROADMAP queue 1).
+Gemma2), the ``ssm`` family (RWKV6) and the ``hybrid`` family (Zamba2:
+Mamba2 layers with one *shared* dense block applied after every
+``hybrid_period`` of them, the same parameters each time): parameters
+stacked on a leading layer axis (the shared block unstacked), the
+full-sequence forward pass and the logits of one position.  The counterpart
+of ``repro.models.backbone``; where the reference scans over the stacked
+layer axis, the port loops over layers in Python, so a layer's attention
+window is a Python ``int`` or ``None`` (global) and one ``flash_attention``
+serves every layer (the reference's traced-window twin, ``_flash_dynwin``,
+has no counterpart).  The ``moe``, ``audio`` and ``vlm`` families,
+``chunked_ce_loss`` and training are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -21,16 +24,28 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
-__all__ = ["init_params", "init_dense_block", "init_rwkv_block", "forward_hidden",
-           "logits_for_position", "layer_params", "check_family"]
+__all__ = ["init_params", "init_dense_block", "init_rwkv_block", "init_mamba_block",
+           "forward_hidden", "logits_for_position", "layer_params", "check_family",
+           "shared_application"]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``'s family (``dense`` or ``ssm``)."""
-    if cfg.family not in ("dense", "ssm"):
+    """Raise unless the port serves ``cfg``'s family (``dense``, ``ssm`` or
+    ``hybrid``)."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port serves the "
-            "'dense' family and the 'ssm' family (RWKV6) only (see ROADMAP.md, queue 1)")
+            "'dense' family, the 'ssm' family (RWKV6) and the 'hybrid' family (Zamba2) only "
+            "(see ROADMAP.md, queue 1)")
+
+
+def shared_application(cfg: ModelConfig, i: int) -> int | None:
+    """``hybrid``: which application of the shared block follows Mamba2
+    layer ``i`` (one after every ``hybrid_period`` layers; the layers past
+    the last whole period are a tail with none), else ``None``."""
+    if (i + 1) % cfg.hybrid_period:
+        return None
+    return (i + 1) // cfg.hybrid_period - 1
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -77,6 +92,15 @@ def init_rwkv_block(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def init_mamba_block(generator: torch.Generator, cfg: ModelConfig,
+                     lead: tuple[int, ...] = ()) -> Params:
+    return {"ln1": L.init_norm(cfg, lead=lead, device=generator.device),
+            "mamba": S.init_mamba2(generator, cfg, lead)}
+
+
+_BLOCKS = {"dense": init_dense_block, "ssm": init_rwkv_block, "hybrid": init_mamba_block}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     """fp32 master parameters on ``generator``'s device, with the
     reference's distributions and scales (not its bits: ``jax.random`` and
@@ -91,8 +115,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(generator, d, cfg.padded_vocab)
-    block = init_dense_block if cfg.family == "dense" else init_rwkv_block
+    block = _BLOCKS[cfg.family]
     p["blocks"] = _stack_init(generator, cfg.n_layers, lambda g, lead: block(g, cfg, lead))
+    if cfg.family == "hybrid":  # one dense block, applied every hybrid_period layers
+        p["shared"] = init_dense_block(generator, dataclasses.replace(cfg, family="dense"))
     return p
 
 
@@ -134,8 +160,8 @@ def _layer_windows(cfg: ModelConfig) -> list[int | None]:
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """``tokens: (B, S)`` -> final hidden states ``(B, S, D)``; the ``ssm``
-    family goes through the ``(B, H, T, D)`` entry of the linear-attention
-    kernel."""
+    and ``hybrid`` families go through the ``(B, H, T, D)`` entry of the
+    linear-attention kernel."""
     check_family(cfg)
     x = embed(cfg, params, tokens)
     windows = _layer_windows(cfg)
@@ -143,9 +169,13 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> to
         p = layer_params(params["blocks"], i)
         if cfg.family == "dense":
             x = _dense_block_fwd(p, x, cfg, windows[i])
-            continue
-        x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)
-        x = x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
+        elif cfg.family == "ssm":
+            x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)
+            x = x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
+        else:
+            x = x + S.mamba2_forward(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
+            if shared_application(cfg, i) is not None:
+                x = _dense_block_fwd(params["shared"], x, cfg, None)
     return L.apply_norm(params["final_norm"], x, cfg)
 
 

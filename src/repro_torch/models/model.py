@@ -1,6 +1,7 @@
 """Public model API: one object per architecture config (the counterpart of
 ``repro.models.model``; the port serves the ``dense`` family (qwen1.5-4b,
-phi4-mini-3.8b, granite-3-2b, gemma2-9b) and the ``ssm`` family, RWKV6).
+phi4-mini-3.8b, granite-3-2b, gemma2-9b), the ``ssm`` family (RWKV6) and
+the ``hybrid`` family (Zamba2)).
 
     model = Model(get_config("gemma2-9b"))
     params = model.init(torch.Generator("cuda").manual_seed(0))   # fp32 master
@@ -9,7 +10,9 @@ phi4-mini-3.8b, granite-3-2b, gemma2-9b) and the ``ssm`` family, RWKV6).
     logits, cache = model.decode_step(params, cache, token, pos)
 
 A dense model's ``decode_step`` writes the new token's K / V into ``cache``
-in place and returns it; an ``ssm`` model's returns a new state.
+in place and returns it; an ``ssm`` model's returns a new state; a
+``hybrid`` model's writes its shared block's K / V in place and returns new
+Mamba2 states.
 
 ``input_specs`` (a JAX dry-run helper) and ``loss`` (training) are not
 ported.
@@ -48,7 +51,7 @@ SHAPES: dict[str, ShapeSpec] = {
 
 class Model:
     """Raises ``NotImplementedError`` for a family the port does not serve
-    yet (``moe``, ``hybrid``, ``audio`` and ``vlm``; see ROADMAP.md, queue 1)."""
+    yet (``moe``, ``audio`` and ``vlm``; see ROADMAP.md, queue 1)."""
 
     def __init__(self, cfg: ModelConfig):
         backbone.check_family(cfg)

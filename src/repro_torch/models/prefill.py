@@ -1,13 +1,23 @@
 """Prefill: the full-sequence forward pass that also builds the decode
-cache, for the ``dense`` and ``ssm`` families (the counterpart of
-``repro.models.prefill``).
+cache, for the ``dense``, ``ssm`` and ``hybrid`` families (the counterpart
+of ``repro.models.prefill``).
 
 Returns ``(last-token logits, cache)`` with the cache laid out as
 :func:`repro_torch.models.decode.init_cache`: for ``dense``, ``k`` / ``v``
 ``(L, B, Hkv, max_seq, hd)`` in the cache dtype, keys after RoPE, zero past
 the prompt; for ``ssm``, ``prev1`` / ``prev2`` (the last normalised input of
 each layer's two mixes) in the cache dtype and ``wkv`` (the linear-attention
-state) in fp32.
+state) in fp32; for ``hybrid``, ``conv`` (each Mamba2 layer's last ``K - 1``
+raw conv inputs) in the cache dtype, ``ssm`` (the SSD state) in fp32, and
+``sk`` / ``sv`` ``(n_apps, B, Hkv, max_seq, hd)``, the shared block's K
+(after RoPE) and V at each of its applications, zero past the prompt.
+
+Where the port differs from the reference on purpose: for a prompt shorter
+than ``K - 1`` tokens the reference keeps ``xin[:, t - (K-1):]``, whose
+start is then negative, so its conv state has fewer than ``K - 1`` rows and
+its next decode step fails.  The port's conv state is the last ``K - 1``
+rows of the input with the forward pass's causal pad in front: zeros before
+the first token, what that decode step's conv must read.
 """
 
 from __future__ import annotations
@@ -23,8 +33,10 @@ from repro_torch.models.backbone import (
     embed,
     layer_params,
     logits_for_position,
+    shared_application,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode import init_cache
 from repro_torch.models.layers import Params
 
 __all__ = ["prefill"]
@@ -41,14 +53,17 @@ def prefill(
 ) -> tuple[torch.Tensor, Params]:
     """``extras`` is the reference's argument for the families with an
     encoder (none ported yet) and goes unused.  ``max_seq`` (the prompt's
-    length by default) sizes the dense KV cache; the ``ssm`` state does not
-    grow with the sequence and ignores it."""
+    length by default) sizes the dense and the shared-block KV caches; the
+    ``ssm`` state does not grow with the sequence and ignores it."""
     check_family(cfg)
     x = embed(cfg, params, tokens)
+    max_seq = max_seq or tokens.shape[1]
     if cfg.family == "dense":
-        x, cache = _dense_prefill(cfg, params, x, max_seq or tokens.shape[1], cache_dtype)
-    else:
+        x, cache = _dense_prefill(cfg, params, x, max_seq, cache_dtype)
+    elif cfg.family == "ssm":
         x, cache = _rwkv_prefill(cfg, params, x, cache_dtype)
+    else:
+        x, cache = _hybrid_prefill(cfg, params, x, max_seq, cache_dtype)
     x_last = L.apply_norm(params["final_norm"], x[:, -1:], cfg)[:, 0]
     return logits_for_position(cfg, params, x_last), cache
 
@@ -136,4 +151,47 @@ def _dense_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: i
         x, k, v = _dense_block_prefill(layer_params(params["blocks"], i), x, cfg, window)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
+    return x, cache
+
+
+def _mamba2_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """:func:`repro_torch.models.ssm.mamba2_forward` that also returns the
+    conv state ``(B, K-1, inner)`` in ``x``'s dtype (zeros before the first
+    token where the prompt is shorter than ``K - 1``) and the final SSD
+    state ``(B, H, N, P)`` f32, through the ``(BH, T, D)`` entry of the
+    linear-attention kernel (``u = 0``, shift 0)."""
+    b, t, _ = x.shape
+    xin, z, bmat, cmat, dt = S._in_proj(p, x, cfg)
+    xconv, xpad = S._causal_conv(p, xin, cfg)
+    conv_state = xpad[:, t:]  # the last K-1 raw (pre-activation) inputs
+    q, k, v, w = S._ssd_inputs(p, xconv, bmat, cmat, dt, cfg)
+    h, n, ph = q.shape[1], q.shape[3], v.shape[3]
+
+    def flat(a):
+        return a.reshape(b * h, t, a.shape[-1]).contiguous()
+
+    u0 = torch.zeros((b * h, 1, n), dtype=x.dtype, device=x.device)
+    o, state = linear_attention_with_state(flat(q), flat(k), flat(v), flat(w), u0, shift=0)
+    return (S._ssd_out(p, o.reshape(b, h, t, ph), v, z, cfg), conv_state,
+            state.reshape(b, h, n, ph))
+
+
+def _hybrid_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: int,
+                    cache_dtype: torch.dtype) -> tuple[torch.Tensor, Params]:
+    """The Mamba2 layers over ``x: (B, S, D)``, the shared block after every
+    ``hybrid_period`` of them; the cache is allocated once and each layer's
+    states and each application's K / V are written into it."""
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        y, conv, state = _mamba2_with_state(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
+        cache["conv"][i] = conv
+        cache["ssm"][i] = state
+        x = x + y
+        j = shared_application(cfg, i)
+        if j is not None:
+            x, k, v = _dense_block_prefill(params["shared"], x, cfg, None)
+            cache["sk"][j, :, :, :s] = k
+            cache["sv"][j, :, :, :s] = v
     return x, cache

@@ -16,8 +16,9 @@ index exactly and its answers up to fp-distance ties.  The wide variants of
 rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
 at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
-bf16 ulp in bf16 (sums in another order), and the reduced RWKV6, granite
-and Gemma2 models on the card give the CPU's logits.  Row 3 also runs on skewed inputs (one
+bf16 ulp in bf16 (sums in another order), and the reduced RWKV6, granite,
+Gemma2 and zamba2 models on the card give the CPU's logits (zamba2 also its
+greedy tokens).  Row 3 also runs on skewed inputs (one
 centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
 which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
 launches give equal bits and the screened kernel's best distances equal the
@@ -1435,6 +1436,53 @@ def test_dense_model_on_the_card_equals_the_cpu(dev, arch):
     torch.testing.assert_close(hc.cpu(), backbone.forward_hidden(cfg, params, toks),
                                rtol=1e-3, atol=2e-4)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_hybrid_model_on_the_card_equals_the_cpu(dev):
+    """Reduced zamba2 (8 Mamba2 layers, the shared block after layers 2 and
+    5) in fp32: prefill into an fp32 cache launches row 11 once a layer, in
+    SSD mode, and a decode step launches nothing; two decode steps write the
+    shared K / V in place; the logits and every cache array equal the CPU's;
+    the card's server gives the CPU server's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, backbone
+    from repro_torch.models import prefill as P
+
+    cfg = dataclasses.replace(reduced_config("zamba2-1.2b"), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(4))
+    card = _to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 70), generator=_gen(34))
+    kernels.reset_launch_counts()
+    lc, cache_c = P.prefill(cfg, card, toks.to(dev), max_seq=73, cache_dtype=torch.float32)
+    assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNELS, 0),
+                                           linear_attn=cfg.n_layers)
+    lp, cache_p = P.prefill(cfg, params, toks, max_seq=73, cache_dtype=torch.float32)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=2e-4)
+    ptr = cache_c["sk"].data_ptr()
+    nxt = lp.argmax(-1)
+    for pos in (70, 71):
+        kernels.reset_launch_counts()
+        dc, cache_c = model.decode_step(card, cache_c, nxt.to(dev), pos)
+        assert not any(kernels.launch_counts().values())
+        dp, cache_p = model.decode_step(params, cache_p, nxt, pos)
+        torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=2e-4)
+        nxt = dp.argmax(-1)
+    assert cache_c["sk"].data_ptr() == ptr
+    for name in ("conv", "ssm", "sk", "sv"):
+        torch.testing.assert_close(cache_c[name].cpu(), cache_p[name], rtol=1e-3, atol=2e-4)
+    hc = backbone.forward_hidden(cfg, card, toks.to(dev))
+    torch.testing.assert_close(hc.cpu(), backbone.forward_hidden(cfg, params, toks),
+                               rtol=1e-3, atol=2e-4)
+    prompts = toks[:, :24].numpy()
+    got = serve.Server(model, card, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    want = serve.Server(model, params, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    assert [r.generated for r in got] == [r.generated for r in want]
 
 
 def test_init_cache_defaults_to_the_card(dev):

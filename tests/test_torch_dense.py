@@ -13,7 +13,7 @@ package's, on the CPU, on the same numpy-seeded inputs.
   atol 2e-4, rtol 1e-3 (as ``tests/test_models.py``), ``forward_hidden``
   against prefill plus one decode, fp32 server tokens equal to the JAX
   server's, and bf16 server tokens held by the rule of
-  :func:`test_bf16_server_gives_the_jax_servers_tokens`.
+  :func:`_lm_parity.assert_bf16_server_rule`.
 * **Windows**: Gemma2 with ``local_window=4`` at prompts past the window,
   ``tests/test_models.py::test_gemma2_local_global_masking_differs`` on the
   port, and ``sliding_window=8`` on reduced granite.
@@ -30,15 +30,13 @@ import pytest
 import torch
 
 from repro.configs import reduced_config as j_reduced_config
-from repro.launch import serve as j_serve
-from repro.models import Model as JModel
 from repro.models import backbone as JB
 from repro.models import layers as JL
 from repro.models import prefill as JP
 
+from _lm_parity import assert_bf16_server_rule, flat, models, servers, tokens
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
-from repro_torch.launch import serve
 from repro_torch.models import Model, backbone, convert
 from repro_torch.models import layers as L
 from repro_torch.models import prefill as P
@@ -194,26 +192,10 @@ def test_layernorm_matches_jax():
 # --------------------------------------------------------------------------
 
 
-def _models(arch, dtype, seed=0, **kw):
-    jcfg = dataclasses.replace(j_reduced_config(arch), dtype=dtype, **kw)
-    cfg = dataclasses.replace(reduced_config(arch), dtype=dtype, **kw)
-    jmodel = JModel(jcfg)
-    jparams = jmodel.init(jax.random.key(seed))
-    return jmodel, jparams, Model(cfg), convert.params_from_jax(jparams, device="cpu")
-
-
-def _tokens(cfg, b, s, seed):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-
-
-def _flat(tree):
-    return {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(tree)}
-
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_params_from_jax_keeps_every_leaf(arch):
-    _, jparams, model, params = _models(arch, "bfloat16")
-    jflat, pflat = _flat(jparams), _flat(params)
+    _, jparams, model, params = models(arch, "bfloat16")
+    jflat, pflat = flat(jparams), flat(params)
     assert jflat.keys() == pflat.keys() and len(jflat) >= 11
     for key, leaf in jflat.items():
         assert pflat[key].dtype == torch.float32 and tuple(pflat[key].shape) == leaf.shape
@@ -223,9 +205,9 @@ def test_params_from_jax_keeps_every_leaf(arch):
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_init_draws_the_reference_shapes_and_scales(arch):
-    _, jparams, model, _ = _models(arch, "bfloat16")
+    _, jparams, model, _ = models(arch, "bfloat16")
     params = model.init(torch.Generator().manual_seed(0))
-    jflat, pflat = _flat(jparams), _flat(params)
+    jflat, pflat = flat(jparams), flat(params)
     assert jflat.keys() == pflat.keys()
     for key, j in jflat.items():
         j, p = np.asarray(j), pflat[key].numpy()
@@ -243,8 +225,8 @@ def test_init_draws_the_reference_shapes_and_scales(arch):
 def test_fp32_prefill_cache_and_decode_match_jax(arch):
     """Prefill of 37 tokens (past reduced Gemma2's window of 32) into a
     41-position cache, then three decode steps."""
-    jmodel, jparams, model, params = _models(arch, "float32")
-    toks = _tokens(model.cfg, 2, 37, 1)
+    jmodel, jparams, model, params = models(arch, "float32")
+    toks = tokens(model.cfg, 2, 37, 1)
     jl, jcache = JP.prefill(jmodel.cfg, jparams, jnp.asarray(toks), max_seq=41,
                             cache_dtype=jnp.float32)
     kernels.reset_launch_counts()
@@ -271,9 +253,9 @@ def test_prefill_then_decode_matches_forward(arch):
     """As ``tests/test_models.py::test_prefill_decode_matches_forward``:
     the forward pass and prefill + one decode step give the same logits for
     the last token; the forward pass is also the JAX model's."""
-    jmodel, jparams, model, params = _models(arch, "float32", seed=1)
+    jmodel, jparams, model, params = models(arch, "float32", seed=1)
     cfg = model.cfg
-    toks = _tokens(cfg, 2, 18, 3)
+    toks = tokens(cfg, 2, 18, 3)
     s = 17
     hidden = backbone.forward_hidden(cfg, params, T(toks))
     want = backbone.logits_for_position(cfg, params, hidden[:, -1])
@@ -288,14 +270,14 @@ def test_prefill_then_decode_matches_forward(arch):
 def test_init_cache_is_the_references_and_decodes_like_it(arch):
     """``init_cache``'s keys, shapes, dtypes and zeros; three decode steps
     from it (no prefill) give the JAX model's logits and bf16 cache."""
-    jmodel, jparams, model, params = _models(arch, "float32")
+    jmodel, jparams, model, params = models(arch, "float32")
     jcache = jmodel.init_cache(3, 16)
     cache = model.init_cache(3, 16, device="cpu")
     assert sorted(cache) == sorted(jcache) == ["k", "v"]
     for name, leaf in jcache.items():
         assert tuple(cache[name].shape) == leaf.shape and cache[name].dtype == torch.bfloat16
         assert not cache[name].any()
-    toks = _tokens(model.cfg, 3, 3, 4)
+    toks = tokens(model.cfg, 3, 3, 4)
     for pos in range(3):
         jl, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(toks[:, pos]),
                                         jnp.asarray(pos))
@@ -310,8 +292,8 @@ def test_decode_step_writes_the_cache_in_place(arch):
     """The step returns the cache it was given, its storage unchanged, and
     its contents are the reference's new cache (the reference's server
     donates the buffer; the port writes into it)."""
-    jmodel, jparams, model, params = _models(arch, "float32", seed=2)
-    toks = _tokens(model.cfg, 2, 10, 5)
+    jmodel, jparams, model, params = models(arch, "float32", seed=2)
+    toks = tokens(model.cfg, 2, 10, 5)
     jl, jcache = JP.prefill(jmodel.cfg, jparams, jnp.asarray(toks), max_seq=14,
                             cache_dtype=jnp.float32)
     _, cache = P.prefill(model.cfg, params, T(toks), max_seq=14, cache_dtype=torch.float32)
@@ -325,84 +307,21 @@ def test_decode_step_writes_the_cache_in_place(arch):
         assert cache[name][:, :, :, 10].any() and not cache[name][:, :, :, 11:].any()
 
 
-def _forced_logits(prefill, decode, prompts, tokens):
-    """Logits of the prompt's last position and of each decode step fed
-    ``tokens`` (B, n) in turn (teacher forcing): (n, B, V) as numpy."""
-    logits, cache = prefill(prompts)
-    out = [np.asarray(logits)]
-    for t in range(tokens.shape[1] - 1):
-        logits, cache = decode(cache, tokens[:, t], prompts.shape[1] + t)
-        out.append(np.asarray(logits))
-    return np.stack(out)
-
-
-def _servers(arch, dtype, seed, n_req=4, gen=12, prompt_len=24):
-    jmodel, jparams, model, params = _models(arch, dtype, seed)
-    prompts = _tokens(model.cfg, n_req, prompt_len, seed + 2)
-    max_seq = prompt_len + gen + 1
-    jreqs = [j_serve.Request(i, prompts[i]) for i in range(n_req)]
-    j_serve.Server(jmodel, jparams, 2, max_seq).run(jreqs, gen)
-    server = serve.Server(model, params, 2, max_seq)
-    reqs = server.run([serve.Request(i, prompts[i]) for i in range(n_req)], gen)
-    assert all(r.done and len(r.generated) == gen for r in reqs)
-    assert [len(t["decode_s"]) for t in server.timings] == [gen] * (n_req // 2)
-    return jmodel, jparams, model, server, prompts, jreqs, reqs
-
-
 @pytest.mark.parametrize("arch", DENSE)
 def test_fp32_server_gives_the_jax_servers_tokens(arch):
     """Both servers prefill into a bf16 cache (the reference's ``Server``
     passes no ``cache_dtype``) and decode from it upcast to fp32."""
-    *_, jreqs, reqs = _servers(arch, "float32", 0)
+    *_, jreqs, reqs = servers(arch, "float32", 0)
     for got, want in zip(reqs, jreqs):
         assert got.generated == want.generated
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b"])
 def test_bf16_server_gives_the_jax_servers_tokens(arch):
-    """4 requests x 12 generated tokens through 2 slots, in bf16, held by
-    the rule of ``tests/test_torch_lm.py``'s RWKV6 test of this name: fed
-    the reference's tokens (teacher forcing), the port's logits lie within
-    ``tol``, the largest distance of the reference's bf16 logits from its
-    fp32 logits on the same weights (measured in this run); where the port's
-    greedy token differs from the reference's, the reference's top two
-    logits lie within twice the two models' distance at that step (a near
-    tie); and the servers' tokens are equal up to the first such step, where
-    the port's server takes the port's greedy token."""
-    jmodel, jparams, model, server, prompts, jreqs, reqs = _servers(arch, "bfloat16", 0)
-    want = np.array([r.generated for r in jreqs])
-    jm32 = JModel(dataclasses.replace(jmodel.cfg, dtype="float32"))
-
-    def forced(prefill, decode, prompts):
-        return np.concatenate([_forced_logits(prefill, decode, prompts[i:i + 2], want[i:i + 2])
-                               for i in (0, 2)], axis=1)
-
-    jp, smax = jnp.asarray(prompts), server.max_seq
-
-    def jax_forced(m):  # jitted: the same function, compiled once a model
-        pf = jax.jit(lambda x: m.prefill(jparams, x, max_seq=smax))
-        step = jax.jit(m.decode_step)
-        return forced(pf, lambda c, t, pos: step(jparams, c, jnp.asarray(t), jnp.asarray(pos)),
-                      jp)
-
-    jb, j32 = jax_forced(jmodel), jax_forced(jm32)
-    pb = forced(lambda x: model.prefill(server.params, T(x), max_seq=smax),
-                lambda c, t, pos: model.decode_step(server.params, c, T(t), pos), prompts)
-    v = model.cfg.vocab_size
-    jb, j32, pb = jb[..., :v], j32[..., :v], pb[..., :v]
-    assert (jb.argmax(-1) == want.T).all()  # the JAX server is its model's greedy chain
-    tol = np.abs(jb - j32).max()
-    dist = np.abs(pb - jb)
-    assert dist.max() <= tol
-    same = pb.argmax(-1) == want.T  # (steps, requests)
-    top2 = np.sort(jb, axis=-1)[..., -2:]
-    assert ((top2[..., 1] - top2[..., 0])[~same] <= 2 * dist.max(-1)[~same]).all()
-    for i, (got, ref) in enumerate(zip(reqs, jreqs)):
-        differ = np.flatnonzero(~same[:, i])
-        upto = differ[0] if differ.size else len(ref.generated)
-        assert got.generated[:upto] == ref.generated[:upto]
-        if differ.size:
-            assert got.generated[upto] == pb[upto, i].argmax()
+    """:func:`_lm_parity.assert_bf16_server_rule`: fed the reference's
+    tokens, the port's bf16 logits lie within the reference's own
+    bf16-vs-fp32 distance, and greedy tokens part only at near ties."""
+    assert_bf16_server_rule(arch)
 
 
 # --------------------------------------------------------------------------
@@ -416,11 +335,11 @@ def test_windowed_models_match_jax(arch, kw):
     """Gemma2's local layers at a window of 4 and granite with a sliding
     window of 8, at prompts of 16 and 23 tokens (past the window): the
     forward pass, prefill and three decode steps, fp32."""
-    jmodel, jparams, model, params = _models(arch, "float32", seed=3, **kw)
+    jmodel, jparams, model, params = models(arch, "float32", seed=3, **kw)
     assert backbone._layer_windows(model.cfg) == (
         [4, None, 4, None] if arch == "gemma2-9b" else [8] * 4)
     for s in (16, 23):
-        toks = _tokens(model.cfg, 2, s, s)
+        toks = tokens(model.cfg, 2, s, s)
         jh = JB.forward_hidden(jmodel.cfg, jparams, jnp.asarray(toks), remat=False)
         _close(backbone.forward_hidden(model.cfg, params, T(toks)), jh, TOL)
         jl, jcache = JP.prefill(jmodel.cfg, jparams, jnp.asarray(toks), max_seq=s + 3,
@@ -444,7 +363,7 @@ def test_gemma2_local_global_masking_differs():
     cfg = dataclasses.replace(reduced_config("gemma2-9b"), n_layers=2, dtype="float32",
                               local_window=4)
     params = Model(cfg).init(torch.Generator().manual_seed(3))
-    toks = T(_tokens(cfg, 1, 16, 0)).long()
+    toks = T(tokens(cfg, 1, 16, 0)).long()
     toks2 = toks.clone()
     toks2[0, 0] = (toks[0, 0] + 1) % cfg.vocab_size
     h = backbone.forward_hidden(cfg, params, toks)

@@ -473,7 +473,7 @@ def test_init_draws_the_reference_shapes_and_scales():
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if get_config(a).family not in ("ssm", "dense")])
+                                  if get_config(a).family not in ("ssm", "dense", "hybrid")])
 def test_model_refuses_the_families_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(reduced_config(arch))
