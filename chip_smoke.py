@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives ten paths, each with every kernel's launch count set to 0 just before
-it and read just after.  Seven run over SIFT1M's shape (n = 1,000,000,
-d = 128, data from ``gaussian_mixture``):
+drives twelve paths, each with every kernel's launch count set to 0 just
+before it and read just after.  Seven run over SIFT1M's shape (n =
+1,000,000, d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
   batches of 1, 8 and 64 queries through ``SuCoEngine`` (fused mode);
@@ -72,7 +72,25 @@ layers of that width at period 2 (one unit and a tail layer, so the shared
 block and its KV cache run; a 64-token prompt, 8 tokens) on the card and
 on the CPU, held as ``lm_cpu_recheck``.
 
-The tenth, ``lm_serve_dense``, runs last, after the kernel checks and the
+The tenth, ``lm_serve_moe``, runs after ``lm_cpu_recheck_hybrid`` and serves
+OLMoE-1B-7B (``get_config("olmoe-1b-7b")`` unchanged: 16 layers, d_model
+2,048, 16 heads of 128, 64 experts of SwiGLU d_ff 1,024, top-8, capacity
+factor 1.25, vocab 50,304) with the same traffic, the fp32 master dropped
+once the server holds its bf16 compute tree; the path must launch no port
+kernel, one prefill batch run twice must give equal logits bit for bit, and
+layer 0's stages (routing, dispatch, the buffer's gather, the experts, the
+combine) are timed alone at the prefill and decode shapes.
+``lm_serve_mixtral`` serves Mixtral-8x7B the same way at full width (d_model
+4,096, 32 / 8 heads of 128, 8 experts of d_ff 14,336, top-2, window 4,096)
+with 6 of its 32 layers (``MIXTRAL_LAYERS``: all 32 hold 93.4 GB in bf16);
+its output says ``layers`` and ``layers_full``.  ``lm_cpu_recheck_moe`` (2
+OLMoE layers; a 64-token prompt gives a capacity of 10 against 8 pairs an
+expert on average, so pairs drop) and ``lm_cpu_recheck_mixtral`` (2 Mixtral
+layers at ``sliding_window`` 32, as ``reduced_config`` sets it, so the
+window masks at the 64-token prompt) then run on the card and on the CPU,
+held as ``lm_cpu_recheck``.
+
+The eleventh, ``lm_serve_dense``, runs last, after the kernel checks and the
 CPU re-check below (the profiler loses kernels far more often in traces
 taken after it), and serves Gemma2-9B (``get_config("gemma2-9b")``
 unchanged: 42 layers, d_model 3,584, 16 query and 8 KV heads of 256, d_ff
@@ -213,6 +231,10 @@ SERVE_MIXES = (
     dict(name="mixed_batch_k", sizes=(1, 4, 16), ks=(5, 10), bursts=20),
 )
 SERVE_MAX_BATCH, SERVE_OVERLOAD_REQUESTS = 16, 192
+#: Mixtral-8x7B's layers served: each holds 1.41 B parameters, 5.6 GB as the
+#: fp32 master and 2.8 GB in bf16 while both live at init; all 32 need 93.4 GB
+#: in bf16 alone, more than the card
+MIXTRAL_LAYERS = 6
 #: the library call each kernel is timed beside, where one PyTorch call
 #: computes the same function (TF32 off)
 LIBRARY = {
@@ -2528,22 +2550,62 @@ def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
+def moe_stages(p, cfg, b: int, s: int, dev, reps: int = 5) -> dict:
+    """One MoE layer (``p``: a layer's ``moe`` subtree of the compute tree)
+    at ``(b, s)`` on random bf16 input, each stage timed alone by CUDA
+    events over ``reps`` calls: routing (router product, softmax, top-k
+    sort), dispatch (the pairs' sort, slots), the buffer's gather, the
+    experts' products and SwiGLU, and the combine (a gather and an add a
+    step of k).  ``dispatch_share`` is the stages other than the experts'
+    over their sum; ``experts_tflops`` the experts' 6 E B C D F operations
+    over their time."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(dev).manual_seed(0),
+                    device=dev).to(torch.bfloat16)
+    cap = L.moe_capacity(cfg, s)
+    top_p, top_e = L.moe_route(p, x, cfg)
+    token, filled, slot = L.moe_dispatch(top_e, cfg.n_experts, cap)
+    h = L.moe_buffer(x, token, filled)
+    out = L.moe_experts(p, h)
+    ms = dict(route=time_ms(lambda: L.moe_route(p, x, cfg), reps),
+              dispatch=time_ms(lambda: L.moe_dispatch(top_e, cfg.n_experts, cap), reps),
+              buffer=time_ms(lambda: L.moe_buffer(x, token, filled), reps),
+              experts=time_ms(lambda: L.moe_experts(p, h), reps),
+              combine=time_ms(lambda: L.moe_combine(out, top_p, top_e, slot, cap), reps))
+    total = sum(ms.values())
+    ops = 6 * cfg.n_experts * b * cap * cfg.d_model * cfg.d_ff
+    return dict(batch=b, seq=s, capacity=cap, ms=ms, layer_ms=total,
+                dispatch_share=1 - ms["experts"] / total,
+                experts_tflops=ops / ms["experts"] / 1e9,
+                kept_pairs=int((slot < cap).sum()), pairs=slot.numel())
+
+
 def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16,
-                   slots: int = 8, prompt_len: int = 2048, gen_len: int = 32) -> dict:
+                   slots: int = 8, prompt_len: int = 2048, gen_len: int = 32,
+                   layers_full: int | None = None) -> dict:
     """``cfg`` served through the port's ``Server``: fp32 master weights
     drawn on the card from ``seed`` and dropped once the server holds its
     compute tree, ``n_req`` requests of ``prompt_len`` random tokens in
     batches of ``slots``, ``gen_len`` greedy tokens each; then one prefill
     batch and one decode step under the profiler.  RWKV6 (``ssm``) and
     Zamba2 (``hybrid``) must launch row 11 once a layer per prefill batch
-    and no other port kernel; a dense model runs no port kernel, and must
-    launch none.  Returns the path's launches."""
+    and no other port kernel; a dense or MoE model runs no port kernel, and
+    must launch none.  An MoE model's prefill of one batch, run twice, must
+    give equal logits bit for bit (the combine adds in a fixed order), and
+    its layer 0 is timed stage by stage (:func:`moe_stages`) at the prefill
+    and decode shapes.  ``layers_full`` is the layer count of the published
+    config where the caller cut it (``cfg.n_layers`` else).  Returns the
+    path's launches."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.launch.serve import Request, Server
     from repro_torch.models import Model
+    from repro_torch.models.backbone import layer_params
 
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -2581,11 +2643,22 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
     if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
         raise AssertionError("prefill logits are not finite")
     nxt = logits.argmax(-1)
+    moe = {}
+    if cfg.family == "moe":
+        again = model.prefill(server.params, toks, max_seq=server.max_seq)[0]
+        moe["prefill_equal_bits"] = bool(torch.equal(again, logits))
+        if not moe["prefill_equal_bits"]:
+            raise AssertionError("two prefills of one batch gave different logits")
+        del again
+        layer0 = layer_params(server.params["blocks"], 0)["moe"]
+        moe["moe_stages"] = dict(prefill=moe_stages(layer0, cfg, slots, prompt_len, dev),
+                                 decode=moe_stages(layer0, cfg, slots, 1, dev))
     prof = dict(prefill=profile_batch(
                     lambda: model.prefill(server.params, toks, max_seq=server.max_seq)),
                 decode_step=profile_batch(
                     lambda: model.decode_step(server.params, cache, nxt, prompt_len)))
-    emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers,
+              layers_full=layers_full or cfg.n_layers, d_model=cfg.d_model,
               vocab=cfg.vocab_size, dtype=cfg.dtype, params=n_params, init_seconds=init_s,
               requests=n_req, slots=slots, prompt_len=prompt_len, gen_len=gen_len,
               prefill_seconds_per_batch=[tm["prefill_s"] for tm in server.timings],
@@ -2593,7 +2666,7 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
                   np.percentile(decode_ms, 90)), decode_steps=len(decode_ms),
               run_seconds=run_s, generated_tokens_per_s=tokens.size / run_s,
               max_memory_allocated=peak, linear_attn_launches=launches["linear_attn"],
-              launches=launches, profile=prof, first_tokens=tokens[:2, :8].tolist()))
+              launches=launches, profile=prof, first_tokens=tokens[:2, :8].tolist(), **moe))
     del server, cache, logits
     torch.cuda.empty_cache()
     return launches
@@ -2832,7 +2905,25 @@ def main() -> int:
         shape=ssd["shape"], fp32_bound_ms=ssd["fp32_bound_ms"],
         launches=launches_by_path["lm_serve_hybrid"]["linear_attn"]))
 
-    # 14. the dense LM family: Gemma2-9B served at full width, then a 2-layer
+    # 14. the moe LM family: OLMoE-1B-7B served at full width (two prefills of
+    # one batch equal bit for bit), Mixtral-8x7B at full width on 6 of its 32
+    # layers (all 32 hold 93.4 GB in bf16); then 2 layers of each width on the
+    # card and again on the CPU, Mixtral's at reduced_config's window of 32, which
+    # a 64-token prompt passes (the 4,096 window masks nothing at 2,081 positions)
+    moe_cfg = get_config("olmoe-1b-7b")
+    launches_by_path["lm_serve_moe"] = lm_serve_phase(dev, args.seed, moe_cfg,
+                                                      phase="lm_serve_moe")
+    mixtral_cfg = get_config("mixtral-8x7b")
+    launches_by_path["lm_serve_mixtral"] = lm_serve_phase(
+        dev, args.seed, dataclasses.replace(mixtral_cfg, n_layers=MIXTRAL_LAYERS),
+        phase="lm_serve_mixtral", layers_full=mixtral_cfg.n_layers)
+    lm_cpu_recheck_phase(dev, args.seed, dataclasses.replace(moe_cfg, n_layers=2),
+                         phase="lm_cpu_recheck_moe")
+    lm_cpu_recheck_phase(dev, args.seed,
+                         dataclasses.replace(mixtral_cfg, n_layers=2, sliding_window=32),
+                         phase="lm_cpu_recheck_mixtral")
+
+    # 15. the dense LM family: Gemma2-9B served at full width, then a 2-layer
     # Gemma2 of that width (layer 0 local at reduced_config's window of 32,
     # layer 1 global) on the card and again on the CPU.  Last, after every
     # kernel is timed: traces taken after it lose their kernels far more often

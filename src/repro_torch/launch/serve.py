@@ -1,11 +1,20 @@
 """Serving driver: batched prefill + greedy decode over fixed slots (the
 counterpart of ``repro.launch.serve``).
 
-On the card, Gemma2-9B (or ``--arch rwkv6-1.6b``) at full width:
+On the card, Gemma2-9B (or ``--arch rwkv6-1.6b``, ``zamba2-1.2b``,
+``olmoe-1b-7b``) at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --no-reduced \
       --requests 16 --slots 8 --prompt-len 2048 --gen-len 32
-On the CPU, the reduced config of the default arch, granite-3-2b:
+Mixtral-8x7B at full width needs 93.4 GB in bf16, more than one 80 GB card;
+``--layers`` cuts its depth and nothing else:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --no-reduced \
+      --layers 6
+On the CPU, the reduced config of the default arch, granite-3-2b (or any
+other ``--arch``, e.g. ``olmoe-1b-7b``):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
+
+The server keeps the compute tree (linear and expert weights in bf16); the
+fp32 master it was made from is dropped once the server holds it.
 
 ``--reduced`` is a ``BooleanOptionalAction`` with the reference's default
 (``True``), so ``--no-reduced`` serves the full width; the reference's
@@ -85,6 +94,8 @@ def main(argv: list[str] | None = None) -> list[Request]:
     ap = argparse.ArgumentParser(description="batched prefill + greedy decode")
     ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (its widths kept)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -94,13 +105,15 @@ def main(argv: list[str] | None = None) -> list[Request]:
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = Model(cfg)
     device = torch.device(args.device)
-    params = model.init(torch.Generator(device).manual_seed(args.seed))
+    server = Server(model, model.init(torch.Generator(device).manual_seed(args.seed)),
+                    args.slots, args.prompt_len + args.gen_len + 1)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, args.prompt_len))
             for i in range(args.requests)]
-    server = Server(model, params, args.slots, args.prompt_len + args.gen_len + 1)
     t0 = time.perf_counter()
     done = server.run(reqs, args.gen_len)
     dt = time.perf_counter() - t0

@@ -1,14 +1,16 @@
 """Backbone assembly for the ``dense`` family (qwen1.5, phi4-mini, granite,
-Gemma2), the ``ssm`` family (RWKV6) and the ``hybrid`` family (Zamba2:
-Mamba2 layers with one *shared* dense block applied after every
-``hybrid_period`` of them, the same parameters each time): parameters
+Gemma2), the ``moe`` family (OLMoE, Mixtral: the dense block with its MLP
+swapped for the top-k MoE layer), the ``ssm`` family (RWKV6) and the
+``hybrid`` family (Zamba2: Mamba2 layers with one *shared* dense block
+applied after every ``hybrid_period`` of them, the same parameters each
+time): parameters
 stacked on a leading layer axis (the shared block unstacked), the
 full-sequence forward pass and the logits of one position.  The counterpart
 of ``repro.models.backbone``; where the reference scans over the stacked
 layer axis, the port loops over layers in Python, so a layer's attention
 window is a Python ``int`` or ``None`` (global) and one ``flash_attention``
 serves every layer (the reference's traced-window twin, ``_flash_dynwin``,
-has no counterpart).  The ``moe``, ``audio`` and ``vlm`` families,
+has no counterpart).  The ``audio`` and ``vlm`` families,
 ``chunked_ce_loss`` and training are not ported yet (ROADMAP queue 1).
 """
 
@@ -26,17 +28,17 @@ from repro_torch.models.layers import Params
 
 __all__ = ["init_params", "init_dense_block", "init_rwkv_block", "init_mamba_block",
            "forward_hidden", "logits_for_position", "layer_params", "check_family",
-           "shared_application"]
+           "shared_application", "ffn_forward"]
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``'s family (``dense``, ``ssm`` or
-    ``hybrid``)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    """Raise unless the port serves ``cfg``'s family (``dense``, ``moe``,
+    ``ssm`` or ``hybrid``)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port serves the "
-            "'dense' family, the 'ssm' family (RWKV6) and the 'hybrid' family (Zamba2) only "
-            "(see ROADMAP.md, queue 1)")
+            "'dense' family, the 'moe' family (OLMoE, Mixtral), the 'ssm' family (RWKV6) and "
+            "the 'hybrid' family (Zamba2) only (see ROADMAP.md, queue 1)")
 
 
 def shared_application(cfg: ModelConfig, i: int) -> int | None:
@@ -63,18 +65,18 @@ def _stack_init(generator: torch.Generator, n: int, init_fn) -> Params:
 def init_dense_block(generator: torch.Generator, cfg: ModelConfig,
                      lead: tuple[int, ...] = ()) -> Params:
     """Attention and MLP with their pre-norms, and Gemma2's post-norms
-    (``sandwich_norm``).  A ``moe`` config raises: its MoE layer is not
-    ported yet."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the 'moe' block is not ported yet (see ROADMAP.md, queue 1)")
+    (``sandwich_norm``); a ``moe`` config draws the MoE layer (``"moe"``)
+    in place of the MLP."""
     dev = generator.device
     p = {
         "ln1": L.init_norm(cfg, lead=lead, device=dev),
         "attn": L.init_attention(generator, cfg, lead=lead),
         "ln2": L.init_norm(cfg, lead=lead, device=dev),
-        "mlp": L.init_mlp(generator, cfg, lead),
     }
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(generator, cfg, lead)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg, lead)
     if cfg.sandwich_norm:
         p["ln1_post"] = L.init_norm(cfg, lead=lead, device=dev)
         p["ln2_post"] = L.init_norm(cfg, lead=lead, device=dev)
@@ -98,7 +100,8 @@ def init_mamba_block(generator: torch.Generator, cfg: ModelConfig,
             "mamba": S.init_mamba2(generator, cfg, lead)}
 
 
-_BLOCKS = {"dense": init_dense_block, "ssm": init_rwkv_block, "hybrid": init_mamba_block}
+_BLOCKS = {"dense": init_dense_block, "moe": init_dense_block, "ssm": init_rwkv_block,
+           "hybrid": init_mamba_block}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -137,13 +140,19 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tenso
     return x
 
 
+def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A dense block's feed-forward half: the MoE layer where the block has
+    one, else the MLP."""
+    return L.moe_forward(p["moe"], x, cfg) if "moe" in p else L.mlp_forward(p["mlp"], x, cfg)
+
+
 def _dense_block_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
                      window: int | None) -> torch.Tensor:
     h = L.attn_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, window=window)
     if cfg.sandwich_norm:
         h = L.apply_norm(p["ln1_post"], h, cfg)
     x = x + h
-    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    y = ffn_forward(p, L.apply_norm(p["ln2"], x, cfg), cfg)
     if cfg.sandwich_norm:
         y = L.apply_norm(p["ln2_post"], y, cfg)
     return x + y
@@ -167,7 +176,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> to
     windows = _layer_windows(cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             x = _dense_block_fwd(p, x, cfg, windows[i])
         elif cfg.family == "ssm":
             x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)

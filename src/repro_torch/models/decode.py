@@ -1,12 +1,12 @@
-"""Single-token decode with the ``dense``, ``ssm`` and ``hybrid`` families'
-caches (the counterpart of ``repro.models.decode``):
+"""Single-token decode with the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families' caches (the counterpart of ``repro.models.decode``):
 
-  dense         {"k", "v": (L, B, Hkv, Smax, hd)}  in the cache dtype
+  dense, moe    {"k", "v": (L, B, Hkv, Smax, hd)}  in the cache dtype
   ssm (rwkv6)   {"prev1", "prev2": (L, B, D), "wkv": (L, B, H, hd, hd) f32}
   hybrid        {"conv": (L, B, K-1, inner), "ssm": (L, B, H, N, P) f32,
   (zamba2)       "sk", "sv": (n_apps, B, Hkv, Smax, hd)}  (the shared block's KV)
 
-A KV cache (dense ``k`` / ``v``, hybrid ``sk`` / ``sv``) is updated **in
+A KV cache (dense and moe ``k`` / ``v``, hybrid ``sk`` / ``sv``) is updated **in
 place**: each step writes the new token's K / V at ``pos`` into the tensors
 it was given (the reference's ``dynamic_update_slice`` under its server's
 buffer donation), so a step moves no copy of it.  The recurrent states
@@ -28,6 +28,7 @@ from repro_torch.models.backbone import (
     _layer_windows,
     check_family,
     embed,
+    ffn_forward,
     layer_params,
     logits_for_position,
     shared_application,
@@ -43,7 +44,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype: torch.dtype = 
     """An all-zero cache (the ``ssm`` state does not grow, so it ignores
     ``max_seq``)."""
     check_family(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -75,14 +76,14 @@ def decode_step(
     token: torch.Tensor,  # (B,)
     pos: int,  # current write position
 ) -> tuple[torch.Tensor, Params]:
-    """-> ``(logits (B, V) f32, cache)``.  A dense ``cache`` is written in
-    place at ``pos`` and returned; an ``ssm`` ``cache`` is left as it was
-    and a new one returned; a ``hybrid`` one has its ``sk`` / ``sv``
-    written in place at ``pos`` and comes back in a new dict with new
-    ``conv`` / ``ssm`` states."""
+    """-> ``(logits (B, V) f32, cache)``.  A dense or ``moe`` ``cache`` is
+    written in place at ``pos`` and returned; an ``ssm`` ``cache`` is left
+    as it was and a new one returned; a ``hybrid`` one has its ``sk`` /
+    ``sv`` written in place at ``pos`` and comes back in a new dict with
+    new ``conv`` / ``ssm`` states."""
     check_family(cfg)
     x = embed(cfg, params, token)  # (B, D)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, window in enumerate(_layer_windows(cfg)):
             x = _dense_block_decode(layer_params(params["blocks"], i), x, cache["k"][i],
                                     cache["v"][i], pos, cfg, window)
@@ -144,7 +145,7 @@ def _dense_block_decode(p: Params, x: torch.Tensor, ck: torch.Tensor, cv: torch.
     if cfg.sandwich_norm:
         h = L.apply_norm(p["ln1_post"], h, cfg)
     x = x + h
-    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x[:, None], cfg), cfg)[:, 0]
+    y = ffn_forward(p, L.apply_norm(p["ln2"], x[:, None], cfg), cfg)[:, 0]
     if cfg.sandwich_norm:
         y = L.apply_norm(p["ln2_post"], y, cfg)
     return x + y

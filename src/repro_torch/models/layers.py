@@ -1,7 +1,7 @@
 """Shared layers of the LM stack: initialisers, the linear layer, the
 norms, RoPE, attention (online softmax over KV chunks, and one-token decode
-against a KV cache) and the MLPs; the counterpart of
-``repro.models.layers``, whose MoE layer is not ported yet (ROADMAP queue 1).
+against a KV cache), the MLPs and the top-k MoE layer with its sort-based
+capacity dispatch; the counterpart of ``repro.models.layers``.
 
 Parameters are plain nested dicts of tensors (fp32 master), in the
 reference's layout: a linear weight is ``w: (d_in, d_out)`` applied as
@@ -23,7 +23,9 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["Params", "_dense_init", "linear", "init_linear", "init_norm", "apply_norm",
            "cast_linears", "rope", "init_attention", "flash_attention", "attn_forward",
-           "attn_decode", "init_mlp", "mlp_forward"]
+           "attn_decode", "init_mlp", "mlp_forward", "init_moe", "moe_capacity",
+           "moe_route", "moe_dispatch", "moe_buffer", "moe_experts", "moe_combine",
+           "moe_forward"]
 
 Params = dict
 
@@ -63,12 +65,14 @@ def init_linear(
 
 def cast_linears(params: Params, dtype: torch.dtype) -> Params:
     """The same tree with every linear layer's weight (a dict's ``"w"``)
-    cast to ``dtype`` once; every other leaf is the same tensor."""
+    and the MoE layer's expert tensors (``w_gate`` / ``w_up`` / ``w_down``
+    leaves; an MLP's are linear layers, dicts) cast to ``dtype`` once;
+    every other leaf is the same tensor."""
     out = {}
     for key, val in params.items():
         if isinstance(val, dict):
             out[key] = cast_linears(val, dtype)
-        elif key == "w":
+        elif key in ("w", "w_gate", "w_up", "w_down"):
             out[key] = val.to(dtype)
         else:
             out[key] = val
@@ -333,3 +337,130 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         act = _silu(gate) if cfg.mlp == "swiglu" else _gelu(gate)
         return linear(p["w_down"], act * linear(p["w_up"], x, dtype), dtype)
     return linear(p["w_down"], _gelu(linear(p["w_up"], x, dtype)), dtype)
+
+
+# --------------------------------- MoE --------------------------------------
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig,
+             lead: tuple[int, ...] = ()) -> Params:
+    """The router (a linear ``D -> E``) and each expert's SwiGLU, fp32:
+    ``w_gate`` / ``w_up`` ``(E, D, F)`` at ``1 / sqrt(D)``, ``w_down``
+    ``(E, F, D)`` at ``1 / sqrt(F)``."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        return torch.randn((*lead, *shape), generator=generator,
+                           device=generator.device).mul_(scale)
+
+    return {
+        "router": init_linear(generator, d, e, lead=lead),
+        "w_gate": normal((e, d, f), 1.0 / math.sqrt(d)),
+        "w_up": normal((e, d, f), 1.0 / math.sqrt(d)),
+        "w_down": normal((e, f, d), 1.0 / math.sqrt(f)),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """The slots each expert has in one batch row of a call over ``s``
+    tokens, from shapes alone: ``ceil(k * s / E * capacity_factor)`` (320 for
+    OLMoE's prefill of 2,048 tokens, 1 for a decode step)."""
+    return int(math.ceil(cfg.top_k_experts * s / cfg.n_experts * cfg.capacity_factor))
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x: (B, S, D)`` -> each token's top ``k`` experts ``(B, S, k)`` (int64)
+    and their weights (fp32, renormalised to sum to 1).  The router runs in
+    ``x``'s dtype, its softmax in fp32; the top ``k`` come from a stable
+    descending sort, so equal probabilities go to the lower expert, as
+    ``jax.lax.top_k`` breaks ties (``torch.topk`` promises no order among
+    them)."""
+    probs = torch.softmax(linear(p["router"], x, x.dtype).float(), dim=-1)
+    top_p, top_e = probs.sort(dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :cfg.top_k_experts], top_e[..., :cfg.top_k_experts]
+    return top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
+
+
+def moe_dispatch(top_e: torch.Tensor, n_experts: int,
+                 cap: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's per-row capacity dispatch, for all rows at once.
+
+    A row's ``S * k`` (token, expert) pairs are sorted stably by expert, so
+    an expert's pairs stand in token order; a pair's place among its
+    expert's (its sorted position less the expert's first, the exclusive
+    cumsum of the expert counts) is its slot, and a pair keeps it where it
+    is below ``cap``.  Returns ``token (B, E, C)``, the token each slot
+    holds; ``filled (B, E, C)``; and ``slot (B, S, k)``, each pair's slot in
+    ``top_e``'s order, ``cap`` or more where the pair drops."""
+    b, s, k = top_e.shape
+    dev = top_e.device
+    e_sorted, order = top_e.reshape(b, s * k).sort(dim=-1, stable=True)
+    experts = torch.arange(n_experts, device=dev).expand(b, n_experts).contiguous()
+    starts = torch.searchsorted(e_sorted, experts)  # the exclusive cumsum of the counts
+    counts = torch.searchsorted(e_sorted, experts, right=True) - starts
+    c = torch.arange(cap, device=dev)
+    at = (starts[:, :, None] + c).clamp_(max=s * k - 1).view(b, n_experts * cap)
+    token = (order.gather(1, at) // k).view(b, n_experts, cap)
+    filled = c < counts[:, :, None]
+    in_e = torch.arange(s * k, device=dev) - starts.gather(1, e_sorted)
+    slot = torch.empty_like(in_e).scatter_(1, order, in_e)  # back to (token, k) order
+    return token, filled, slot.view(b, s, k)
+
+
+def moe_buffer(x: torch.Tensor, token: torch.Tensor, filled: torch.Tensor) -> torch.Tensor:
+    """The experts' input ``(E, B * C, D)``, row-major in (expert, row,
+    slot): each filled slot's token of ``x: (B, S, D)``, zero where the slot
+    is unfilled."""
+    b, s, d = x.shape
+    e, cap = token.shape[1:]
+    rows = (token + (torch.arange(b, device=x.device) * s)[:, None, None]).transpose(0, 1)
+    h = x.reshape(b * s, d)[rows.reshape(-1)].view(e, b * cap, d)
+    return h.masked_fill_(~filled.transpose(0, 1).reshape(e, b * cap, 1), 0)
+
+
+def moe_experts(p: Params, h: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its rows, ``h: (E, N, D) -> (E, N, D)``,
+    as batched products over the experts in ``h``'s dtype: fp32
+    accumulation, one rounding."""
+    dtype = h.dtype
+    gate = torch.bmm(h, p["w_gate"].to(dtype))
+    up = torch.bmm(h, p["w_up"].to(dtype))
+    return torch.bmm(_silu(gate) * up, p["w_down"].to(dtype))
+
+
+def moe_combine(out: torch.Tensor, top_p: torch.Tensor, top_e: torch.Tensor,
+                slot: torch.Tensor, cap: int) -> torch.Tensor:
+    """``out: (E, B * C, D)`` back to the tokens, ``(B, S, D)``: a token's
+    kept outputs, each times its weight in ``out``'s dtype, added into zeros
+    in ascending expert order with a rounding at each add, the order in
+    which the reference's ``.at[tok_sorted].add`` applies them (its pairs
+    stand in expert order).  A gather and an add a step of ``k``, no atomic
+    add, so the bits do not change from run to run."""
+    b, s, k = top_e.shape
+    e_asc, perm = top_e.sort(dim=-1)
+    slot, w = slot.gather(2, perm), top_p.gather(2, perm).to(out.dtype)
+    keep = slot < cap
+    at = (e_asc * b + torch.arange(b, device=out.device)[:, None, None]) * cap
+    at = at + slot.clamp(max=cap - 1)
+    out = out.reshape(-1, out.shape[-1])
+    y = out.new_zeros((b, s, out.shape[-1]))
+    for j in range(k):
+        y = y + torch.where(keep[..., j, None], out[at[..., j]], 0) * w[..., j, None]
+    return y
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE with the reference's sort-based capacity dispatch
+    (GShard-style dropping), batched over the rows with tensor ops and
+    nothing read back to the host: :func:`moe_route`, :func:`moe_dispatch`
+    at the call's capacity (:func:`moe_capacity`), :func:`moe_buffer`,
+    :func:`moe_experts`, :func:`moe_combine`.
+
+    The reference has two layouts of the experts' products, expert-major
+    for E > 16 and a loop over the experts below that, for TPU sharding;
+    both compute what the one batched layout here computes."""
+    cap = moe_capacity(cfg, x.shape[1])
+    top_p, top_e = moe_route(p, x, cfg)
+    token, filled, slot = moe_dispatch(top_e, cfg.n_experts, cap)
+    out = moe_experts(p, moe_buffer(x, token, filled))
+    return moe_combine(out, top_p, top_e, slot, cap)

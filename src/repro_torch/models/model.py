@@ -1,15 +1,16 @@
 """Public model API: one object per architecture config (the counterpart of
 ``repro.models.model``; the port serves the ``dense`` family (qwen1.5-4b,
-phi4-mini-3.8b, granite-3-2b, gemma2-9b), the ``ssm`` family (RWKV6) and
-the ``hybrid`` family (Zamba2)).
+phi4-mini-3.8b, granite-3-2b, gemma2-9b), the ``moe`` family (olmoe-1b-7b,
+mixtral-8x7b), the ``ssm`` family (RWKV6) and the ``hybrid`` family
+(Zamba2)).
 
     model = Model(get_config("gemma2-9b"))
     params = model.init(torch.Generator("cuda").manual_seed(0))   # fp32 master
-    params = model.compute_params(params)     # linear weights cast once
+    params = model.compute_params(params)     # linear and expert weights cast once
     logits, cache = model.prefill(params, tokens)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-A dense model's ``decode_step`` writes the new token's K / V into ``cache``
+A dense or MoE model's ``decode_step`` writes the new token's K / V into ``cache``
 in place and returns it; an ``ssm`` model's returns a new state; a
 ``hybrid`` model's writes its shared block's K / V in place and returns new
 Mamba2 states.
@@ -51,7 +52,7 @@ SHAPES: dict[str, ShapeSpec] = {
 
 class Model:
     """Raises ``NotImplementedError`` for a family the port does not serve
-    yet (``moe``, ``audio`` and ``vlm``; see ROADMAP.md, queue 1)."""
+    yet (``audio`` and ``vlm``; see ROADMAP.md, queue 1)."""
 
     def __init__(self, cfg: ModelConfig):
         backbone.check_family(cfg)
@@ -63,8 +64,9 @@ class Model:
         return backbone.init_params(self.cfg, generator)
 
     def compute_params(self, params: Params) -> Params:
-        """``params`` with each linear weight cast once to the config dtype
-        (what the reference casts on every call); the other leaves shared."""
+        """``params`` with each linear weight and each MoE layer's expert
+        tensors cast once to the config dtype (what the reference casts on
+        every call); the other leaves shared."""
         return cast_linears(params, getattr(torch, self.cfg.dtype))
 
     # -- serving -----------------------------------------------------------

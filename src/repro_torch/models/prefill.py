@@ -1,9 +1,9 @@
 """Prefill: the full-sequence forward pass that also builds the decode
-cache, for the ``dense``, ``ssm`` and ``hybrid`` families (the counterpart
-of ``repro.models.prefill``).
+cache, for the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families (the
+counterpart of ``repro.models.prefill``).
 
 Returns ``(last-token logits, cache)`` with the cache laid out as
-:func:`repro_torch.models.decode.init_cache`: for ``dense``, ``k`` / ``v``
+:func:`repro_torch.models.decode.init_cache`: for ``dense`` and ``moe``, ``k`` / ``v``
 ``(L, B, Hkv, max_seq, hd)`` in the cache dtype, keys after RoPE, zero past
 the prompt; for ``ssm``, ``prev1`` / ``prev2`` (the last normalised input of
 each layer's two mixes) in the cache dtype and ``wkv`` (the linear-attention
@@ -31,6 +31,7 @@ from repro_torch.models.backbone import (
     _layer_windows,
     check_family,
     embed,
+    ffn_forward,
     layer_params,
     logits_for_position,
     shared_application,
@@ -58,7 +59,7 @@ def prefill(
     check_family(cfg)
     x = embed(cfg, params, tokens)
     max_seq = max_seq or tokens.shape[1]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         x, cache = _dense_prefill(cfg, params, x, max_seq, cache_dtype)
     elif cfg.family == "ssm":
         x, cache = _rwkv_prefill(cfg, params, x, cache_dtype)
@@ -133,7 +134,7 @@ def _dense_block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, window: i
     if cfg.sandwich_norm:
         h = L.apply_norm(p["ln1_post"], h, cfg)
     x = x + h
-    y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    y = ffn_forward(p, L.apply_norm(p["ln2"], x, cfg), cfg)
     if cfg.sandwich_norm:
         y = L.apply_norm(p["ln2_post"], y, cfg)
     return x + y, k, v

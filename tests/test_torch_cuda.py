@@ -17,8 +17,9 @@ rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
 at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
 bf16 ulp in bf16 (sums in another order), and the reduced RWKV6, granite,
-Gemma2 and zamba2 models on the card give the CPU's logits (zamba2 also its
-greedy tokens).  Row 3 also runs on skewed inputs (one
+Gemma2, zamba2 and olmoe (at 8 and 32 experts) models on the card give the
+CPU's logits (zamba2 and olmoe also its greedy tokens; olmoe's prefill twice
+the same bits).  Row 3 also runs on skewed inputs (one
 centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
 which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
 launches give equal bits and the screened kernel's best distances equal the
@@ -1483,6 +1484,57 @@ def test_hybrid_model_on_the_card_equals_the_cpu(dev):
     want = serve.Server(model, params, 2, 37).run(
         [serve.Request(i, prompts[i]) for i in range(2)], 12)
     assert [r.generated for r in got] == [r.generated for r in want]
+
+
+@pytest.mark.parametrize("n_experts,top_k", [(8, 2), (32, 4)])
+def test_moe_model_on_the_card_equals_the_cpu(dev, n_experts, top_k):
+    """Reduced olmoe in fp32 at E = 8 and at E = 32 (the reference's
+    expert-major branch, E > 16): prefill of 40 tokens into an fp32 cache
+    and two decode steps, the
+    logits at the dense tests' tolerance, the cache written in place; the
+    card's server gives the CPU server's greedy tokens; no port kernel is
+    launched; two prefills on the card, in fp32 and with the bf16 compute
+    tree, give equal bits (the combine adds in a fixed order, no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models import prefill as P
+
+    cfg = dataclasses.replace(reduced_config("olmoe-1b-7b"), dtype="float32",
+                              n_experts=n_experts, top_k_experts=top_k)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(5))
+    card = _to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(35))
+    kernels.reset_launch_counts()
+    lc, cache_c = P.prefill(cfg, card, toks.to(dev), max_seq=43, cache_dtype=torch.float32)
+    lp, cache_p = P.prefill(cfg, params, toks, max_seq=43, cache_dtype=torch.float32)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=2e-4)
+    ptr = cache_c["k"].data_ptr()
+    nxt = lp.argmax(-1)
+    for pos in (40, 41):
+        dc, cache_c = model.decode_step(card, cache_c, nxt.to(dev), pos)
+        dp, cache_p = model.decode_step(params, cache_p, nxt, pos)
+        torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=2e-4)
+        nxt = dp.argmax(-1)
+    assert cache_c["k"].data_ptr() == ptr
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache_c[name].cpu(), cache_p[name], rtol=1e-3, atol=2e-4)
+    again, _ = P.prefill(cfg, card, toks.to(dev), max_seq=43, cache_dtype=torch.float32)
+    assert torch.equal(again, lc)
+    bf16 = Model(dataclasses.replace(cfg, dtype="bfloat16"))
+    compute = bf16.compute_params(card)
+    assert torch.equal(bf16.prefill(compute, toks.to(dev))[0],
+                       bf16.prefill(compute, toks.to(dev))[0])
+    prompts = toks[:, :24].numpy()
+    got = serve.Server(model, card, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    want = serve.Server(model, params, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
 def test_init_cache_defaults_to_the_card(dev):

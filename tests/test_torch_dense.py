@@ -375,9 +375,12 @@ def test_gemma2_local_global_masking_differs():
                   - backbone.forward_hidden(local, one, toks2)[0, -1]).abs().max()) == 0
 
 
-def test_moe_block_is_refused_rather_than_drawn():
+def test_moe_block_is_drawn_with_moe_not_mlp():
+    """A ``moe`` config's dense block carries the MoE layer in place of the
+    MLP (``tests/test_torch_moe.py`` holds it to the JAX package)."""
     cfg = reduced_config("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbone.init_dense_block(torch.Generator(), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg)
+    p = backbone.init_dense_block(torch.Generator(), cfg, lead=(2,))
+    assert "moe" in p and "mlp" not in p
+    assert sorted(p["moe"]) == ["router", "w_down", "w_gate", "w_up"]
+    assert p["moe"]["w_gate"].shape == (2, cfg.n_experts, cfg.d_model, cfg.d_ff)
+    assert Model(cfg).cfg is cfg
