@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives twelve paths, each with every kernel's launch count set to 0 just
+drives fourteen paths, each with every kernel's launch count set to 0 just
 before it and read just after.  Seven run over SIFT1M's shape (n =
 1,000,000, d = 128, data from ``gaussian_mixture``):
 
@@ -90,7 +90,30 @@ layers at ``sliding_window`` 32, as ``reduced_config`` sets it, so the
 window masks at the 64-token prompt) then run on the card and on the CPU,
 held as ``lm_cpu_recheck``.
 
-The eleventh, ``lm_serve_dense``, runs last, after the kernel checks and the
+Then the cross-attention families, after ``lm_cpu_recheck_mixtral``.
+``lm_serve_vlm`` serves Llama-3.2-Vision-11B (``get_config(
+"llama-3.2-vision-11b")`` unchanged: 40 layers, 32 dense and 8 blocks of
+tanh-gated cross-attention, one after every 4 dense layers; d_model 4,096,
+32 / 8 heads of 128, SwiGLU d_ff 14,336, vocab 128,256, RoPE theta 5e5)
+with ``lm_serve``'s traffic, each request with the 1,601 all-zero patch
+embeddings the server gives it; ``lm_serve_audio`` serves Whisper-large-v3
+(``get_config("whisper-large-v3")`` unchanged: 32 encoder layers over 1,500
+frames and 32 decoder layers, d_model 1,280, 20 heads of 64, GELU d_ff
+5,120, LayerNorm, learned positions, vocab 51,866) with 16 requests of
+224-token prompts (inside its decoder's published 448-token context), 8
+slots, 32 greedy tokens.  Both drop the fp32 master once the server holds
+its bf16 tree, launch no port kernel, run their profiled prefill batch and
+decode step on seeded N(0, 1) ``extras``, and report the cross K / V
+cache's bytes, a cross-attention, a cross block, a dense layer or the
+encoder timed alone, and the cross-attention's share of a prefill batch.
+``lm_cpu_recheck_vlm`` (2 layers at period 2: one dense layer and one cross
+block over all 1,601 patches, the gates at seeded values in [0.5, 1.0]) and
+``lm_cpu_recheck_audio`` (2 encoder and 2 decoder layers over all 1,500
+frames) run on the card and on the CPU over seeded ``extras``, the card's
+tokens drawn through ``prefill`` / ``decode_step``, held as
+``lm_cpu_recheck``.
+
+The last, ``lm_serve_dense``, runs last, after the kernel checks and the
 CPU re-check below (the profiler loses kernels far more often in traces
 taken after it), and serves Gemma2-9B (``get_config("gemma2-9b")``
 unchanged: 42 layers, d_model 3,584, 16 query and 8 KV heads of 256, d_ff
@@ -2583,6 +2606,57 @@ def moe_stages(p, cfg, b: int, s: int, dev, reps: int = 5) -> dict:
                 kept_pairs=int((slot < cap).sum()), pairs=slot.numel())
 
 
+def seeded_extras(cfg, b: int, seed: int, dev):
+    """``b`` rows of seeded N(0, 1) bf16 ``extras`` on ``dev`` for the
+    ``audio`` (``encoder_seq`` frames) and ``vlm`` (``vision_tokens``
+    patches) families, as the reference's tests draw them; ``None`` for
+    the others."""
+    import torch
+
+    from repro_torch.models.backbone import memory_tokens
+
+    n = memory_tokens(cfg)
+    if n is None:
+        return None
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randn((b, n, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+
+
+def cross_stages(params, cfg, b: int, s: int, extras, dev, reps: int = 5) -> dict:
+    """The cross-attention families' parts at the prefill shape ``(b, s)``
+    on random bf16 input, each timed alone by CUDA events over ``reps``
+    calls: one cross-attention (its pre-norm, the memory's K / V
+    projections, Q, the attention over the memory, the output projection);
+    ``vlm``: a whole cross block (the gate and its MLP too) and one dense
+    layer; ``audio``: the encoder over ``extras``."""
+    import torch
+
+    from repro_torch.models import backbone as B
+    from repro_torch.models import layers as L
+    from repro_torch.models.prefill import _cross_attn_with_kv, _dense_block_prefill
+
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        c, p0 = B.layer_params(params["cross_blocks"], 0), B.layer_params(params["blocks"], 0)
+
+        def attn():
+            return _cross_attn_with_kv(c["cross"], L.apply_norm(c["ln1"], x, cfg), extras, cfg)
+
+        ms = dict(cross_attn=time_ms(attn, reps),
+                  cross_block=time_ms(lambda: B.gated(c, x, attn()[0], cfg), reps),
+                  self_layer=time_ms(lambda: _dense_block_prefill(p0, x, cfg, None), reps))
+        n_cross = cfg.n_layers // cfg.cross_attn_period
+    else:
+        enc = B.encode(cfg, params, extras)
+        p0 = B.layer_params(params["blocks"], 0)
+        ms = dict(encoder=time_ms(lambda: B.encode(cfg, params, extras), reps),
+                  cross_attn=time_ms(lambda: _cross_attn_with_kv(
+                      p0["cross"], L.apply_norm(p0["ln_x"], x, cfg), enc, cfg), reps))
+        n_cross = cfg.n_layers
+    return dict(batch=b, seq=s, memory=extras.shape[1], n_cross=n_cross, ms=ms)
+
+
 def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16,
                    slots: int = 8, prompt_len: int = 2048, gen_len: int = 32,
                    layers_full: int | None = None) -> dict:
@@ -2596,9 +2670,14 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
     must launch none.  An MoE model's prefill of one batch, run twice, must
     give equal logits bit for bit (the combine adds in a fixed order), and
     its layer 0 is timed stage by stage (:func:`moe_stages`) at the prefill
-    and decode shapes.  ``layers_full`` is the layer count of the published
-    config where the caller cut it (``cfg.n_layers`` else).  Returns the
-    path's launches."""
+    and decode shapes.  An ``audio`` or ``vlm`` model is served the
+    server's zero ``extras`` and launches no port kernel; its profiled
+    prefill batch and decode step run on seeded N(0, 1) ``extras``
+    (:func:`seeded_extras`), and it reports its cross K / V cache's bytes,
+    its parts timed alone (:func:`cross_stages`) and the cross-attention's
+    share of a served prefill batch.  ``layers_full`` is the layer count of
+    the published config where the caller cut it (``cfg.n_layers`` else).
+    Returns the path's launches."""
     import numpy as np
     import torch
 
@@ -2639,11 +2718,22 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
         raise AssertionError("the server's answers are not gen_len in-vocabulary tokens each")
     decode_ms = [1e3 * x for tm in server.timings for x in tm["decode_s"]]
     toks = torch.as_tensor(prompts[:slots], device=dev)
-    logits, cache = model.prefill(server.params, toks, max_seq=server.max_seq)
+    extras = seeded_extras(cfg, slots, seed + 3, dev)
+    logits, cache = model.prefill(server.params, toks, extras=extras, max_seq=server.max_seq)
     if not torch.isfinite(logits[:, : cfg.vocab_size]).all():
         raise AssertionError("prefill logits are not finite")
     nxt = logits.argmax(-1)
     moe = {}
+    if extras is not None:
+        stages = cross_stages(server.params, cfg, slots, prompt_len, extras, dev)
+        prefill_ms = 1e3 * float(np.median([tm["prefill_s"] for tm in server.timings]))
+        moe.update(memory_tokens=extras.shape[1], cross_stages=stages,
+                   cross_kv_bytes=sum(cache[n].numel() * cache[n].element_size()
+                                      for n in ("xk", "xv")),
+                   cross_attn_share_of_prefill=stages["n_cross"] * stages["ms"]["cross_attn"]
+                   / prefill_ms)
+        if cfg.family == "audio":
+            moe["encoder_share_of_prefill"] = stages["ms"]["encoder"] / prefill_ms
     if cfg.family == "moe":
         again = model.prefill(server.params, toks, max_seq=server.max_seq)[0]
         moe["prefill_equal_bits"] = bool(torch.equal(again, logits))
@@ -2654,7 +2744,8 @@ def lm_serve_phase(dev, seed: int, cfg, phase: str = "lm_serve", n_req: int = 16
         moe["moe_stages"] = dict(prefill=moe_stages(layer0, cfg, slots, prompt_len, dev),
                                  decode=moe_stages(layer0, cfg, slots, 1, dev))
     prof = dict(prefill=profile_batch(
-                    lambda: model.prefill(server.params, toks, max_seq=server.max_seq)),
+                    lambda: model.prefill(server.params, toks, extras=extras,
+                                          max_seq=server.max_seq)),
                 decode_step=profile_batch(
                     lambda: model.decode_step(server.params, cache, nxt, prompt_len)))
     emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers,
@@ -2678,17 +2769,31 @@ def leaves(tree):
         yield from (leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _forced(model, params, prompt, tokens):
+def _forced(model, params, prompt, tokens, extras=None):
     """Logits (n, B, V) of the prompt's last position and of each decode
     step fed ``tokens`` in turn (teacher forcing)."""
     import torch
 
-    logits, cache = model.prefill(params, prompt, max_seq=prompt.shape[1] + tokens.shape[1])
+    logits, cache = model.prefill(params, prompt, extras=extras,
+                                  max_seq=prompt.shape[1] + tokens.shape[1])
     out = [logits.float().cpu()]
     for i in range(tokens.shape[1] - 1):
         logits, cache = model.decode_step(params, cache, tokens[:, i], prompt.shape[1] + i)
         out.append(logits.float().cpu())
     return torch.stack(out)
+
+
+def _greedy(model, params, prompt, extras, gen_len: int) -> list[int]:
+    """``gen_len`` greedy tokens of one request through ``model.prefill`` /
+    ``decode_step`` with ``extras``, as the server draws them."""
+    logits, cache = model.prefill(params, prompt, extras=extras,
+                                  max_seq=prompt.shape[1] + gen_len + 1)
+    out = [int(logits.argmax(-1)[0])]
+    for t in range(gen_len - 1):
+        nxt = logits.argmax(-1)
+        logits, cache = model.decode_step(params, cache, nxt, prompt.shape[1] + t)
+        out.append(int(logits.argmax(-1)[0]))
+    return out
 
 
 def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
@@ -2702,7 +2807,12 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     within ``tol`` of the CPU's, and each of the card's tokens must be the
     CPU's greedy token, or a near tie there (top two within twice the
     card-CPU distance at that step).  The ``ssm`` and ``hybrid`` models must
-    launch row 11 once a layer in the card's run, the others nothing."""
+    launch row 11 once a layer in the card's run, the others nothing.  An
+    ``audio`` or ``vlm`` model gets seeded ``extras`` (:func:`seeded_extras`,
+    drawn on the CPU) on both devices, a ``vlm`` model's gates are set to
+    seeded values in [0.5, 1.0] on both trees, and the card's tokens come
+    from ``model.prefill`` / ``decode_step`` (the server's zero ``extras``
+    would make a VLM's cross-attention add exactly 0)."""
 
     import numpy as np
     import torch
@@ -2714,18 +2824,34 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     model = Model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(seed + 10))
     prompt = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, (1, prompt_len))
+    extras = seeded_extras(cfg, 1, seed + 12, "cpu")
+    cross = {}
+    if cfg.family == "vlm":
+        gate = params["cross_blocks"]["gate"]
+        gate.copy_(0.5 + 0.5 * torch.rand(gate.shape, generator=torch.Generator().manual_seed(
+            seed + 13)))
+        cross["gates"] = gate.flatten().tolist()
+    if extras is not None:
+        cross["memory_tokens"] = extras.shape[1]
+    ex_dev = None if extras is None else extras.to(dev)
+    compute = model.compute_params(params)
     kernels.reset_launch_counts()
-    server = Server(model, params, 1, prompt_len + gen_len + 1)
-    req = server.run([Request(0, prompt[0])], gen_len)[0]
+    if extras is None:
+        generated = Server(model, compute, 1, prompt_len + gen_len + 1).run(
+            [Request(0, prompt[0])], gen_len)[0].generated
+    else:
+        generated = _greedy(model, compute, torch.as_tensor(prompt, device=dev), ex_dev,
+                            gen_len)
     launches = kernels.launch_counts()
-    tokens = torch.tensor([req.generated])
-    card = _forced(model, server.params, torch.as_tensor(prompt, device=dev), tokens.to(dev))
+    tokens = torch.tensor([generated])
+    card = _forced(model, compute, torch.as_tensor(prompt, device=dev), tokens.to(dev), ex_dev)
     t0 = time.perf_counter()
     cpu_params = _to(params, "cpu")
-    del params, server
-    cpu = _forced(model, model.compute_params(cpu_params), torch.as_tensor(prompt), tokens)
+    del params, compute
+    cpu = _forced(model, model.compute_params(cpu_params), torch.as_tensor(prompt), tokens,
+                  extras)
     f32 = Model(dataclasses.replace(cfg, dtype="float32"))
-    ref32 = _forced(f32, cpu_params, torch.as_tensor(prompt), tokens)
+    ref32 = _forced(f32, cpu_params, torch.as_tensor(prompt), tokens, extras)
     cpu_s = time.perf_counter() - t0
     v = cfg.vocab_size
     card, cpu, ref32 = card[..., :v], cpu[..., :v], ref32[..., :v]
@@ -2738,10 +2864,10 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     equal = greedy == want
     emit(dict(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, vocab=v,
               prompt_len=prompt_len, gen_len=gen_len, seconds_cpu=cpu_s,
-              linear_attn_launches=launches["linear_attn"], card_tokens=req.generated,
+              linear_attn_launches=launches["linear_attn"], card_tokens=generated,
               cpu_greedy_tokens=greedy[:, 0].tolist(), tokens_equal=int(equal.sum()),
               near_ties=int((~equal & near_tie).sum()), max_abs_logit_diff=float(dist.max()),
-              tolerance_bf16_vs_fp32=tol, logit_scale=float(cpu.abs().max())))
+              tolerance_bf16_vs_fp32=tol, logit_scale=float(cpu.abs().max()), **cross))
     want_launches = dict.fromkeys(launches, 0)
     if cfg.family in ("ssm", "hybrid"):
         want_launches["linear_attn"] = cfg.n_layers
@@ -2923,7 +3049,26 @@ def main() -> int:
                          dataclasses.replace(mixtral_cfg, n_layers=2, sliding_window=32),
                          phase="lm_cpu_recheck_mixtral")
 
-    # 15. the dense LM family: Gemma2-9B served at full width, then a 2-layer
+    # 15. the cross-attention families: Llama-3.2-Vision-11B (a gated cross
+    # block every 5th layer over 1,601 patch embeddings) and Whisper-large-v3
+    # (an encoder over 1,500 frames; 224-token prompts, inside its decoder's
+    # published 448-token context) served at full width, nothing cut; then 2
+    # layers of each width (the VLM at period 2: one dense layer, one cross
+    # block, gates open) on the card and again on the CPU over seeded extras
+    vlm_cfg = get_config("llama-3.2-vision-11b")
+    launches_by_path["lm_serve_vlm"] = lm_serve_phase(dev, args.seed, vlm_cfg,
+                                                      phase="lm_serve_vlm")
+    audio_cfg = get_config("whisper-large-v3")
+    launches_by_path["lm_serve_audio"] = lm_serve_phase(dev, args.seed, audio_cfg,
+                                                        phase="lm_serve_audio", prompt_len=224)
+    lm_cpu_recheck_phase(dev, args.seed,
+                         dataclasses.replace(vlm_cfg, n_layers=2, cross_attn_period=2),
+                         phase="lm_cpu_recheck_vlm")
+    lm_cpu_recheck_phase(dev, args.seed,
+                         dataclasses.replace(audio_cfg, n_layers=2, encoder_layers=2),
+                         phase="lm_cpu_recheck_audio")
+
+    # 16. the dense LM family: Gemma2-9B served at full width, then a 2-layer
     # Gemma2 of that width (layer 0 local at reduced_config's window of 32,
     # layer 1 global) on the card and again on the CPU.  Last, after every
     # kernel is timed: traces taken after it lose their kernels far more often

@@ -5,6 +5,13 @@ On the card, Gemma2-9B (or ``--arch rwkv6-1.6b``, ``zamba2-1.2b``,
 ``olmoe-1b-7b``) at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --no-reduced \
       --requests 16 --slots 8 --prompt-len 2048 --gen-len 32
+Llama-3.2-Vision-11B (1,601 patch embeddings a request) and Whisper-large-v3
+(1,500 encoder frames; its decoder's published context is 448 tokens) at
+full width:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \
+      --no-reduced --requests 16 --slots 8 --prompt-len 2048 --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --no-reduced \
+      --requests 16 --slots 8 --prompt-len 224 --gen-len 32
 Mixtral-8x7B at full width needs 93.4 GB in bf16, more than one 80 GB card;
 ``--layers`` cuts its depth and nothing else:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --no-reduced \
@@ -14,7 +21,10 @@ other ``--arch``, e.g. ``olmoe-1b-7b``):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced
 
 The server keeps the compute tree (linear and expert weights in bf16); the
-fp32 master it was made from is dropped once the server holds it.
+fp32 master it was made from is dropped once the server holds it.  For the
+``audio`` and ``vlm`` families it gives prefill all-zero bf16 ``extras``
+(frames or patch embeddings), as the reference's server does; it has no
+per-request ``extras``, nor has the reference's.
 
 ``--reduced`` is a ``BooleanOptionalAction`` with the reference's default
 (``True``), so ``--no-reduced`` serves the full width; the reference's
@@ -32,6 +42,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.models import Model
+from repro_torch.models.backbone import memory_tokens
 
 
 @dataclasses.dataclass
@@ -58,6 +69,16 @@ class Server:
         self.max_seq = max_seq
         self.timings: list[dict] = []
 
+    def extras(self, batch: int) -> torch.Tensor | None:
+        """The ``extras`` a prefill of ``batch`` requests gets: zeros ``(batch,
+        encoder_seq | vision_tokens, d_model)`` in bf16 on the server's
+        device for ``audio`` / ``vlm``, else ``None``."""
+        n = memory_tokens(self.model.cfg)
+        if n is None:
+            return None
+        return torch.zeros((batch, n, self.model.cfg.d_model), dtype=torch.bfloat16,
+                           device=self.params["embed"].device)
+
     def run(self, requests: list[Request], gen_len: int) -> list[Request]:
         queue = list(requests)
         if any(len(r.prompt) != len(queue[0].prompt) for r in queue):
@@ -70,7 +91,8 @@ class Server:
             toks = torch.as_tensor(np.stack([r.prompt for r in active]), dtype=torch.long,
                                    device=device)
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(self.params, toks, max_seq=self.max_seq)
+            logits, cache = self.model.prefill(self.params, toks, extras=self.extras(len(active)),
+                                               max_seq=self.max_seq)
             nxt = torch.argmax(logits, dim=-1)
             host = nxt.tolist()
             timing = dict(batch=len(active), prefill_s=time.perf_counter() - t0, decode_s=[])

@@ -1,17 +1,23 @@
-"""Backbone assembly for the ``dense`` family (qwen1.5, phi4-mini, granite,
-Gemma2), the ``moe`` family (OLMoE, Mixtral: the dense block with its MLP
-swapped for the top-k MoE layer), the ``ssm`` family (RWKV6) and the
-``hybrid`` family (Zamba2: Mamba2 layers with one *shared* dense block
-applied after every ``hybrid_period`` of them, the same parameters each
-time): parameters
-stacked on a leading layer axis (the shared block unstacked), the
-full-sequence forward pass and the logits of one position.  The counterpart
-of ``repro.models.backbone``; where the reference scans over the stacked
-layer axis, the port loops over layers in Python, so a layer's attention
-window is a Python ``int`` or ``None`` (global) and one ``flash_attention``
-serves every layer (the reference's traced-window twin, ``_flash_dynwin``,
-has no counterpart).  The ``audio`` and ``vlm`` families,
-``chunked_ce_loss`` and training are not ported yet (ROADMAP queue 1).
+"""Backbone assembly for every family of the LM stack: ``dense`` (qwen1.5,
+phi4-mini, granite, Gemma2), ``moe`` (OLMoE, Mixtral: the dense block with
+its MLP swapped for the top-k MoE layer), ``ssm`` (RWKV6), ``hybrid``
+(Zamba2: Mamba2 layers with one *shared* dense block applied after every
+``hybrid_period`` of them, the same parameters each time), ``audio``
+(Whisper: an encoder over precomputed frame embeddings, then decoder
+layers of self-attention, cross-attention over the encoder's output and a
+GELU MLP, with learned positions) and ``vlm`` (Llama-3.2-Vision: units of
+``cross_attn_period - 1`` dense layers then one block of tanh-gated
+cross-attention over precomputed patch embeddings and an ungated MLP):
+parameters stacked on a leading layer axis (the shared block unstacked),
+the full-sequence forward pass and the logits of one position.  The
+counterpart of ``repro.models.backbone``; where the reference scans over
+the stacked layer axis, the port loops over layers in Python, so a layer's
+attention window is a Python ``int`` or ``None`` (global) and one
+``flash_attention`` serves every layer (the reference's traced-window twin,
+``_flash_dynwin``, has no counterpart).  The frame and patch embeddings
+(``extras``) are inputs: the audio front end and the vision encoder are
+stubs in the reference too.  ``chunked_ce_loss`` and training are not
+ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -27,18 +33,33 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
 
 __all__ = ["init_params", "init_dense_block", "init_rwkv_block", "init_mamba_block",
-           "forward_hidden", "logits_for_position", "layer_params", "check_family",
-           "shared_application", "ffn_forward"]
+           "init_encoder_block", "init_encdec_block", "init_cross_block", "forward_hidden",
+           "logits_for_position", "layer_params", "check_family", "shared_application",
+           "ffn_forward", "vlm_self_layer", "memory_tokens", "encode", "require_extras",
+           "gated"]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``'s family (``dense``, ``moe``,
-    ``ssm`` or ``hybrid``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the port serves the "
-            "'dense' family, the 'moe' family (OLMoE, Mixtral), the 'ssm' family (RWKV6) and "
-            "the 'hybrid' family (Zamba2) only (see ROADMAP.md, queue 1)")
+    """Raise unless ``cfg``'s family is one of the JAX package's six
+    (:data:`FAMILIES`), every one of which the port serves; a ``vlm``
+    config must stack whole units (``n_layers`` a multiple of
+    ``cross_attn_period``), as the reference's reshape into units needs."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family!r}; the port "
+                                  f"serves {', '.join(FAMILIES)}")
+    if cfg.family == "vlm" and (cfg.cross_attn_period < 2
+                                or cfg.n_layers % cfg.cross_attn_period):
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a whole number of "
+                         f"units of cross_attn_period {cfg.cross_attn_period}")
+
+
+def vlm_self_layer(cfg: ModelConfig, unit: int, j: int) -> int:
+    """``vlm``: the stacked index (and KV cache row) of unit ``unit``'s
+    ``j``-th dense layer, ``unit * (period - 1) + j`` (the reference's
+    ``reshape(n_units, period - 1, ...)`` of the dense blocks)."""
+    return unit * (cfg.cross_attn_period - 1) + j
 
 
 def shared_application(cfg: ModelConfig, i: int) -> int | None:
@@ -100,8 +121,51 @@ def init_mamba_block(generator: torch.Generator, cfg: ModelConfig,
             "mamba": S.init_mamba2(generator, cfg, lead)}
 
 
+def init_encoder_block(generator: torch.Generator, cfg: ModelConfig,
+                       lead: tuple[int, ...] = ()) -> Params:
+    """``audio``: an encoder layer, non-causal self-attention and the MLP."""
+    dev = generator.device
+    return {
+        "ln1": L.init_norm(cfg, lead=lead, device=dev),
+        "attn": L.init_attention(generator, cfg, lead=lead),
+        "ln2": L.init_norm(cfg, lead=lead, device=dev),
+        "mlp": L.init_mlp(generator, cfg, lead),
+    }
+
+
+def init_encdec_block(generator: torch.Generator, cfg: ModelConfig,
+                      lead: tuple[int, ...] = ()) -> Params:
+    """``audio``: a decoder layer, causal self-attention, cross-attention
+    over the encoder's output (``cross``, its pre-norm ``ln_x``) and the
+    MLP."""
+    dev = generator.device
+    return {
+        "ln1": L.init_norm(cfg, lead=lead, device=dev),
+        "attn": L.init_attention(generator, cfg, lead=lead),
+        "ln_x": L.init_norm(cfg, lead=lead, device=dev),
+        "cross": L.init_attention(generator, cfg, lead=lead),
+        "ln2": L.init_norm(cfg, lead=lead, device=dev),
+        "mlp": L.init_mlp(generator, cfg, lead),
+    }
+
+
+def init_cross_block(generator: torch.Generator, cfg: ModelConfig,
+                     lead: tuple[int, ...] = ()) -> Params:
+    """``vlm``: cross-attention over the patch embeddings and the MLP, with
+    the residual ``gate`` (fp32 ``(1,)``, zero at init, applied as
+    ``tanh(gate)``)."""
+    dev = generator.device
+    return {
+        "ln1": L.init_norm(cfg, lead=lead, device=dev),
+        "cross": L.init_attention(generator, cfg, lead=lead),
+        "ln2": L.init_norm(cfg, lead=lead, device=dev),
+        "mlp": L.init_mlp(generator, cfg, lead),
+        "gate": torch.zeros((*lead, 1), device=dev),
+    }
+
+
 _BLOCKS = {"dense": init_dense_block, "moe": init_dense_block, "ssm": init_rwkv_block,
-           "hybrid": init_mamba_block}
+           "hybrid": init_mamba_block, "audio": init_encdec_block, "vlm": init_dense_block}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -119,9 +183,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = L.init_linear(generator, d, cfg.padded_vocab)
     block = _BLOCKS[cfg.family]
-    p["blocks"] = _stack_init(generator, cfg.n_layers, lambda g, lead: block(g, cfg, lead))
+    n_blocks = cfg.n_layers
+    if cfg.family == "vlm":  # the dense layers; every period-th layer is a cross block
+        n_blocks -= cfg.n_layers // cfg.cross_attn_period
+    if cfg.family == "audio":
+        p["enc_blocks"] = _stack_init(generator, cfg.encoder_layers,
+                                      lambda g, lead: init_encoder_block(g, cfg, lead))
+    p["blocks"] = _stack_init(generator, n_blocks, lambda g, lead: block(g, cfg, lead))
     if cfg.family == "hybrid":  # one dense block, applied every hybrid_period layers
         p["shared"] = init_dense_block(generator, dataclasses.replace(cfg, family="dense"))
+    if cfg.family == "audio":
+        p["enc_pos"] = torch.randn((cfg.encoder_seq, d), generator=generator, device=dev) * 0.02
+        p["dec_pos"] = torch.randn((cfg.max_learned_pos, d), generator=generator,
+                                   device=dev) * 0.02
+        p["enc_final_norm"] = L.init_norm(cfg, device=dev)
+    if cfg.family == "vlm":
+        p["cross_blocks"] = _stack_init(generator, cfg.n_layers // cfg.cross_attn_period,
+                                        lambda g, lead: init_cross_block(g, cfg, lead))
     return p
 
 
@@ -130,14 +208,65 @@ def layer_params(blocks: Params, i: int) -> Params:
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
 
 
-def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows in the compute dtype; Gemma's ``embed_scale``
-    multiplies them by ``sqrt(d_model)`` rounded to that dtype, as the
-    reference's weakly typed constant is."""
+def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, pos: int = 0) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (``(B, S)``, or ``(B,)`` for one
+    decode step) in the compute dtype, at positions ``pos, pos + 1, ...``;
+    Gemma's ``embed_scale`` multiplies them by ``sqrt(d_model)`` rounded to
+    that dtype, as the reference's weakly typed constant is.  Whisper's
+    learned positions (``learned_pos``) are cast to the compute dtype and
+    then added in it, as the reference does; a position past
+    ``max_learned_pos`` raises ``IndexError`` (the reference's ``take``
+    clamps it, or its slice comes up short)."""
     x = params["embed"][tokens.long()].to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * L._scalar(math.sqrt(cfg.d_model), x)
+    if cfg.learned_pos:
+        n = tokens.shape[1] if tokens.dim() == 2 else 1
+        if pos < 0 or pos + n > cfg.max_learned_pos:
+            raise IndexError(f"positions {pos}..{pos + n - 1} are past the "
+                             f"{cfg.max_learned_pos} learned positions")
+        rows = params["dec_pos"][pos:pos + n].to(x.dtype)
+        x = x + (rows if tokens.dim() == 2 else rows[0])
     return x
+
+
+def memory_tokens(cfg: ModelConfig) -> int | None:
+    """The rows of ``extras`` a call takes: Whisper's ``encoder_seq`` frames,
+    Llama-3.2-Vision's ``vision_tokens`` patches; ``None`` for a family that
+    takes none."""
+    return {"audio": cfg.encoder_seq, "vlm": cfg.vision_tokens}.get(cfg.family)
+
+
+def require_extras(cfg: ModelConfig, extras: torch.Tensor | None) -> None:
+    """Raise unless an ``audio`` or ``vlm`` call has its ``extras`` (the
+    frame or patch embeddings, ``(B, memory_tokens(cfg), D)``)."""
+    if memory_tokens(cfg) is not None and extras is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family!r} family needs extras, its "
+                         f"{'frame' if cfg.family == 'audio' else 'patch'} embeddings")
+
+
+def encode(cfg: ModelConfig, params: Params, extras: torch.Tensor) -> torch.Tensor:
+    """``audio``: the encoder over ``extras: (B, encoder_seq, D)``: the
+    frames and the learned encoder positions each cast to the compute dtype
+    and added in it; each layer's non-causal self-attention and MLP; the
+    final norm."""
+    dtype = _dtype(cfg)
+    h = extras.to(dtype) + params["enc_pos"].to(dtype)
+    for i in range(cfg.encoder_layers):
+        p = layer_params(params["enc_blocks"], i)
+        h = h + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], h, cfg), cfg, causal=False)
+        h = h + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
+    return L.apply_norm(params["enc_final_norm"], h, cfg)
+
+
+def gated(p: Params, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``vlm``: the cross block's two residuals given its cross-attention
+    output ``h``: ``x + tanh(gate) * h`` (``tanh`` in fp32, cast to ``x``'s
+    dtype, as the reference's), then the **ungated** MLP residual (the
+    published model gates its MLP too; the reference does not, nor the
+    port)."""
+    x = x + torch.tanh(p["gate"]).to(x.dtype) * h
+    return x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
 
 
 def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -167,12 +296,35 @@ def _layer_windows(cfg: ModelConfig) -> list[int | None]:
     return [cfg.sliding_window] * cfg.n_layers
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   extras: torch.Tensor | None = None) -> torch.Tensor:
     """``tokens: (B, S)`` -> final hidden states ``(B, S, D)``; the ``ssm``
     and ``hybrid`` families go through the ``(B, H, T, D)`` entry of the
-    linear-attention kernel."""
+    linear-attention kernel; ``audio`` and ``vlm`` attend to ``extras``
+    (frames through the encoder, or the patch embeddings as they are)."""
     check_family(cfg)
+    require_extras(cfg, extras)
     x = embed(cfg, params, tokens)
+    if cfg.family == "audio":
+        enc = encode(cfg, params, extras)
+        for i in range(cfg.n_layers):
+            p = layer_params(params["blocks"], i)
+            x = x + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg)
+            x = x + L.attn_forward(p["cross"], L.apply_norm(p["ln_x"], x, cfg), cfg,
+                                   kv_override=enc)
+            x = x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+        return L.apply_norm(params["final_norm"], x, cfg)
+    if cfg.family == "vlm":
+        vision = extras.to(_dtype(cfg))
+        for u in range(cfg.n_layers // cfg.cross_attn_period):
+            for j in range(cfg.cross_attn_period - 1):
+                p = layer_params(params["blocks"], vlm_self_layer(cfg, u, j))
+                x = _dense_block_fwd(p, x, cfg, None)
+            c = layer_params(params["cross_blocks"], u)
+            h = L.attn_forward(c["cross"], L.apply_norm(c["ln1"], x, cfg), cfg,
+                               kv_override=vision)
+            x = gated(c, x, h, cfg)
+        return L.apply_norm(params["final_norm"], x, cfg)
     windows = _layer_windows(cfg)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)

@@ -1,8 +1,8 @@
 """Public model API: one object per architecture config (the counterpart of
-``repro.models.model``; the port serves the ``dense`` family (qwen1.5-4b,
-phi4-mini-3.8b, granite-3-2b, gemma2-9b), the ``moe`` family (olmoe-1b-7b,
-mixtral-8x7b), the ``ssm`` family (RWKV6) and the ``hybrid`` family
-(Zamba2)).
+``repro.models.model``; the port serves every family of the JAX package:
+``dense`` (qwen1.5-4b, phi4-mini-3.8b, granite-3-2b, gemma2-9b), ``moe``
+(olmoe-1b-7b, mixtral-8x7b), ``ssm`` (RWKV6), ``hybrid`` (Zamba2),
+``audio`` (whisper-large-v3) and ``vlm`` (llama-3.2-vision-11b)).
 
     model = Model(get_config("gemma2-9b"))
     params = model.init(torch.Generator("cuda").manual_seed(0))   # fp32 master
@@ -10,10 +10,16 @@ mixtral-8x7b), the ``ssm`` family (RWKV6) and the ``hybrid`` family
     logits, cache = model.prefill(params, tokens)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-A dense or MoE model's ``decode_step`` writes the new token's K / V into ``cache``
-in place and returns it; an ``ssm`` model's returns a new state; a
-``hybrid`` model's writes its shared block's K / V in place and returns new
-Mamba2 states.
+``audio`` and ``vlm`` models take ``extras`` at prefill: Whisper's frame
+embeddings ``(B, 1500, 1280)``, Llama-3.2-Vision's patch embeddings ``(B,
+1601, 4096)`` (the audio front end and the vision encoder are stubs, as in
+the reference); prefill stores their K / V in the cache (``xk`` / ``xv``),
+which decode only reads.
+
+A dense, MoE, ``audio`` or ``vlm`` model's ``decode_step`` writes the new
+token's K / V into ``cache`` in place and returns it; an ``ssm`` model's
+returns a new state; a ``hybrid`` model's writes its shared block's K / V
+in place and returns new Mamba2 states.
 
 ``input_specs`` (a JAX dry-run helper) and ``loss`` (training) are not
 ported.
@@ -51,8 +57,8 @@ SHAPES: dict[str, ShapeSpec] = {
 
 
 class Model:
-    """Raises ``NotImplementedError`` for a family the port does not serve
-    yet (``audio`` and ``vlm``; see ROADMAP.md, queue 1)."""
+    """Raises ``NotImplementedError`` for a family the JAX package does not
+    have."""
 
     def __init__(self, cfg: ModelConfig):
         backbone.check_family(cfg)
@@ -66,7 +72,9 @@ class Model:
     def compute_params(self, params: Params) -> Params:
         """``params`` with each linear weight and each MoE layer's expert
         tensors cast once to the config dtype (what the reference casts on
-        every call); the other leaves shared."""
+        every call); the other leaves shared (the norms, the embedding, a
+        cross block's ``gate`` and Whisper's ``enc_pos`` / ``dec_pos`` stay
+        fp32: the reference casts them at use)."""
         return cast_linears(params, getattr(torch, self.cfg.dtype))
 
     # -- serving -----------------------------------------------------------

@@ -1,6 +1,5 @@
 """Prefill: the full-sequence forward pass that also builds the decode
-cache, for the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families (the
-counterpart of ``repro.models.prefill``).
+cache, for every family (the counterpart of ``repro.models.prefill``).
 
 Returns ``(last-token logits, cache)`` with the cache laid out as
 :func:`repro_torch.models.decode.init_cache`: for ``dense`` and ``moe``, ``k`` / ``v``
@@ -10,7 +9,16 @@ each layer's two mixes) in the cache dtype and ``wkv`` (the linear-attention
 state) in fp32; for ``hybrid``, ``conv`` (each Mamba2 layer's last ``K - 1``
 raw conv inputs) in the cache dtype, ``ssm`` (the SSD state) in fp32, and
 ``sk`` / ``sv`` ``(n_apps, B, Hkv, max_seq, hd)``, the shared block's K
-(after RoPE) and V at each of its applications, zero past the prompt.
+(after RoPE) and V at each of its applications, zero past the prompt; for
+``audio`` and ``vlm``, ``k`` / ``v`` of the self-attention layers as for
+``dense`` (``vlm``: row ``u * (period - 1) + j`` holds unit ``u``'s ``j``-th
+dense layer) and ``xk`` / ``xv`` ``(n_cross, B, Hkv, memory, hd)``, the
+memory's K and V (no RoPE) in the cache dtype, one row per cross layer:
+Whisper's ``n_layers`` over the encoder's output, Llama-3.2-Vision's
+``n_layers // period`` over the patch embeddings.  Prefill's own
+cross-attention uses those K / V in the compute dtype, as the reference's
+does; it computes them once where the reference computes them twice (for
+the cache and in ``attn_forward``), the same values.
 
 Where the port differs from the reference on purpose: for a prompt shorter
 than ``K - 1`` tokens the reference keeps ``xin[:, t - (K-1):]``, whose
@@ -28,13 +36,18 @@ from repro_torch.kernels.linear_attn.ops import linear_attention_with_state
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.backbone import (
+    _dtype,
     _layer_windows,
     check_family,
     embed,
+    encode,
     ffn_forward,
+    gated,
     layer_params,
     logits_for_position,
+    require_extras,
     shared_application,
+    vlm_self_layer,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import init_cache
@@ -52,19 +65,26 @@ def prefill(
     max_seq: int | None = None,
     cache_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, Params]:
-    """``extras`` is the reference's argument for the families with an
-    encoder (none ported yet) and goes unused.  ``max_seq`` (the prompt's
-    length by default) sizes the dense and the shared-block KV caches; the
-    ``ssm`` state does not grow with the sequence and ignores it."""
+    """``extras`` are the ``audio`` family's frame embeddings ``(B,
+    encoder_seq, D)`` or the ``vlm`` family's patch embeddings ``(B,
+    vision_tokens, D)``, required there (``ValueError`` without them) and
+    unused by the others.  ``max_seq`` (the prompt's length by default)
+    sizes the self-attention KV caches; the ``ssm`` state does not grow with
+    the sequence and ignores it."""
     check_family(cfg)
+    require_extras(cfg, extras)
     x = embed(cfg, params, tokens)
     max_seq = max_seq or tokens.shape[1]
     if cfg.family in ("dense", "moe"):
         x, cache = _dense_prefill(cfg, params, x, max_seq, cache_dtype)
     elif cfg.family == "ssm":
         x, cache = _rwkv_prefill(cfg, params, x, cache_dtype)
-    else:
+    elif cfg.family == "hybrid":
         x, cache = _hybrid_prefill(cfg, params, x, max_seq, cache_dtype)
+    elif cfg.family == "audio":
+        x, cache = _audio_prefill(cfg, params, x, extras, max_seq, cache_dtype)
+    else:
+        x, cache = _vlm_prefill(cfg, params, x, extras, max_seq, cache_dtype)
     x_last = L.apply_norm(params["final_norm"], x[:, -1:], cfg)[:, 0]
     return logits_for_position(cfg, params, x_last), cache
 
@@ -126,6 +146,17 @@ def _self_attn_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, window: int
     o = L.flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return L.linear(p["wo"], o, dtype), k, v
+
+
+def _cross_attn_with_kv(p: Params, xn: torch.Tensor, mem: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention of ``xn`` over ``mem`` (``attn_forward`` with
+    ``kv_override``: no mask, no RoPE) that also returns the memory's ``(k,
+    v)`` for the cache."""
+    b, s, _ = xn.shape
+    k, v = _kv(p, mem, cfg)
+    q = L._split_heads(L.linear(p["wq"], xn, xn.dtype), cfg.n_heads)
+    o = L.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap)
+    return L.linear(p["wo"], o.transpose(1, 2).reshape(b, s, cfg.q_dim), xn.dtype), k, v
 
 
 def _dense_block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, window: int | None):
@@ -195,4 +226,48 @@ def _hybrid_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: 
             x, k, v = _dense_block_prefill(params["shared"], x, cfg, None)
             cache["sk"][j, :, :, :s] = k
             cache["sv"][j, :, :, :s] = v
+    return x, cache
+
+
+def _audio_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, extras: torch.Tensor,
+                   max_seq: int, cache_dtype: torch.dtype) -> tuple[torch.Tensor, Params]:
+    """The encoder over ``extras``, then the decoder layers over ``x: (B, S,
+    D)``; each layer's self K / V go into ``k`` / ``v`` and its
+    cross-attention's K / V of the encoder's output into ``xk`` / ``xv``."""
+    b, s, _ = x.shape
+    enc = encode(cfg, params, extras)
+    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        h, k, v = _self_attn_with_kv(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, None)
+        cache["k"][i, :, :, :s] = k
+        cache["v"][i, :, :, :s] = v
+        x = x + h
+        h, xk, xv = _cross_attn_with_kv(p["cross"], L.apply_norm(p["ln_x"], x, cfg), enc, cfg)
+        cache["xk"][i] = xk
+        cache["xv"][i] = xv
+        x = x + h
+        x = x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    return x, cache
+
+
+def _vlm_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, extras: torch.Tensor,
+                 max_seq: int, cache_dtype: torch.dtype) -> tuple[torch.Tensor, Params]:
+    """The units over ``x: (B, S, D)``: each dense layer's K / V into its
+    row of ``k`` / ``v``, then the cross block, its K / V of the patch
+    embeddings into ``xk`` / ``xv``."""
+    b, s, _ = x.shape
+    vision = extras.to(_dtype(cfg))
+    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    for u in range(cfg.n_layers // cfg.cross_attn_period):
+        for j in range(cfg.cross_attn_period - 1):
+            i = vlm_self_layer(cfg, u, j)
+            x, k, v = _dense_block_prefill(layer_params(params["blocks"], i), x, cfg, None)
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
+        c = layer_params(params["cross_blocks"], u)
+        h, xk, xv = _cross_attn_with_kv(c["cross"], L.apply_norm(c["ln1"], x, cfg), vision, cfg)
+        cache["xk"][u] = xk
+        cache["xv"][u] = xv
+        x = gated(c, x, h, cfg)
     return x, cache

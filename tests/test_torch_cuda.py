@@ -17,9 +17,10 @@ rows 3-5 (s > 64, or a codebook or histogram past shared memory) hold to the
 same rules.  The linear-attention kernel (row 11) equals its plain version
 at the same chunk, any chunk, within rtol 1e-4 / atol 1e-4 in fp32 and one
 bf16 ulp in bf16 (sums in another order), and the reduced RWKV6, granite,
-Gemma2, zamba2 and olmoe (at 8 and 32 experts) models on the card give the
-CPU's logits (zamba2 and olmoe also its greedy tokens; olmoe's prefill twice
-the same bits).  Row 3 also runs on skewed inputs (one
+Gemma2, zamba2, olmoe (at 8 and 32 experts), Llama-3.2-Vision (two units,
+gates open) and Whisper models on the card give the CPU's logits (zamba2,
+olmoe and the cross-attention models also its greedy tokens; olmoe's
+prefill twice the same bits).  Row 3 also runs on skewed inputs (one
 centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
 which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
 launches give equal bits and the screened kernel's best distances equal the
@@ -1528,6 +1529,62 @@ def test_moe_model_on_the_card_equals_the_cpu(dev, n_experts, top_k):
     compute = bf16.compute_params(card)
     assert torch.equal(bf16.prefill(compute, toks.to(dev))[0],
                        bf16.prefill(compute, toks.to(dev))[0])
+    prompts = toks[:, :24].numpy()
+    got = serve.Server(model, card, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    want = serve.Server(model, params, 2, 37).run(
+        [serve.Request(i, prompts[i]) for i in range(2)], 12)
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-large-v3"],
+                         ids=["vlm", "audio"])
+def test_cross_attention_model_on_the_card_equals_the_cpu(dev, arch):
+    """Reduced Llama-3.2-Vision at two units (``n_layers`` 10, period 5,
+    every gate 0.7) and reduced Whisper in fp32, over seeded ``extras``
+    (1,030 patches / 1,100 frames: a padded second chunk of 1,024 keys):
+    prefill of 40 tokens into an fp32 cache and two decode steps, the
+    logits and every cache array (``k``, ``v``, ``xk``, ``xv``) at the dense
+    tests' tolerance, ``k`` written in place and ``xk`` untouched, the
+    forward pass; the card's server gives the CPU server's greedy tokens; no
+    port kernel is launched."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, backbone
+    from repro_torch.models import prefill as P
+
+    kw = (dict(n_layers=10, vision_tokens=1030) if arch == "llama-3.2-vision-11b"
+          else dict(encoder_seq=1100))
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32", **kw)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(6))
+    if cfg.family == "vlm":
+        params["cross_blocks"]["gate"].fill_(0.7)
+    card = _to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(36))
+    ex = torch.randn((2, backbone.memory_tokens(cfg), cfg.d_model), generator=_gen(37))
+    kernels.reset_launch_counts()
+    lc, cache_c = P.prefill(cfg, card, toks.to(dev), extras=ex.to(dev), max_seq=43,
+                            cache_dtype=torch.float32)
+    lp, cache_p = P.prefill(cfg, params, toks, extras=ex, max_seq=43,
+                            cache_dtype=torch.float32)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-3, atol=2e-4)
+    ptr, xk = cache_c["k"].data_ptr(), cache_c["xk"].clone()
+    nxt = lp.argmax(-1)
+    for pos in (40, 41):
+        dc, cache_c = model.decode_step(card, cache_c, nxt.to(dev), pos)
+        dp, cache_p = model.decode_step(params, cache_p, nxt, pos)
+        torch.testing.assert_close(dc.cpu(), dp, rtol=1e-3, atol=2e-4)
+        nxt = dp.argmax(-1)
+    assert cache_c["k"].data_ptr() == ptr and torch.equal(cache_c["xk"], xk)
+    for name in ("k", "v", "xk", "xv"):
+        torch.testing.assert_close(cache_c[name].cpu(), cache_p[name], rtol=1e-3, atol=2e-4)
+    hc = backbone.forward_hidden(cfg, card, toks.to(dev), extras=ex.to(dev))
+    torch.testing.assert_close(hc.cpu(), backbone.forward_hidden(cfg, params, toks, extras=ex),
+                               rtol=1e-3, atol=2e-4)
     prompts = toks[:, :24].numpy()
     got = serve.Server(model, card, 2, 37).run(
         [serve.Request(i, prompts[i]) for i in range(2)], 12)
