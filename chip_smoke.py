@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives fourteen paths, each with every kernel's launch count set to 0 just
+drives sixteen paths, each with every kernel's launch count set to 0 just
 before it and read just after.  Seven run over SIFT1M's shape (n =
 1,000,000, d = 128, data from ``gaussian_mixture``):
 
@@ -59,6 +59,25 @@ on the card from the seed) through ``repro_torch.launch.serve.Server``: 16
 requests of 2,048-token prompts, 8 slots, 32 greedy tokens each.
 ``lm_cpu_recheck`` then runs a 2-layer model of the same width on the card
 and, with the same weights and the card's tokens, on the CPU.
+
+Then, after the kernel checks and the SuCo CPU re-check below, training.
+``lm_train`` trains RWKV6-1.6B at full width, nothing cut,
+through ``repro_torch.launch.train``'s own functions: 10 AdamW steps of 8 x
+2,048 ``SyntheticLM`` tokens, bf16 compute, fp32 master and optimizer state,
+remat on, peak lr 3e-4; row 11 runs in every layer's forward and again in the remat
+recompute (48 launches a step), its backward the plain version recomputed
+under autograd.  It reports the step seconds, tokens/s, the losses, the peak
+memory, a profiled step and the forward, backward and optimizer step timed
+alone, and fails unless the loss is finite and falls.
+``lm_train_recheck`` runs RWKV6 and granite-3-2b at full width on 2 layers
+in fp32 on the card and on the CPU from the same weights and batch (loss,
+every gradient leaf, the parameters after one AdamW step), and holds row
+11's ``autograd.Function`` to autograd of its plain version on the card.
+``sc_attention`` runs SC-attention (``repro_torch.core.sc_attention``) over
+the ``long_500k`` context (524,288 keys, 32 heads of 128, fp32; the
+drifting keys of ``examples/long_context_sc_attention.py``) at n_keep 512,
+2,048 and 8,192 against exact attention, and a reduced case on the card and
+the CPU.
 
 The ninth, ``lm_serve_hybrid``, runs after the kernel checks and the CPU
 re-check below and serves Zamba2-1.2B (``get_config("zamba2-1.2b")``
@@ -236,6 +255,9 @@ PATH_OF = {
     "kmeans_assign_batched": "kmeans_library", "kmeans_assign": "kmeans_library",
     "linear_attn": "lm_serve",
 }
+#: the other main paths whose launches a kernel's ``launches`` adds (row 11
+#: runs in the served prefill and in the trainer's forward and recompute)
+ALSO_ON = {"linear_attn": ("lm_train",)}
 #: the kernels the lifecycle path runs (each reports its launches on its
 #: first path above): Lloyd statistics for the minibatch build and every
 #: insert, the compact and gather kernels for fused queries, the chunk
@@ -272,6 +294,14 @@ def check_launched(path: str, counts: dict) -> None:
     missing = [name for name, p in PATH_OF.items() if p == path and counts[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def emit(obj: dict) -> None:
@@ -996,19 +1026,22 @@ def port_kernel_names() -> set[str]:
     return {k for src in _build.CSRC.glob("*.cu") for k in pat.findall(src.read_text())}
 
 
-def profile_batch(fn) -> dict:
+def profile_batch(fn, host_events: bool = True) -> dict:
     """One call of ``fn`` (a served batch) under ``torch.profiler``: wall
     time, the device's busy time (the device events' own time summed;
     operator events, whose device time repeats their kernels', are left out)
     and idle share, the kernels taking the most device time, and the port's
-    own kernels with their time and launches."""
+    own kernels with their time and launches.  ``host_events=False`` traces
+    the device alone (a train step's ~10^5 host operator events take the
+    profiler minutes to gather)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # the same batch once untraced
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_events else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2879,6 +2912,366 @@ def lm_cpu_recheck_phase(dev, seed: int, cfg, phase: str = "lm_cpu_recheck",
     return dict(tokens_equal=int(equal.sum()), steps=gen_len)
 
 
+# -------------------------------- training ----------------------------------
+
+
+def train_args(**kw):
+    """``repro_torch.launch.train``'s arguments (its parser's defaults) with
+    ``kw`` replaced."""
+    from repro_torch.launch.train import parser
+
+    args = parser().parse_args([])
+    for key, val in kw.items():
+        setattr(args, key, val)
+    return args
+
+
+def lm_train_phase(dev, seed: int, steps: int = 10, global_batch: int = 8,
+                   seq_len: int = 2048, arch: str = "rwkv6-1.6b", full: bool = True,
+                   lr: float = 3e-4) -> dict:
+    """RWKV6-1.6B trained at full width through ``repro_torch.launch.train``'s
+    own functions (``build``, ``init_state``, ``batch_on``, the train step):
+    ``steps`` AdamW steps of ``global_batch`` x ``seq_len`` tokens of
+    ``SyntheticLM``, bf16 compute, fp32 master and state, remat on, the
+    launcher's schedule at peak ``lr`` (3e-4: at the launcher's default of
+    1e-3, sized for the reduced configs, the full-width loss wanders, see
+    PERF.md); each step's ``float(loss)`` is the host read the launcher
+    also makes.
+    Reports the median step seconds and tokens/s, the first and last loss,
+    the peak memory, one profiled step (busy / idle share, the top device
+    time), the forward, the forward and backward (row 11's backward is its
+    plain version), and the optimizer step each timed alone by CUDA events,
+    row 11's backward alone at one layer's shape, and row 11's launches a
+    step.  Fails if the loss is not finite or does not fall, or row 11's
+    counter does not move by two launches a layer a step (the forward and
+    the remat recompute).  Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as T
+    from repro_torch.train.optimizer import apply_gradients
+    from repro_torch.train.train_step import loss_and_grads
+
+    args = train_args(arch=arch, reduced=not full, steps=steps, global_batch=global_batch,
+                      seq_len=seq_len, seed=seed, device=str(dev), lr=lr)
+    t0 = time.perf_counter()
+    cfg, model, step_fn, data = T.build(args)
+    start, params, opt_state = T.init_state(model, args, dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for step in range(start, steps):
+        batch = T.batch_on(data.batch_at(step), dev)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = global_batch * seq_len
+    per_step = launches["linear_attn"] / len(step_s)
+    want = 2 * cfg.n_layers if cfg.family == "ssm" else 0
+    batch = T.batch_on(data.batch_at(steps), dev)
+    prof = profile_batch(lambda: step_fn(params, opt_state, batch), host_events=False)
+
+    def forward():
+        return model.loss(_requiring_grad(params), batch)
+
+    grads = {}
+    parts = dict(forward_ms=time_ms(forward, 2, warmup=1),
+                 forward_backward_ms=time_ms(lambda: grads.update(
+                     loss_and_grads(model, params, batch)[1]), 1, warmup=0))
+    parts["backward_ms"] = parts["forward_backward_ms"] - parts["forward_ms"]
+    opt_cfg = T.opt_config(args)
+    parts["optimizer_ms"] = time_ms(lambda: apply_gradients(params, grads, opt_state, opt_cfg),
+                                    3, warmup=1)
+    del grads
+    if cfg.family == "ssm":
+        parts["row11_one_layer"] = row11_backward_ms(dev, seed, global_batch, cfg.n_heads,
+                                                     seq_len, cfg.d_model // cfg.n_heads)
+    smi = smi_line()
+    emit(dict(phase="lm_train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+              vocab=cfg.vocab_size, dtype=cfg.dtype, params=n_params, init_seconds=init_s,
+              lr=lr, warmup_steps=T.opt_config(args).warmup_steps,
+              steps=len(step_s), global_batch=global_batch, seq_len=seq_len,
+              tokens_per_step=tokens, step_seconds=step_s,
+              step_seconds_median=float(np.median(step_s)),
+              tokens_per_s=tokens / float(np.median(step_s)), losses=losses,
+              first_loss=losses[0], last_loss=losses[-1], max_memory_allocated=peak,
+              linear_attn_launches=launches["linear_attn"],
+              linear_attn_launches_per_step=per_step, launches=launches, parts=parts,
+              profile=prof, nvidia_smi=smi))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train: the loss is not finite or did not fall: {losses}")
+    if per_step != want or any(v for k, v in launches.items() if k != "linear_attn"):
+        raise AssertionError(f"lm_train launched {launches}: row 11 should launch {want} "
+                             "times a step (the forward and the remat recompute), no other")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _requiring_grad(tree):
+    """``tree``'s leaves detached and recording gradients, as a train step
+    takes them."""
+    return {k: _requiring_grad(v) if isinstance(v, dict) else v.detach().requires_grad_()
+            for k, v in tree.items()}
+
+
+def row11_inputs(g, dev, b: int, h: int, t: int, d: int, mode: str, dtype):
+    """Row 11's ``(B, H, T, d)`` model-entry inputs: q, k at 0.3, v unit,
+    decays in [0.5, 1], the bonus (``rwkv``) at 0.3, and a cotangent."""
+    import torch
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    q, k, v = rand(b, h, t, d, scale=0.3), rand(b, h, t, d, scale=0.3), rand(b, h, t, d)
+    w = (torch.rand((b, h, t, d), generator=g, device=dev) * 0.5 + 0.5).to(dtype)
+    u = rand(h, d, scale=0.3) if mode == "rwkv" else None
+    return [a for a in (q, k, v, w, u) if a is not None], rand(b, h, t, d)
+
+
+def row11_backward_ms(dev, seed: int, b: int, h: int, t: int, d: int) -> dict:
+    """One layer's row 11 in RWKV6's training shape, bf16, by CUDA events:
+    the kernel's forward through ``linear_attention`` and the forward and
+    backward (the plain version recomputed under autograd)."""
+    import torch
+
+    from repro_torch.kernels.linear_attn.ops import linear_attention
+
+    g = torch.Generator(dev).manual_seed(seed + 40)
+    args, ct = row11_inputs(g, dev, b, h, t, d, "rwkv", torch.bfloat16)
+    live = [a.requires_grad_() for a in args]
+
+    def both():
+        return torch.autograd.grad((linear_attention(*live) * ct).sum(), live)
+
+    fwd = time_ms(lambda: linear_attention(*live), 3, warmup=1)
+    fb = time_ms(both, 3, warmup=1)
+    return dict(shape=[b, h, t, d], forward_ms=fwd, forward_backward_ms=fb,
+                backward_ms=fb - fwd)
+
+
+def row11_grad_check(dev, seed: int, b: int, h: int, t: int, d: int, mode: str) -> dict:
+    """Row 11's ``torch.autograd.Function`` on the card against autograd of
+    its plain version on the card (fp32, the same inputs): the kernel's ``o``
+    within rtol 1e-4 / atol 1e-4, every gradient within 1e-5 of its largest
+    entry (the backward is that plain version, so equal bits are
+    expected)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels
+    from repro_torch.kernels.linear_attn.ops import linear_attention
+    from repro_torch.kernels.linear_attn.ref import linear_attn_chunked
+
+    g = torch.Generator(dev).manual_seed(seed + 41)
+    args, ct = row11_inputs(g, dev, b, h, t, d, mode, torch.float32)
+    live = [a.clone().requires_grad_() for a in args]
+    kernels.reset_launch_counts()
+    o = linear_attention(*live, mode=mode)
+    got = torch.autograd.grad((o * ct).sum(), live)
+    n_launch = kernels.launch_counts()["linear_attn"]
+    plain = [a.clone().requires_grad_() for a in args]
+    uu = plain[4] if mode == "rwkv" else torch.zeros((h, d), device=dev)
+    u_b = uu[None].expand(b, h, d).reshape(b * h, 1, d)
+    pad = -(-t // 64) * 64 - t
+    flat = [F.pad(a.reshape(b * h, t, d), (0, 0, 0, pad), value=val)
+            for a, val in zip(plain[:4], (0.0, 0.0, 0.0, 1.0))]
+    want_o = linear_attn_chunked(*flat, u_b, chunk=64, shift=int(mode == "rwkv"))[0]
+    want_o = want_o[:, :t].reshape(b, h, t, d)
+    want = torch.autograd.grad((want_o * ct).sum(), plain)
+    o_err = float((o - want_o).detach().abs().max())
+    errs = {n: float((a - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            for n, a, w in zip("qkvwu", got, want)}
+    out = dict(mode=mode, shape=[b, h, t, d], launches=n_launch, o_max_abs_err=o_err,
+               grad_rel_err=errs, equal_bits={n: bool(torch.equal(a, w))
+                                              for n, a, w in zip("qkvwu", got, want)})
+    if n_launch != 1 or not torch.allclose(o, want_o, rtol=1e-4, atol=1e-4) \
+            or max(errs.values()) > 1e-5:
+        raise AssertionError(f"row 11's autograd.Function disagrees with the plain version: {out}")
+    return out
+
+
+def lm_train_recheck_phase(dev, seed: int, arch: str, n_layers: int = 2, b: int = 1,
+                           s: int = 128, lr: float = 1e-3) -> dict:
+    """``arch`` at full width on ``n_layers`` layers in fp32: the same
+    weights (drawn on the CPU) and one ``SyntheticLM`` batch on the card and
+    on the CPU; the loss, every gradient leaf and the parameters after one
+    AdamW step.  Tolerances: the loss to rtol 1e-5; each gradient leaf to
+    ``tol`` of its largest entry (1e-4; 2e-3 for the ``ssm`` family, whose
+    gradients pass through row 11's 3xTF32 kernel on the card and its
+    log-space decays); the step's parameters to 1e-5, except at most 0.1%
+    of them, which stay within ``2 * lr`` (Adam moves an element by about
+    ``lr * sign(g)``, and a gradient within rounding of zero may take the
+    other sign on the other device).  Row 11 must launch twice a layer on
+    the card (the forward and the remat recompute)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train._tree import items
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = dc.replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    model = Model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(seed + 20))
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(LMDataConfig(cfg.vocab_size, s, b, seed=seed + 21)).batch_at(0).items()}
+    card = _to(cpu_params, dev)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    lc, gc = loss_and_grads(model, card, card_batch)
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    lp, gp = loss_and_grads(model, cpu_params, batch)
+    tol = 2e-3 if cfg.family == "ssm" else 1e-4
+    grad_err = {path: float((a.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for (path, a), (_, w) in zip(items(gc), items(gp))}
+    step = make_train_step(model, OptConfig(lr=lr, warmup_steps=0, total_steps=10))
+    pc, _, mc = step(card, init_opt_state(card), card_batch)
+    pp, _, mp = step(cpu_params, init_opt_state(cpu_params), batch)
+    cpu_s = time.perf_counter() - t0
+    far = total = 0
+    move = 0.0
+    for (_, a), (_, w) in zip(items(pc), items(pp)):
+        d = (a.cpu() - w).abs()
+        move = max(move, float(d.max()))
+        far, total = far + int((d > 1e-5).sum()), total + d.numel()
+    worst = max(grad_err.values())
+    out = dict(phase="lm_train_recheck", model=cfg.name, layers=n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, batch=b, seq_len=s,
+               seconds_cpu=cpu_s, loss_card=float(lc), loss_cpu=float(lp),
+               grad_norm_card=float(mc["grad_norm"]), grad_norm_cpu=float(mp["grad_norm"]),
+               grad_leaves=len(grad_err), worst_grad_rel_err=worst,
+               worst_grad_leaf=max(grad_err, key=grad_err.get), grad_tolerance=tol,
+               step_params_far=far, step_params=total, step_largest_move_diff=move,
+               linear_attn_launches=launches["linear_attn"])
+    if cfg.family == "ssm":
+        out["row11_autograd"] = [row11_grad_check(dev, seed, 2, cfg.n_heads, 200, 64, "rwkv"),
+                                 row11_grad_check(dev, seed, 2, cfg.n_heads, 77, 64, "ssd")]
+    emit(out)
+    want = 2 * n_layers if cfg.family == "ssm" else 0
+    if launches["linear_attn"] != want:
+        raise AssertionError(f"the card's loss and gradients launched row 11 "
+                             f"{launches['linear_attn']} times, not {want}")
+    if not (abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp)) and worst <= tol
+            and move <= 2 * lr + 1e-6 and far <= 1e-3 * total):
+        raise AssertionError(f"the card's training step disagrees with the CPU's: {out}")
+    return out
+
+
+# ------------------------------ SC-attention ---------------------------------
+
+#: the JAX package's long-context cell (``models/model.py``'s ``long_500k``)
+SC_ATTENTION_S, SC_ATTENTION_H, SC_ATTENTION_HD = 524_288, 32, 128
+
+
+def drifting_keys(g, dev, h: int, s: int, hd: int):
+    """``examples/long_context_sc_attention.py``'s cache on ``dev``: keys
+    N(0, 1) plus a per-head direction times a drift rising 0 -> 2 along the
+    sequence, values N(0, 1), the query N(0, 1) plus the last key."""
+    import torch
+
+    keys = torch.randn((h, s, hd), generator=g, device=dev)
+    drift = torch.linspace(0, 2, s, device=dev)[None, :, None]
+    keys += drift * torch.randn((h, 1, hd), generator=g, device=dev)
+    values = torch.randn((h, s, hd), generator=g, device=dev)
+    q = torch.randn((h, hd), generator=g, device=dev) + keys[:, -1]
+    return q, keys, values
+
+
+def sc_attention_phase(dev, seed: int, s: int = SC_ATTENTION_S, h: int = SC_ATTENTION_H,
+                       hd: int = SC_ATTENTION_HD, n_keeps=(512, 2048, 8192),
+                       small=(2, 65_536)) -> dict:
+    """SC-attention (``repro_torch.core.sc_attention``) over the
+    ``long_500k`` context at ``h`` heads of ``hd`` in fp32, at each
+    ``n_keep``: ms a call by CUDA events against exact full attention on
+    the card, attention-mass recall (mean and min over the heads) and the
+    largest |error| against exact attention.  Then a reduced case (``small``
+    = heads, keys) on the card and on the CPU: the SC-scores equal except
+    where a partial product lies within a few ulp of its ``tau``, and the
+    selected ids equal where the scores are.  No port kernel runs."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import sc_attention as A
+
+    g = torch.Generator(dev).manual_seed(seed + 30)
+    q, keys, values = drifting_keys(g, dev, h, s, hd)
+
+    def exact():
+        w = torch.softmax(torch.matmul(keys, q[..., None])[..., 0] / math.sqrt(hd), dim=-1)
+        return torch.matmul(w[:, None], values)[:, 0]
+
+    kernels.reset_launch_counts()
+    want = exact()
+    exact_ms = time_ms(exact, 5)
+    rows = []
+    for n_keep in n_keeps:
+        out, ids = A.sc_sparse_attention(q, keys, values, n_keep=n_keep)
+        mass = A.attention_mass_recall(q, keys, ids)
+        ms = time_ms(lambda: A.sc_sparse_attention(q, keys, values, n_keep=n_keep), 5)
+        rows.append(dict(n_keep=n_keep, share_of_keys=n_keep / s, ms=ms,
+                         exact_ms=exact_ms, recall_mean=float(mass.mean()),
+                         recall_min=float(mass.min()),
+                         max_abs_err=float((out - want).abs().max())))
+    launches = kernels.launch_counts()
+    del keys, values
+    hs, ss = small
+    gs = torch.Generator(dev).manual_seed(seed + 31)
+    q2, k2, v2 = drifting_keys(gs, dev, hs, ss, hd)
+    count = max(1, int(0.05 * ss))
+    card_sc = A.sc_key_scores(q2, k2, 4, count).cpu()
+    cpu_sc = A.sc_key_scores(q2.cpu(), k2.cpu(), 4, count)
+    apart = card_sc != cpu_sc
+    near = _tau_ties(q2.cpu().double(), k2.cpu().double(), 4, count)
+    card_ids = A.sc_select_keys(q2, k2, n_keep=2048).cpu()
+    cpu_ids = A.sc_select_keys(q2.cpu(), k2.cpu(), n_keep=2048)
+    out = dict(phase="sc_attention", heads=h, keys=s, head_dim=hd, dtype="float32",
+               kv_bytes=2 * h * s * hd * 4, n_subspaces=4, alpha=0.05, cases=rows,
+               launches=launches,
+               small=dict(heads=hs, keys=ss, scores_apart=int(apart.sum()),
+                          apart_off_tau_ties=int((apart & ~near).sum()),
+                          ids_equal=bool(torch.equal(card_ids, cpu_ids))))
+    emit(out)
+    if any(launches.values()):
+        raise AssertionError(f"sc_attention launched {launches}; it runs no port kernel")
+    if out["small"]["apart_off_tau_ties"] or (not apart.any() and not out["small"]["ids_equal"]):
+        raise AssertionError(f"the card's SC-attention selection disagrees with the CPU's: {out}")
+    if not all(r["recall_mean"] > 0 and math.isfinite(r["max_abs_err"]) for r in rows):
+        raise AssertionError("sc_attention gave no finite answer")
+    return out
+
+
+def _tau_ties(q, keys, n_subspaces: int, count: int, rel: float = 1e-5):
+    """``(H, S)``: keys whose partial product in some subspace lies within
+    ``rel`` of that subspace's ``count``-th smallest (fp64 inputs)."""
+    import torch
+
+    h, s, hd = keys.shape
+    w = hd // n_subspaces
+    near = torch.zeros((h, s), dtype=torch.bool)
+    for i in range(n_subspaces):
+        d = -torch.einsum("hsw,hw->hs", keys[..., i * w:(i + 1) * w], q[:, i * w:(i + 1) * w])
+        tau = torch.sort(d, dim=-1).values[:, count - 1]
+        near |= (d - tau[:, None]).abs() <= rel * tau[:, None].abs() + 1e-6
+    return near
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the data and queries")
@@ -2901,10 +3294,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     emit(dict(phase="device", name=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda))
@@ -3015,11 +3405,24 @@ def main() -> int:
     emit(dict(phase="cpu_recheck", seconds=time.perf_counter() - t0,
               **same_answers(card_res, cpu_res)))
 
+    del cpu_engine, cpu_res, card_res
+
+    # 12b. training: RWKV6-1.6B trained at full width through the launcher's
+    # functions (row 11 in the forward and the remat recompute, its backward
+    # the plain version); RWKV6 and granite-3-2b at full width on 2 layers in
+    # fp32 on the card and again on the CPU; then SC-attention over the
+    # long_500k context.  After the kernel checks, whose traces it could upset
+    torch.cuda.empty_cache()
+    launches_by_path["lm_train"] = lm_train_phase(dev, args.seed)
+    for arch in ("rwkv6-1.6b", "granite-3-2b"):
+        lm_train_recheck_phase(dev, args.seed, arch)
+    sc_attention_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+
     # 13. the hybrid LM family: Zamba2-1.2B served at full width (row 11 in SSD
     # mode, once a Mamba2 layer per prefill batch), then 3 layers of that
     # width at period 2 (one unit, the shared block, a tail layer) on the card
     # and again on the CPU
-    del cpu_engine, cpu_res, card_res
     hybrid_cfg = get_config("zamba2-1.2b")
     launches_by_path["lm_serve_hybrid"] = lm_serve_phase(dev, args.seed, hybrid_cfg,
                                                          phase="lm_serve_hybrid")
@@ -3084,7 +3487,8 @@ def main() -> int:
         rec_ = checks[name]
         path = PATH_OF.get(name)
         rows.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         launches=launches_by_path[path][name] if path else 0,
+                         launches=sum(launches_by_path[p_][name]
+                                      for p_ in (path, *ALSO_ON.get(name, ())) if p_),
                          path=path,
                          launches_by_path={p_: c[name] for p_, c in launches_by_path.items()},
                          max_abs_err=rec_["max_abs_err"],

@@ -1,5 +1,6 @@
-"""Synthetic datasets, exact ground truth and quality metrics (a copy of the
-JAX package's numpy-only ``repro.data``)."""
+"""Synthetic datasets, exact ground truth and quality metrics, and the
+synthetic LM data of the trainer (copies of the JAX package's numpy-only
+``repro.data``)."""
 
 from repro_torch.data.datasets import (
     GENERATORS,
@@ -14,8 +15,11 @@ from repro_torch.data.datasets import (
     uniform,
     zipf_mixture,
 )
+from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
 
 __all__ = [
+    "LMDataConfig",
+    "SyntheticLM",
     "Dataset",
     "GENERATORS",
     "exact_knn",

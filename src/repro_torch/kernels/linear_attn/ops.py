@@ -15,6 +15,15 @@ Where the port differs from the JAX package: there,
 ``linear_attention_with_state`` always runs the chunked jnp version and
 ``linear_attention`` takes the Pallas kernel only on a TPU; here both launch
 the kernel on the card.
+
+Gradients.  The kernel has no backward, nor has the JAX package's: there
+``jax.grad`` differentiates whatever ``linear_attention`` runs.  On the
+card ``linear_attention`` goes through :class:`KernelLinearAttention`, whose
+forward launches the kernel and whose backward recomputes the plain version
+(:func:`.ref.linear_attn_chunked` with the same chunk, shift and padding)
+under autograd and returns its gradients of ``q``, ``k``, ``v``, ``w`` and
+the bonus.  On the CPU autograd differentiates the plain version directly.
+``linear_attention_with_state`` (prefill) has no gradient path.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from repro_torch.kernels.linear_attn import kernel
 from repro_torch.kernels.linear_attn.ref import linear_attn_chunked, linear_attn_ref
 
 __all__ = ["linear_attention", "linear_attention_with_state", "linear_attn_ref",
-           "linear_attn_chunked"]
+           "linear_attn_chunked", "KernelLinearAttention"]
 
 _MODES = {"rwkv": 1, "gla": 0, "ssd": 0}
 
@@ -64,6 +73,36 @@ def _chunked_padded(qf, kf, vf, wf, u_b, chunk: int, shift: int):
     return o[:, :t], s
 
 
+def _launch(qf, kf, vf, wf, u_b, chunk: int, shift: int):
+    dk = qf.shape[2]
+    if kernel.smem_bytes(kernel.chunk_tile(chunk), dk, 16) > kernel._SMEM_LIMIT:
+        raise ValueError(f"dk={dk} needs more shared memory than a block of the card has")
+    return kernel.linear_attn(qf, kf, vf, wf, u_b, chunk, shift)
+
+
+class KernelLinearAttention(torch.autograd.Function):
+    """``o`` of the ``(BH, T, D)`` entry on the card: the CUDA kernel's
+    forward; a backward that recomputes the plain version under autograd
+    (a backward kernel is still to come)."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, wf, u_b, chunk: int, shift: int):
+        ctx.save_for_backward(qf, kf, vf, wf, u_b)
+        ctx.chunk, ctx.shift = chunk, shift
+        return _launch(qf, kf, vf, wf, u_b, chunk, shift)[0]
+
+    @staticmethod
+    def backward(ctx, do):
+        need = ctx.needs_input_grad[:5]
+        args = [a.detach().requires_grad_(n) for a, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            o, _ = _chunked_padded(*args, ctx.chunk, ctx.shift)
+        wanted = [a for a in args if a.requires_grad]
+        got = iter(torch.autograd.grad(o, wanted, do, allow_unused=True, materialize_grads=True)
+                   if wanted else ())
+        return (*(next(got) if a.requires_grad else None for a in args), None, None)
+
+
 def linear_attention_with_state(
     qf: torch.Tensor,  # (BH, T, dk)
     kf: torch.Tensor,
@@ -80,10 +119,7 @@ def linear_attention_with_state(
     if qf.device.type == "cpu":
         return _chunked_padded(qf, kf, vf, wf, u_b, chunk, shift)
     if qf.device.type == "cuda":
-        dk = qf.shape[2]
-        if kernel.smem_bytes(kernel.chunk_tile(chunk), dk, 16) > kernel._SMEM_LIMIT:
-            raise ValueError(f"dk={dk} needs more shared memory than a block of the card has")
-        return kernel.linear_attn(qf, kf, vf, wf, u_b, chunk, shift)
+        return _launch(qf, kf, vf, wf, u_b, chunk, shift)
     raise ValueError(f"no linear_attention route for device {qf.device}")
 
 
@@ -97,7 +133,8 @@ def linear_attention(
     chunk: int = 64,
     mode: str = "rwkv",  # "rwkv" (exclusive + bonus) | "gla" | "ssd"
 ) -> torch.Tensor:
-    """``(B, H, T, dv)`` outputs of the recurrence in ``mode``."""
+    """``(B, H, T, dv)`` outputs of the recurrence in ``mode``,
+    differentiable on both devices (see the module's note on gradients)."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {tuple(_MODES)}, got {mode!r}")
     if q.dim() != 4:
@@ -111,6 +148,10 @@ def linear_attention(
     def flat(a):
         return a.reshape(b * h, t, a.shape[-1]).contiguous()
 
-    o, _ = linear_attention_with_state(flat(q), flat(k), flat(v), flat(w), u_b, chunk=chunk,
-                                       shift=_MODES[mode])
+    args = (flat(q), flat(k), flat(v), flat(w), u_b)
+    if q.device.type == "cuda":
+        _check(*args, chunk, _MODES[mode])
+        o = KernelLinearAttention.apply(*args, chunk, _MODES[mode])
+    else:
+        o, _ = linear_attention_with_state(*args, chunk=chunk, shift=_MODES[mode])
     return o.reshape(b, h, t, dv)

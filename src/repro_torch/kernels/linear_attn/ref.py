@@ -101,7 +101,9 @@ def linear_attn_chunked(
         lbq = torch.cat([torch.zeros_like(lb[:, :1]), lb[:, :-1]], dim=1) if shift else lb
         o = torch.einsum("bck,bkv->bcv", qb * torch.exp(lbq), s)
         decay = torch.exp(lbq[:, :, None, :] - lb[:, None, :, :])  # (bh, c, c, dk)
-        a = torch.einsum("btk,bjk,btjk->btj", qb, kb, decay)
+        # products and a sum over dk, not a 3-operand einsum: autograd of that
+        # einsum runs as bmm of 1 x dk by dk x 1 on the card, 10x slower
+        a = (qb[:, :, None, :] * kb[:, None, :, :] * decay).sum(-1)
         a = torch.where(mask, a, 0.0)
         o = o + torch.einsum("btj,bjv->btv", a, vb)
         if shift:

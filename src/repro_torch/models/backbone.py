@@ -16,8 +16,18 @@ attention window is a Python ``int`` or ``None`` (global) and one
 ``flash_attention`` serves every layer (the reference's traced-window twin,
 ``_flash_dynwin``, has no counterpart).  The frame and patch embeddings
 (``extras``) are inputs: the audio front end and the vision encoder are
-stubs in the reference too.  ``chunked_ce_loss`` and training are not
-ported yet (ROADMAP queue 1).
+stubs in the reference too.
+
+Training: :func:`chunked_ce_loss` (the cross-entropy over sequence chunks
+of ``vocab_chunk``, each chunk's fp32 logits recomputed in backward rather
+than kept), ``forward_hidden(remat=True)`` (activation checkpointing at the
+reference's granularity: a block of the dense, MoE, RWKV6 and Whisper
+stacks, a Zamba2 unit of ``hybrid_period`` Mamba2 layers and the shared
+block, Zamba2's tail layers one by one, a Llama-3.2-Vision unit) and
+:func:`param_shapes` (the parameter tree on the ``meta`` device, nothing
+allocated).  The forward casts the fp32 master's weights to the compute
+dtype at each use, as the reference does on every call, so gradients reach
+the master.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -36,7 +48,7 @@ __all__ = ["init_params", "init_dense_block", "init_rwkv_block", "init_mamba_blo
            "init_encoder_block", "init_encdec_block", "init_cross_block", "forward_hidden",
            "logits_for_position", "layer_params", "check_family", "shared_application",
            "ffn_forward", "vlm_self_layer", "memory_tokens", "encode", "require_extras",
-           "gated"]
+           "gated", "param_shapes", "chunked_ce_loss"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -203,6 +215,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     return p
 
 
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of :func:`init_params` as ``meta`` tensors (the
+    shapes and dtypes, no storage): the counterpart of the reference's
+    ``jax.eval_shape`` of its init, for a restore to fill."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator())
+
+    def meta(tree):
+        return {k: meta(v) if isinstance(v, dict)
+                else torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in tree.items()}
+
+    return meta(fake)
+
+
+def _remat(fn, remat: bool):
+    """``fn`` under activation checkpointing where ``remat`` asks for it and
+    autograd records: its activations are dropped after the forward and
+    recomputed in the backward."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def layer_params(blocks: Params, i: int) -> Params:
     """Layer ``i``'s parameters: views into the stacked tree."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
@@ -245,17 +282,22 @@ def require_extras(cfg: ModelConfig, extras: torch.Tensor | None) -> None:
                          f"{'frame' if cfg.family == 'audio' else 'patch'} embeddings")
 
 
-def encode(cfg: ModelConfig, params: Params, extras: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: Params, extras: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """``audio``: the encoder over ``extras: (B, encoder_seq, D)``: the
     frames and the learned encoder positions each cast to the compute dtype
-    and added in it; each layer's non-causal self-attention and MLP; the
-    final norm."""
+    and added in it; each layer's non-causal self-attention and MLP (a
+    checkpointed block under ``remat``); the final norm."""
     dtype = _dtype(cfg)
     h = extras.to(dtype) + params["enc_pos"].to(dtype)
-    for i in range(cfg.encoder_layers):
-        p = layer_params(params["enc_blocks"], i)
+
+    def block(h, p):
         h = h + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], h, cfg), cfg, causal=False)
-        h = h + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
+        return h + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
+
+    block = _remat(block, remat)
+    for i in range(cfg.encoder_layers):
+        h = block(h, layer_params(params["enc_blocks"], i))
     return L.apply_norm(params["enc_final_norm"], h, cfg)
 
 
@@ -297,46 +339,74 @@ def _layer_windows(cfg: ModelConfig) -> list[int | None]:
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   extras: torch.Tensor | None = None) -> torch.Tensor:
+                   extras: torch.Tensor | None = None, remat: bool = False) -> torch.Tensor:
     """``tokens: (B, S)`` -> final hidden states ``(B, S, D)``; the ``ssm``
     and ``hybrid`` families go through the ``(B, H, T, D)`` entry of the
     linear-attention kernel; ``audio`` and ``vlm`` attend to ``extras``
-    (frames through the encoder, or the patch embeddings as they are)."""
+    (frames through the encoder, or the patch embeddings as they are).
+    ``remat`` checkpoints the reference's blocks (see the module's note) when
+    autograd records; it changes no value."""
     check_family(cfg)
     require_extras(cfg, extras)
     x = embed(cfg, params, tokens)
     if cfg.family == "audio":
-        enc = encode(cfg, params, extras)
-        for i in range(cfg.n_layers):
-            p = layer_params(params["blocks"], i)
+        enc = encode(cfg, params, extras, remat)
+
+        def dec_block(x, p, enc):
             x = x + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg)
             x = x + L.attn_forward(p["cross"], L.apply_norm(p["ln_x"], x, cfg), cfg,
                                    kv_override=enc)
-            x = x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+            return x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+
+        dec_block = _remat(dec_block, remat)
+        for i in range(cfg.n_layers):
+            x = dec_block(x, layer_params(params["blocks"], i), enc)
         return L.apply_norm(params["final_norm"], x, cfg)
     if cfg.family == "vlm":
         vision = extras.to(_dtype(cfg))
-        for u in range(cfg.n_layers // cfg.cross_attn_period):
+
+        def unit(x, u, vision):
             for j in range(cfg.cross_attn_period - 1):
                 p = layer_params(params["blocks"], vlm_self_layer(cfg, u, j))
                 x = _dense_block_fwd(p, x, cfg, None)
             c = layer_params(params["cross_blocks"], u)
             h = L.attn_forward(c["cross"], L.apply_norm(c["ln1"], x, cfg), cfg,
                                kv_override=vision)
-            x = gated(c, x, h, cfg)
+            return gated(c, x, h, cfg)
+
+        unit = _remat(unit, remat)
+        for u in range(cfg.n_layers // cfg.cross_attn_period):
+            x = unit(x, u, vision)
+        return L.apply_norm(params["final_norm"], x, cfg)
+    if cfg.family == "hybrid":
+        def mamba(x, i):
+            p = layer_params(params["blocks"], i)
+            return x + S.mamba2_forward(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
+
+        def hybrid_unit(x, u):
+            for i in range(u * cfg.hybrid_period, (u + 1) * cfg.hybrid_period):
+                x = mamba(x, i)
+            return _dense_block_fwd(params["shared"], x, cfg, None)
+
+        n_units = cfg.n_layers // cfg.hybrid_period
+        hybrid_unit, tail = _remat(hybrid_unit, remat), _remat(mamba, remat)
+        for u in range(n_units):
+            x = hybrid_unit(x, u)
+        for i in range(n_units * cfg.hybrid_period, cfg.n_layers):
+            x = tail(x, i)
         return L.apply_norm(params["final_norm"], x, cfg)
     windows = _layer_windows(cfg)
-    for i in range(cfg.n_layers):
+
+    def block(x, i):
         p = layer_params(params["blocks"], i)
-        if cfg.family in ("dense", "moe"):
-            x = _dense_block_fwd(p, x, cfg, windows[i])
-        elif cfg.family == "ssm":
+        if cfg.family == "ssm":
             x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)
-            x = x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
-        else:
-            x = x + S.mamba2_forward(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
-            if shared_application(cfg, i) is not None:
-                x = _dense_block_fwd(params["shared"], x, cfg, None)
+            return x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
+        return _dense_block_fwd(p, x, cfg, windows[i])
+
+    block = _remat(block, remat)
+    for i in range(cfg.n_layers):
+        x = block(x, i)
     return L.apply_norm(params["final_norm"], x, cfg)
 
 
@@ -354,3 +424,46 @@ def logits_for_position(cfg: ModelConfig, params: Params,
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     return torch.where(mask[None, :], logits, -1e30)
+
+
+def _ce_chunk(cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
+              w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sequence chunk's summed NLL and count of valid labels: fp32
+    logits of ``h: (B, C, D)`` against ``w: (D, V)`` (both in the compute
+    dtype, widened to fp32: exact products summed in fp32), the final
+    softcap, the padded vocabulary at -1e30, logsumexp less the gold logit
+    where the label is >= 0."""
+    logits = h.float() @ w.float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    vocab = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
+    logits = torch.where(vocab, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_ce_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``hidden: (B, S, D)`` (compute
+    dtype) against ``labels: (B, S)`` without holding ``(B, S, V)`` logits:
+    the sequence padded to a multiple of ``vocab_chunk`` with label -1, one
+    chunk at a time, each chunk's logits dropped after its forward and
+    recomputed in the backward; sums in fp32, chunk by chunk in order, as the
+    reference's scan."""
+    b, s, _ = hidden.shape
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    w = w.to(_dtype(cfg))
+    chunk = min(cfg.vocab_chunk, s)
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    hp = F.pad(hidden, (0, 0, 0, pad))
+    lp = F.pad(labels, (0, pad), value=-1)
+    part = _remat(lambda h, lab, w: _ce_chunk(cfg, h, lab, w), True)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n_chunks):
+        nll, valid = part(hp[:, i * chunk:(i + 1) * chunk], lp[:, i * chunk:(i + 1) * chunk], w)
+        tot, cnt = tot + nll, cnt + valid
+    return tot / torch.clamp(cnt, min=1.0)

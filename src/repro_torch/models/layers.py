@@ -174,10 +174,13 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, s, n_heads, -1).transpose(1, 2)  # (B, H, S, h)
 
 
-def _softcap(s: torch.Tensor, cap: float | None) -> torch.Tensor:
-    """``cap * tanh(s / cap)``, in place on ``s``."""
+def _softcap(s: torch.Tensor, cap: float | None, inplace: bool = True) -> torch.Tensor:
+    """``cap * tanh(s / cap)``, in place on ``s`` unless autograd needs the
+    ``tanh`` (``inplace=False``): the same values either way."""
     if cap is None:
         return s
+    if not inplace:
+        return torch.tanh(s / cap) * cap
     return s.div_(cap).tanh_().mul_(cap)
 
 
@@ -209,7 +212,9 @@ def flash_attention(
     (past the causal or ``window`` bound, or in the zero padding of the last
     chunk) are -1e30, not -inf.  ``window=None`` masks nothing (the
     reference's ``1 << 30``).  Every chunk is computed and masked; none is
-    skipped."""
+    skipped.  The score passes run in place unless autograd records a
+    gradient of ``q``, ``k`` or ``v``, which needs the softcap's ``tanh`` and
+    the masked scores as they were; the values are the same."""
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -223,10 +228,12 @@ def flash_attention(
     acc = torch.zeros((b, hkv, g * sq, hd), dtype=torch.float32, device=q.device)
     m = torch.full((b, hkv, g * sq), -math.inf, dtype=torch.float32, device=q.device)
     lse = torch.zeros_like(m)
+    inplace = not (torch.is_grad_enabled()
+                   and (q.requires_grad or k.requires_grad or v.requires_grad))
     for ci in range(n_chunks):
         kb = k[:, :, ci * kv_chunk:(ci + 1) * kv_chunk].float()
         vb = v[:, :, ci * kv_chunk:(ci + 1) * kv_chunk].float()
-        s = _softcap(qf @ kb.transpose(-1, -2), softcap)  # (B, Hkv, G*Sq, C)
+        s = _softcap(qf @ kb.transpose(-1, -2), softcap, inplace)  # (B, Hkv, G*Sq, C)
         kpos = ci * kv_chunk + torch.arange(kv_chunk, device=q.device)
         ok = (kpos[None, :] < skv).expand(sq, kv_chunk)  # the tail padding
         if causal:
@@ -235,7 +242,7 @@ def flash_attention(
             ok = ok & (qpos[:, None] - kpos[None, :] < window)
         s = s.view(b, hkv, g, sq, kv_chunk).masked_fill_(~ok, -1e30).view(s.shape)
         m_new = torch.maximum(m, s.amax(-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        p = s.sub_(m_new[..., None]).exp_() if inplace else torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         lse = lse * corr + p.sum(-1)
         acc = acc * corr[..., None] + p @ vb

@@ -21,8 +21,12 @@ token's K / V into ``cache`` in place and returns it; an ``ssm`` model's
 returns a new state; a ``hybrid`` model's writes its shared block's K / V
 in place and returns new Mamba2 states.
 
-``input_specs`` (a JAX dry-run helper) and ``loss`` (training) are not
-ported.
+Training (``repro_torch.train``) takes the fp32 master as it is:
+
+    loss = model.loss(params, {"tokens": ..., "labels": ...})   # remat on
+    shapes = model.param_shapes()          # meta tensors, for a restore
+
+``input_specs`` (a JAX dry-run helper) is not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +73,10 @@ class Model:
         """fp32 master parameters, drawn on ``generator``'s device."""
         return backbone.init_params(self.cfg, generator)
 
+    def param_shapes(self) -> Params:
+        """The parameter tree as ``meta`` tensors: no allocation."""
+        return backbone.param_shapes(self.cfg)
+
     def compute_params(self, params: Params) -> Params:
         """``params`` with each linear weight and each MoE layer's expert
         tensors cast once to the config dtype (what the reference casts on
@@ -76,6 +84,17 @@ class Model:
         cross block's ``gate`` and Whisper's ``enc_pos`` / ``dec_pos`` stay
         fp32: the reference casts them at use)."""
         return cast_linears(params, getattr(torch, self.cfg.dtype))
+
+    # -- training ----------------------------------------------------------
+    def loss(self, params: Params, batch: dict, *, remat: bool = True) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+        ``labels`` ``(B, S)``, and ``extras`` for the ``audio`` and ``vlm``
+        families) as an fp32 0-dim tensor; ``params`` is the fp32 master,
+        each weight cast to the compute dtype at its use, so autograd carries
+        the gradients to it."""
+        hidden = backbone.forward_hidden(self.cfg, params, batch["tokens"],
+                                         extras=batch.get("extras"), remat=remat)
+        return backbone.chunked_ce_loss(self.cfg, params, hidden, batch["labels"])
 
     # -- serving -----------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,

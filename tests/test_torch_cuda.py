@@ -1403,6 +1403,130 @@ def test_rwkv_model_on_the_card_equals_the_cpu(dev):
     torch.testing.assert_close(hc.cpu(), hp, rtol=1e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,t", [("rwkv", 200), ("ssd", 77)])
+def test_row_11_autograd_function_gives_the_plain_versions_gradients(dev, mode, t, dtype):
+    """``linear_attention`` on the card under autograd: the forward launches
+    the kernel once (held to the plain version as above), and the gradients
+    of q, k, v, w and the bonus equal autograd of the plain version on the
+    card, the backward being that version recomputed."""
+    from repro_torch.kernels.linear_attn import ops as la_ops
+    from repro_torch.kernels.linear_attn.ref import linear_attn_chunked
+
+    g = _gen(41)
+    b, h, dk, dv = 2, 3, 64, 64
+    q, k = (torch.randn((b, h, t, dk), generator=g) * 0.3 for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=g)
+    w = torch.rand((b, h, t, dk), generator=g) * 0.5 + 0.5
+    u = torch.randn((h, dk), generator=g) * 0.3 if mode == "rwkv" else None
+    ct = torch.randn((b, h, t, dv), generator=g).to(dev)
+    args = [a.to(dev, dtype) for a in (q, k, v, w, u) if a is not None]
+    leaves = [a.clone().requires_grad_() for a in args]
+    kernels.reset_launch_counts()
+    o = la_ops.linear_attention(*leaves, mode=mode)
+    assert kernels.launch_counts()["linear_attn"] == 1
+    got = torch.autograd.grad((o.float() * ct).sum(), leaves)
+    assert kernels.launch_counts()["linear_attn"] == 1  # the backward launches nothing
+
+    plain = [a.clone().requires_grad_() for a in args]
+    shift = 1 if mode == "rwkv" else 0
+    qf, kf, vf, wf = (a.reshape(b * h, t, -1) for a in plain[:4])
+    hk = plain[4] if mode == "rwkv" else torch.zeros((h, dk), dtype=dtype, device=dev)
+    u_b = hk[None].expand(b, h, dk).reshape(b * h, 1, dk)
+    pad = -(-t // 64) * 64 - t
+    pads = [torch.nn.functional.pad(a, (0, 0, 0, pad), value=val)
+            for a, val in ((qf, 0.0), (kf, 0.0), (vf, 0.0), (wf, 1.0))]
+    want_o = linear_attn_chunked(*pads, u_b, chunk=64, shift=shift)[0][:, :t].reshape(b, h, t, dv)
+    _assert_o_close(o.detach().cpu(), want_o.detach().cpu())
+    want = torch.autograd.grad((want_o.float() * ct).sum(), plain)
+    for name, a, b_ in zip("qkvwu", got, want):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_train_step_on_the_card_equals_the_cpu(dev):
+    """One AdamW step of the reduced RWKV6 in fp32 on the card and on the
+    CPU from the same weights and batch: the loss, every gradient (through
+    row 11's autograd.Function on the card) and the new parameters."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    cfg = dataclasses.replace(reduced_config("rwkv6-1.6b"), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(LMDataConfig(cfg.vocab_size, 80, 2, seed=4)).batch_at(0).items()}
+    card = _to(params, dev)
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    lc, gc = loss_and_grads(model, card, card_batch)
+    assert kernels.launch_counts()["linear_attn"] == 2 * cfg.n_layers  # remat recomputes
+    lp, gp = loss_and_grads(model, params, batch)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=1e-5, atol=1e-6)
+    for key in gp:
+        _assert_tree_close(gc[key], gp[key], 2e-3)
+    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=0, total_steps=10))
+    pc, _, mc = step(card, init_opt_state(card), card_batch)
+    pp, _, mp = step(params, init_opt_state(params), batch)
+    torch.testing.assert_close(mc["grad_norm"].cpu(), mp["grad_norm"], rtol=1e-4, atol=0)
+    # Adam moves an element by ~lr * sign(g): a gradient within rounding of 0
+    # may take the other sign on the other device, a move of at most 2 lr
+    far = total = 0
+    for a, b_ in zip(_flat(pc), _flat(pp)):
+        d = (a.cpu() - b_).abs()
+        assert float(d.max()) <= 2e-3 + 1e-6
+        far, total = far + int((d > 1e-5).sum()), total + d.numel()
+    assert far <= 1e-3 * total, (far, total)
+
+
+def _flat(tree):
+    return [x for k in sorted(tree) for x in (_flat(tree[k]) if isinstance(tree[k], dict)
+                                              else [tree[k]])]
+
+
+def _assert_tree_close(card, cpu, tol):
+    if isinstance(cpu, dict):
+        for key in cpu:
+            _assert_tree_close(card[key], cpu[key], tol)
+        return
+    scale = float(cpu.abs().max()) if cpu.numel() else 0.0
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=tol * max(scale, 1e-30))
+
+
+def test_int8_allreduce_over_nccl_at_world_size_one(dev):
+    """At world size 1 over NCCL the mean is the local dequantised payload
+    and the residual the local quantisation error."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.train import compression as C
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        x = torch.randn(1000, generator=_gen(5)).to(dev)
+        q, s = C.quantize_int8(x)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert torch.equal(C.int8_allreduce(x), C.dequantize_int8(q, s))
+        g = {"a": x, "b": {"c": x[:10] * 3}}
+        out, r = C.compressed_grad_allreduce(g, None, C.ErrorFeedback.init(g))
+        assert torch.equal(out["a"], C.dequantize_int8(q, s))
+        assert torch.equal(r["a"], x - C.dequantize_int8(q, s))
+        qq, ss = C.quantize_int8(x.cpu())
+        assert torch.equal(qq, q.cpu()) and torch.equal(ss, s.cpu())
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b"])
 def test_dense_model_on_the_card_equals_the_cpu(dev, arch):
     """Reduced granite (GQA 4) and Gemma2 (GQA 2, local / global windows at

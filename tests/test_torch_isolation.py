@@ -15,7 +15,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 assert {"repro_torch.serve", "repro_torch.serve.ann", "repro_torch.core.theory",
         "repro_torch.core.da_numpy", "repro_torch.data.datasets",
         "repro_torch.serve.mutation", "repro_torch.serve.durability",
-        "repro_torch.serve.chaos"} <= set(names), names
+        "repro_torch.serve.chaos", "repro_torch.core.sc_attention",
+        "repro_torch.data.lm_data", "repro_torch.launch.train", "repro_torch.train",
+        "repro_torch.train.optimizer", "repro_torch.train.train_step",
+        "repro_torch.train.checkpoint", "repro_torch.train.compression",
+        "repro_torch.train.resilience"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
