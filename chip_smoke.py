@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives sixteen paths, each with every kernel's launch count set to 0 just
-before it and read just after.  Seven run over SIFT1M's shape (n =
+drives eighteen paths, each with every kernel's launch count set to 0 just
+before it and read just after.  Nine run over SIFT1M's shape (n =
 1,000,000, d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
@@ -52,6 +52,19 @@ before it and read just after.  Seven run over SIFT1M's shape (n =
   more inserts, a kill and ``recover`` on the card, bit for bit; then
   ``recovery_drill`` at every crash point under both fsync policies at
   n = 65,536.  No (bucket, k) pair and no library after the commit.
+* ``sharded_serve``: the sharded engine (``repro_torch.distributed``) at
+  world size 1 over NCCL on a (1, 1) mesh: config A (Ns = 16, sqrt_k = 64,
+  the reference's production dry-run) as a ``ShardedEnginePool`` at k = 50
+  and 10, config B (the main path's ``SuCoConfig``) at k = 10, each built
+  from the data and served batches of 1, 8, 64 and 256 through
+  ``query_resilient`` (none degraded, no host sync, no step added after the
+  warm-up); config B's recall@10 must reach 0.85, the reference's sharded
+  floor.  Rows 3 and 4 run in its builds, rows 7 and 2 in its queries, and
+  each is held to its plain version at this path's shapes.
+* ``baselines``: the five competitor baselines (``repro_torch.baselines``)
+  at fig9_12's data and parameters (20,000 x 64; HNSW-lite at 5,000, on the
+  host), on the card and on the CPU, ids equal but at ties and boundary
+  cases; IVF-Flat, E2LSH and IMI-PQ with their class defaults at 1M.
 
 The eighth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
 layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
@@ -2370,6 +2383,333 @@ def mutable_serve_phase(x_np, data, q64, index, policy, seed: int, k: int) -> di
 
 
 
+#: the kernels the sharded engine runs: Lloyd statistics and the paired
+#: assignment in its build, chunk scores and the candidate rerank in its query
+SHARDED_KERNELS = ("kmeans_stats", "kmeans_pair_assign_hist", "sc_score_cells", "gather_rerank")
+SHARDED_BATCHES = (1, 8, 64, 256)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def first_call(mod, name: str, fn) -> tuple:
+    """Run ``fn()`` with ``mod.<name>`` wrapped to keep a copy of its first
+    call's arguments; returns them."""
+    import torch
+
+    orig, got = getattr(mod, name), []
+
+    def rec(*args, **kw):
+        if not got:
+            got.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return orig(*args, **kw)
+
+    setattr(mod, name, rec)
+    try:
+        fn()
+    finally:
+        setattr(mod, name, orig)
+    return got[0]
+
+
+def sync_warnings(fn) -> int:
+    """The synchronising calls torch's sync debug mode reports in ``fn()``."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def sharded_kernel_checks(pool, data, q) -> dict:
+    """Rows 2, 3, 4 and 7 against their plain versions at the sharded path's
+    shapes (config A): the build's (2 Ns, n, h1) half-subspace points with
+    its centroids (rows 3 and 4), and the arguments one query chunk of 32
+    gave the chunk scores (row 7) and the rerank (row 2)."""
+    import torch
+
+    from repro_torch.distributed import engine as eng_mod
+    from repro_torch.kernels.gather_rerank import ops as gather_ops
+    from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
+    from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
+    from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+    from repro_torch.kernels.kmeans_assign.ref import kmeans_pair_assign_hist_ref, kmeans_stats_ref
+    from repro_torch.kernels.sc_score import ops as score_ops
+    from repro_torch.kernels.sc_score.ref import sc_score_cells_ref
+
+    cfg, idx = pool.cfg, pool.index
+    ns, s = cfg.n_subspaces, data.shape[1] // cfg.n_subspaces
+    a, b, _ = eng_mod._split_local(data, ns, s)
+    cb = torch.cat([a, b]).contiguous()
+    c = torch.cat([idx.centroids1, idx.centroids2]).contiguous()
+    del a, b
+    bsz, n, h = cb.shape
+    k, bn = c.shape[1], cfg.build_block_n
+    out = {}
+
+    # the narrow route (a point in registers, the codebook in shared memory)
+    # takes the path's h1-dim half-subspaces
+    smem = kmeans_kernel.stats_smem_bytes(k, h)
+    if not kmeans_ops._fits(h, smem):
+        raise AssertionError(f"kmeans_stats takes the wide route at h1 = {h}, k = {k}")
+    got = kmeans_ops.kmeans_stats(cb, c, block_n=bn, with_assign=True)
+    err = stats_errors("kmeans_stats (sharded)", cb, got, kmeans_stats_ref(cb, c, block_n=bn))
+    same_bits("kmeans_stats (sharded)", got,
+              kmeans_ops.kmeans_stats(cb, c, block_n=bn, with_assign=True))
+    bms, by = bound(nbytes(cb, c, *got[1:]), 3.0 * bsz * n * k * h)
+    out["kmeans_stats (sharded)"] = dict(
+        max_abs_err=err, **timed(lambda: kmeans_ops.kmeans_stats(cb, c, block_n=bn), 10),
+        plain_ms=time_ms(lambda: kmeans_stats_ref(cb, c, block_n=bn), 2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=[bsz, n, h], k=k, block_n=bn, equal_bits=True, variant="narrow",
+                    smem_bytes=smem))
+
+    got = kmeans_ops.kmeans_pair_assign_hist(cb, c, block_n=bn)
+    if not all(torch.equal(g, w) for g, w in zip(got, kmeans_pair_assign_hist_ref(cb, c, block_n=bn))):
+        raise AssertionError("kmeans_pair_assign_hist (sharded) differs from the plain version")
+    if not torch.equal(got[0][: bsz // 2] * k + got[0][bsz // 2:], idx.cell_ids):
+        raise AssertionError("the sharded build's cell ids are not its final assignment's")
+    bms, by = bound(nbytes(cb, c, *got), 2.0 * bsz * n * k * h)
+    out["kmeans_pair_assign_hist (sharded)"] = dict(
+        max_abs_err=0.0,
+        **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(cb, c, block_n=bn), 10),
+        plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(cb, c, block_n=bn), 2, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=[bsz, n, h], k=k, block_n=bn))
+    del cb, got
+
+    qc = q[: cfg.q_chunk]
+    ranks, cuts, cells = first_call(eng_mod, "sc_scores_cells", lambda: pool.query(qc, cfg.k))
+    ids, x_loc, q_blk = first_call(eng_mod, "gather_rerank_block", lambda: pool.query(qc, cfg.k))
+    got = score_ops.sc_scores_cells(ranks, cuts, cells)
+    if not torch.equal(got, sc_score_cells_ref(ranks, cuts, cells)):
+        raise AssertionError("sc_score_cells (sharded) differs from the plain version")
+    m, bc = got.shape
+    bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ranks.shape[0] * m * bc)
+    out["sc_score_cells (sharded)"] = dict(
+        max_abs_err=0.0, **timed(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 50),
+        plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, cells), 10),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=[ranks.shape[0], m, ranks.shape[2]], block=bc))
+
+    got = gather_ops.gather_rerank_block(ids, x_loc, q_blk)
+    want = gather_rerank_block_ref(ids, x_loc, q_blk)
+    err = (got - want).abs()
+    if not (err <= 2e-5 * want.abs()).all():
+        raise AssertionError("gather_rerank (sharded) outside rtol 2e-5 of the plain version")
+    m, cand = ids.shape
+    d = x_loc.shape[1]
+    bms, by = bound(nbytes(ids, q_blk, got) + m * cand * d * 4, 3.0 * m * cand * d)
+    out["gather_rerank (sharded)"] = dict(
+        max_abs_err=float(err.max()),
+        **timed(lambda: gather_ops.gather_rerank_block(ids, x_loc, q_blk), 50),
+        plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, x_loc, q_blk), 20),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        detail=dict(shape=[m, cand, d]))
+    return out
+
+
+def sharded_serve_phase(x_np, data, q64, gt, fused_recall: float, seed: int) -> tuple[dict, dict]:
+    """The sharded engine (``repro_torch.distributed``) at world size 1 over
+    NCCL on a (1, 1) (data, model) mesh, over the main path's data.  Config A
+    (the reference's production dry-run, ``launch/dryrun_suco.py``: Ns = 16,
+    sqrt_k = 64, 10 Lloyd steps, alpha 0.03, beta 0.003) as a pool at k = 50
+    and 10; config B (the main path's ``SuCoConfig``: Ns = 8, sqrt_k = 50,
+    20 steps, alpha 0.05, beta 0.02) at k = 10, its recall@10 at least 0.85
+    (the reference's sharded floor) beside the fused engine's.  Batches of
+    1, 8, 64 and 256 through ``query_resilient``: no answer may be degraded,
+    and no step may be added after the warm-up.  Then rows 2, 3, 4 and 7 at
+    this path's shapes against their plain versions.  Returns (the path's
+    launches, the kernel records)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.data import make_queries, recall
+    from repro_torch.distributed import DistSuCoConfig, Mesh, ShardedEnginePool, ShardedSuCoEngine
+    from repro_torch.distributed.engine import resolved_query_block_n
+
+    dev = data.device
+    n, d = data.shape
+    q256 = torch.from_numpy(make_queries(x_np, 256, seed=seed + 2)).to(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", dev.index or 0))
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        cfg_a = DistSuCoConfig()
+        cfg_b = DistSuCoConfig(n_subspaces=8, sqrt_k=50, kmeans_iters=20, alpha=0.05,
+                               beta=0.02, k=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        pool = ShardedEnginePool.build(mesh, cfg_a, data, ks=(50, 10), device=dev)
+        torch.cuda.synchronize()
+        build_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng_b = ShardedSuCoEngine.build(mesh, cfg_b, data, device=dev)
+        torch.cuda.synchronize()
+        build_b = time.perf_counter() - t0
+        warm = pool.warmup(SHARDED_BATCHES) + eng_b.warmup(SHARDED_BATCHES)
+        steps0 = pool.compile_count + eng_b.compile_count
+        serve_a, serve_b = {}, {}
+        for m in SHARDED_BATCHES:
+            for k in (50, 10):
+                infos = []
+
+                def run(m=m, k=k, infos=infos):
+                    ids, dists, info = pool.query_resilient(q256[:m], k)
+                    infos.append(info)
+                    return ids, dists
+
+                lat, (ids, _) = serve_times(run)
+                if any(i["degraded"] for i in infos) or ids.shape != (m, k):
+                    raise AssertionError(f"config A at m = {m}, k = {k}: {infos[-1]}")
+                serve_a[f"{m}_k{k}"] = dict(latency_ms=lat, median_ms=float(np.median(lat)),
+                                            host_syncs_per_batch=sync_warnings(run))
+            lat, (ids, _) = serve_times(lambda m=m: eng_b.query(q256[:m]))
+            serve_b[str(m)] = dict(latency_ms=lat, median_ms=float(np.median(lat)),
+                                   host_syncs_per_batch=sync_warnings(lambda m=m: eng_b.query(q256[:m])))
+        rec_b = recall(eng_b.query(q64)[0].cpu().numpy(), gt)
+        rec_a = recall(pool.query(q64, 10)[0].cpu().numpy(), gt)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = pool.compile_count + eng_b.compile_count
+        profiles = {str(m): profile_batch(lambda m=m: pool.query(q256[:m], 50))
+                    for m in (64, 256)}
+        emit(dict(phase="sharded_serve", world_size=1, mesh=mesh.shape, backend="nccl",
+                  config_a=dataclasses.asdict(cfg_a), config_b=dataclasses.asdict(cfg_b),
+                  block_n_a=resolved_query_block_n(mesh, cfg_a, n, d, device=dev),
+                  block_n_b=resolved_query_block_n(mesh, cfg_b, n, d, device=dev),
+                  build_seconds_a=build_a, build_seconds_b=build_b, warmup_steps=warm,
+                  steps_after_serving=steps, serve_a=serve_a, serve_b=serve_b,
+                  recall_at_10_a=rec_a, recall_at_10_b=rec_b, recall_at_10_fused=fused_recall,
+                  launches={name: launches[name] for name in SHARDED_KERNELS},
+                  max_memory_allocated=peak, profile_config_a_k50=profiles))
+        if steps != steps0:
+            raise AssertionError(f"the sharded engines added query steps after warm-up: "
+                                 f"{steps0} -> {steps}")
+        if rec_b < 0.85:
+            raise AssertionError(f"sharded recall@10 {rec_b} below the 0.85 floor")
+        if any(r["host_syncs_per_batch"] for r in (*serve_a.values(), *serve_b.values())):
+            raise AssertionError("a sharded batch synchronised with the host")
+        missing = [name for name in SHARDED_KERNELS if launches[name] < 1]
+        if missing:
+            raise AssertionError(f"kernels never launched on the sharded_serve path: {missing}")
+        checks = sharded_kernel_checks(pool, data, q256)
+        for name in SHARDED_KERNELS:
+            checks[f"{name} (sharded)"]["detail"]["launches"] = launches[name]
+        del pool, eng_b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
+#: fig9_12's competitors at its own parameters (``benchmarks/fig9_12_competitors.py``):
+#: name -> (class name, constructor kwargs, query kwargs); HNSW-lite at n = 5,000
+BASELINES = {
+    "lsh": ("E2LSH", dict(n_tables=8, n_bits=10), dict(threshold=1)),
+    "ivf": ("IVFFlat", dict(n_cells=128, iters=5), dict(nprobe=8)),
+    "imi_pq": ("IMIPQ", dict(sqrt_k=32, iters=5), dict(n_candidates=400)),
+    "hnsw": ("HNSWLite", dict(m=12, ef_construction=48), dict(ef_search=64)),
+    "rpforest": ("RPForest", dict(n_trees=10, leaf_size=64), dict()),
+}
+BASELINES_N, BASELINES_D, BASELINES_M, HNSW_N = 20_000, 64, 30, 5_000
+
+
+def tie_split(x_np, q_np, got, want, rel: float = 1e-5) -> dict:
+    """Two answers' ids: equal, swapped at an exact-distance tie (fp64, within
+    ``rel``), or otherwise different."""
+    import numpy as np
+
+    def d(ids):
+        return ((x_np[ids].astype(np.float64) - q_np.astype(np.float64)[:, None]) ** 2).sum(-1)
+
+    diff = got != want
+    dg, dw = d(got), d(want)
+    tied = np.abs(dg - dw) <= rel * np.maximum(dg, dw)
+    return dict(ids_equal=int((~diff).sum()), tie_swaps=int((diff & tied).sum()),
+                other=int((diff & ~tied).sum()), total=int(got.size))
+
+
+def baselines_phase(x_np, data, q64, gt, seed: int) -> dict:
+    """The five competitor baselines (``repro_torch.baselines``) at fig9_12's
+    data and parameters (``gaussian_mixture`` 20,000 x 64, 30 queries,
+    k = 10; HNSW-lite, whose walk stays on the host, at 5,000), built and
+    queried on the card and again on the CPU; the card's ids must equal the
+    CPU's but at distance ties and at most 1% boundary cases (an fp32 value
+    within a few ulp of its threshold: an argmin, a hash floor, a median
+    split).  Then IVF-Flat, E2LSH and IMI-PQ with their class defaults on the
+    main path's 1M x 128 data (64 queries), on the card only: their CPU
+    builds at that size take minutes.  Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import baselines as B
+    from repro_torch import kernels
+    from repro_torch.data import make_dataset, recall
+
+    dev = data.device
+    rows = {}
+    kernels.reset_launch_counts()
+    for name, (cls_name, ctor, qkw) in BASELINES.items():
+        ds = make_dataset("gaussian_mixture", HNSW_N if name == "hnsw" else BASELINES_N,
+                          BASELINES_D, m=BASELINES_M, k=10, seed=seed)
+        cls = getattr(B, cls_name)
+        runs = {}
+        for where in (("host",) if name == "hnsw" else ("cuda", "cpu")):
+            kw = {} if where == "host" else dict(device=dev if where == "cuda" else "cpu")
+            t0 = time.perf_counter()
+            idx = cls(**ctor, **kw).build(ds.x)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            lat, ids = serve_times(lambda: idx.query(ds.queries, 10, **qkw), reps=3)
+            ids = ids.cpu().numpy()
+            runs[where] = dict(build_seconds=build_s, query_ms=lat,
+                               median_ms=float(np.median(lat)), recall_at_10=recall(ids, ds.gt_ids),
+                               memory_bytes=idx.memory_bytes(), ids=ids)
+        rec = {w: {k_: v for k_, v in r.items() if k_ != "ids"} for w, r in runs.items()}
+        if "cpu" in runs:
+            rec["card_vs_cpu"] = tie_split(ds.x, ds.queries, runs["cuda"]["ids"],
+                                           runs["cpu"]["ids"])
+            if rec["card_vs_cpu"]["other"] > 0.01 * rec["card_vs_cpu"]["total"]:
+                raise AssertionError(f"{name}: card and CPU ids differ past the boundary cases: "
+                                     f"{rec['card_vs_cpu']}")
+        rows[name] = dict(n=ds.x.shape[0], d=BASELINES_D, queries=BASELINES_M, **ctor, **qkw,
+                          **rec)
+    launches_small = kernels.launch_counts()
+    full = {}
+    for cls_name in ("IVFFlat", "E2LSH", "IMIPQ"):
+        t0 = time.perf_counter()
+        idx = getattr(B, cls_name)(device=dev).build(data)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        lat, ids = serve_times(lambda: idx.query(q64, 10), reps=3)
+        full[cls_name] = dict(build_seconds=build_s, query_ms=lat, median_ms=float(np.median(lat)),
+                              recall_at_10=recall(ids.cpu().numpy(), gt),
+                              memory_bytes=idx.memory_bytes())
+        del idx
+    launches = kernels.launch_counts()
+    emit(dict(phase="baselines", fig9_12=rows, n_1m=dict(n=data.shape[0], d=data.shape[1],
+                                                         queries=q64.shape[0], **full),
+              launches_fig9_12=launches_small, launches=launches))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def linear_attn_ops(bh: int, t: int, dk: int, dv: int, chunk: int, shift: int) -> float:
     """fp32 operations of chunked linear attention on these shapes: per
     chunk of c live tokens, an exponential, two multiplies and an add per
@@ -3380,6 +3720,12 @@ def main() -> int:
     launches_by_path["mutable_serve"] = mutable_serve_phase(x_np, data, q64, engine.index,
                                                             policy, args.seed, k)
 
+    # 9b. the sharded engine at world size 1 over NCCL (configs A and B), then
+    # the paper's competitor baselines at fig9_12's sizes and at 1M
+    launches_by_path["sharded_serve"], sharded_checks = sharded_serve_phase(
+        x_np, data, q64, gt, rec, args.seed)
+    launches_by_path["baselines"] = baselines_phase(x_np, data, q64, gt, args.seed)
+
     # 10. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
     # the same width on the card and again on the CPU
     lm_cfg = get_config("rwkv6-1.6b")
@@ -3393,6 +3739,7 @@ def main() -> int:
     checks.update(check_query_kernels(dev, data, engine.index, q64, cfg, engine.tiles_for(64, k),
                                       args.seed))
     checks.update(library_checks)
+    checks.update(sharded_checks)
     checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
@@ -3496,7 +3843,7 @@ def main() -> int:
                          call_ms=rec_["call_ms"], plain_ms=rec_["plain_ms"],
                          bound_ms=rec_["bound_ms"], bound_by=rec_["bound_by"],
                          library_ms=rec_["library_ms"]))
-        extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point",
+        extras = ("fp32_bound_ms", "tf32_bound_ms", "rechecks_per_point", "variant",
                   "rechecks_per_pair", "screen_err_over_margin", "max_screen_err_over_margin",
                   "equal_bits", "instantiations", "fingerprint",
                   "parent_fingerprint", "q", "tile", "bitmap_route", "smem_bytes", "l2_route",
@@ -3508,7 +3855,7 @@ def main() -> int:
                 rows[-1]["in_path"][str(m)]["profile"] = compact_in_profile(p_)
         # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
         # over all n columns ("dense"), row 11 at Zamba2's SSD shape ("ssd")
-        for variant in ("wide", "pq", "dense", "ssd"):
+        for variant in ("wide", "pq", "dense", "ssd", "sharded"):
             other = checks.get(f"{name} ({variant})")
             if other is None:
                 continue

@@ -11,7 +11,9 @@ index-free SC-Linear (``sc_linear_query``), the K-means library
 ``init_centroids_pp``), and the ANN serving layer over the engine
 (``repro_torch.serve``: ``AnnServer``, ``AsyncAnnServer``, the
 ``DegradationLadder`` with its Theorem-2 floors from
-``repro_torch.core.theory``).  Every TPU kernel of those
+``repro_torch.core.theory``), the sharded engine on ``torch.distributed``
+(``repro_torch.distributed``) and the paper's competitor baselines
+(``repro_torch.baselines``).  Every TPU kernel of those
 paths is a hand-written CUDA kernel for ``sm_90a`` in ``csrc/``, built at
 first use; a tensor on the CPU takes each kernel's plain PyTorch version
 instead.  The package imports neither JAX nor anything of ``repro``.

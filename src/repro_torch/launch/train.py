@@ -43,8 +43,9 @@ def build(args):
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh} names a TPU mesh; the port trains on one card "
-            "(--mesh none). A sharded trainer comes with the sharded slice "
-            "(distributed/*, ROADMAP queue 1 item 7)")
+            "(--mesh none). The sharded slice (repro_torch.distributed) shards "
+            "the SuCo engine, not the trainer; the reference's train_once does "
+            "not read the flag either")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.d_model:
         cfg = dataclasses.replace(

@@ -40,6 +40,7 @@ from repro_torch.serve.chaos import (
     VirtualClock,
     drill_steps,
     flood_trace,
+    kill_pool_engine,
     recovery_drill,
     replay,
     wrap_ladder,
@@ -91,6 +92,7 @@ __all__ = [
     "DrillStep",
     "drill_steps",
     "recovery_drill",
+    "kill_pool_engine",
     "Durability",
     "DurabilityConfig",
     "RecoveryError",

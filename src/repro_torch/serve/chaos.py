@@ -21,6 +21,9 @@ Injectors (all seeded, all off by default):
   with NaN (submit-time validation);
 * **queue flood**: :func:`flood_trace` draws arrivals faster than the
   service time (admission control, the degradation ladder);
+* **shard death**: :func:`kill_pool_engine` makes one k-class of a
+  sharded engine pool raise on every query (its ``query_resilient`` must
+  rebind the class);
 * **process death**: :class:`CrashInjector` raises :class:`CrashPoint` at
   one of the durability layer's boundaries (:data:`CRASH_POINTS`: WAL
   append / fsync, snapshot write / rename, log truncation, the off-thread
@@ -63,6 +66,7 @@ __all__ = [
     "DrillReport",
     "drill_steps",
     "recovery_drill",
+    "kill_pool_engine",
 ]
 
 
@@ -521,3 +525,16 @@ def recovery_drill(
         dropped_bytes=rec.report.dropped_bytes,
         snapshots_skipped=rec.report.snapshots_skipped,
     )
+
+
+def kill_pool_engine(pool, k: int, reason: str = "injected shard death") -> None:
+    """Make ``pool``'s per-``k`` engine raise :class:`ChaosError` on every
+    query: the shard-death injector for
+    :meth:`~repro_torch.distributed.engine.ShardedEnginePool.query_resilient`,
+    which must rebind the dead k-class to a healthy engine."""
+    engine = pool.engine_for(k)
+
+    def _dead_query(q, k=k, **kw):
+        raise ChaosError(f"{reason} (k={k})")
+
+    engine.query = _dead_query

@@ -24,7 +24,10 @@ prefill twice the same bits).  Row 3 also runs on skewed inputs (one
 centroid taking every point, most centroids empty; ``tests/_stats_cases.py``,
 which ``tests/test_torch_kmeans.py`` holds to the JAX kernel), where two
 launches give equal bits and the screened kernel's best distances equal the
-plain minimum.
+plain minimum.  The sharded engine at world size 1 over NCCL builds the
+CPU's index but at Voronoi boundaries and answers as the CPU on one index;
+each baseline with a device path gives the CPU's ids but at ties and
+boundary cases.
 """
 
 import pytest
@@ -1965,3 +1968,108 @@ def test_warmup_during_a_reindex_waits_for_its_own_stream_only(dev, serve_data):
     assert not busy.query()  # the warm-up returned before the side stream finished
     torch.cuda.synchronize(dev)
     assert engine.compile_count == 2
+
+
+def test_sharded_engine_over_nccl_at_world_size_one_equals_the_cpu(dev):
+    """The sharded engine on a (1, 1) mesh over NCCL, at the reference
+    test's sizes (4,096 x 64, Ns = 8, sqrt_k = 16): the card's build gives
+    the CPU's cell ids in at least 99.9% of places (Lloyd sums in another
+    order), centroids within 1e-5; on one index the card's answers are the
+    CPU's but at distance ties (rtol 2e-5); the streaming and dense queries
+    equal bit for bit; rows 2, 3, 4 and 7 launch; a pool's warm-up covers
+    its traffic."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.distributed import (
+        DistSuCoConfig, Mesh, ShardedEnginePool, build_sharded, index_to_host, query_sharded,
+    )
+    from repro_torch.serve.chaos import kill_pool_engine
+
+    x = torch.from_numpy(gaussian_mixture(4096, 64, 0))
+    q = torch.from_numpy(make_queries(x.numpy(), 16, seed=1))
+    cfg = DistSuCoConfig(n_subspaces=8, sqrt_k=16, kmeans_iters=6, alpha=0.05, beta=0.02, k=10,
+                         q_chunk=16)
+    cpu_mesh = Mesh((1, 1), ("data", "model"))  # no process group: the identity collectives
+    cpu_idx = build_sharded(cpu_mesh, x, cfg, device="cpu")
+    want_ids, want_d = query_sharded(cpu_mesh, cfg, x, cpu_idx, q)
+    with __import__("socket").socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        kernels.reset_launch_counts()
+        idx = build_sharded(mesh, x, cfg, device=dev)
+        card, cpu = index_to_host(idx), index_to_host(cpu_idx)
+        assert (card["cell_ids"] == cpu["cell_ids"]).mean() >= 0.999
+        for name in ("centroids1", "centroids2"):
+            np.testing.assert_allclose(card[name], cpu[name], rtol=1e-5, atol=1e-5)
+        on_card = dataclasses.replace(cpu_idx, cell_ids=cpu_idx.cell_ids.to(dev),
+                                      centroids1=cpu_idx.centroids1.to(dev),
+                                      centroids2=cpu_idx.centroids2.to(dev),
+                                      cell_counts=cpu_idx.cell_counts.to(dev), mesh=mesh)
+        ids, d = query_sharded(mesh, cfg, x, on_card, q)
+        _assert_answers_tie_equal(ids.cpu().numpy(), d.cpu().numpy(), want_ids.numpy(),
+                                  want_d.numpy())
+        dense = query_sharded(mesh, dataclasses.replace(cfg, block_n=0), x, on_card, q)
+        streaming = query_sharded(mesh, dataclasses.replace(cfg, block_n=300), x, on_card, q)
+        assert all(torch.equal(a, b) for a, b in zip(dense, streaming))
+        counts = kernels.launch_counts()
+        for name in ("kmeans_stats", "kmeans_pair_assign_hist", "sc_score_cells", "gather_rerank"):
+            assert counts[name] > 0, name
+        pool = ShardedEnginePool(mesh, cfg, x, on_card, ks=(5, 10), device=dev)
+        warm = pool.warmup((1, 3, 16))
+        for m, k in ((16, 10), (1, 5), (3, 10)):
+            ids_k, _, info = pool.query_resilient(q[:m], k)
+            assert ids_k.shape == (m, k) and not info["degraded"]
+        assert pool.compile_count == warm
+        kill_pool_engine(pool, 5)
+        ids5, _, info = pool.query_resilient(q, 5)
+        assert info["degraded"] and torch.equal(ids5, pool.query(q, 10)[0][:, :5])
+    finally:
+        dist.destroy_process_group()
+
+
+def _assert_answers_tie_equal(gi, gd, wi, wd, rtol=2e-5):
+    import numpy as np
+
+    np.testing.assert_allclose(gd, wd, rtol=rtol)
+    for r in range(wi.shape[0]):
+        for c in np.flatnonzero(wi[r] != gi[r]):
+            assert (np.abs(wd[r] - wd[r, c]) <= rtol * wd[r, c]).sum() > 1, (r, c)
+
+
+@pytest.mark.parametrize("name", ["ivf", "lsh", "imi_pq", "rpforest"])
+def test_baselines_on_the_card_equal_the_cpu(dev, name):
+    """Each baseline with a device path, built and queried on the card and on
+    the CPU from the same data and seed: the same memory, and the same ids
+    but at exact-distance ties (fp64, 1e-5) and at most 1% boundary cases
+    (an fp32 argmin, hash floor or median split within a few ulp)."""
+    import numpy as np
+
+    from repro_torch import baselines as B
+
+    cls, ctor, qkw = {
+        "ivf": (B.IVFFlat, dict(n_cells=32, iters=5), dict(nprobe=8)),
+        "lsh": (B.E2LSH, dict(n_tables=8, n_bits=10), dict(threshold=1)),
+        "imi_pq": (B.IMIPQ, dict(sqrt_k=16, iters=5), dict(n_candidates=200)),
+        "rpforest": (B.RPForest, dict(n_trees=10, leaf_size=64), dict()),
+    }[name]
+    x = gaussian_mixture(4000, 32, 0)
+    q = make_queries(x, 20, seed=1)
+    card = cls(**ctor, device=dev).build(x)
+    cpu = cls(**ctor, device="cpu").build(x)
+    assert card.memory_bytes() == cpu.memory_bytes()
+    gi = card.query(q, 10, **qkw).cpu().numpy()
+    wi = cpu.query(q, 10, **qkw).numpy()
+
+    def d(ids):
+        return ((x[ids].astype(np.float64) - q.astype(np.float64)[:, None]) ** 2).sum(-1)
+
+    diff = gi != wi
+    tied = np.abs(d(gi) - d(wi)) <= 1e-5 * np.maximum(d(gi), d(wi))
+    assert (diff & ~tied).sum() <= 0.01 * gi.size

@@ -19,7 +19,12 @@ assert {"repro_torch.serve", "repro_torch.serve.ann", "repro_torch.core.theory",
         "repro_torch.data.lm_data", "repro_torch.launch.train", "repro_torch.train",
         "repro_torch.train.optimizer", "repro_torch.train.train_step",
         "repro_torch.train.checkpoint", "repro_torch.train.compression",
-        "repro_torch.train.resilience"} <= set(names), names
+        "repro_torch.train.resilience", "repro_torch.distributed",
+        "repro_torch.distributed.compat", "repro_torch.distributed.engine",
+        "repro_torch.distributed.elastic", "repro_torch.baselines",
+        "repro_torch.baselines.ivf", "repro_torch.baselines.lsh",
+        "repro_torch.baselines.imi_pq", "repro_torch.baselines.rpforest",
+        "repro_torch.baselines.hnsw"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
