@@ -3,12 +3,24 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--seed S`` picks
 the data).  It builds the CUDA kernels from ``src/repro_torch/csrc``, then
-drives eighteen paths, each with every kernel's launch count set to 0 just
+drives nineteen paths, each with every kernel's launch count set to 0 just
 before it and read just after.  Nine run over SIFT1M's shape (n =
 1,000,000, d = 128, data from ``gaussian_mixture``):
 
 * ``main_path``: build a SuCo index with the default ``SuCoConfig`` and serve
   batches of 1, 8 and 64 queries through ``SuCoEngine`` (fused mode);
+  Then ``static_gate`` (no path of its own): each built kernel's registers,
+  static shared memory, stack and spills from ``cuobjdump -res-usage``,
+  registers x threads within the card's 65,536 and static plus dynamic
+  shared memory within its opt-in limit at the main path's launches; those
+  launches as ``kernels/_plans.py`` plans them equal to the ones a profiled
+  run makes (kernels, grids, threads, shared memory, registers);
+  ``static_device_limits("h100")`` equal to the card's properties; the
+  sources' shared-memory sizes equal to their Python copies
+  (``kernels/_plans.py``); the fused batches of 1, 8 and 64 under the sort
+  and the counting merge in turns, bit for bit equal; and, where the parent
+  commit's tree is unpacked at ``build/parent``, the same batches on it and
+  on this tree in turns (``tools/time_fused.py``);
 * ``query_modes``: the same batches through ``suco_query``'s dense and
   streaming modes (engines over the same index), each answer held against
   the fused one;
@@ -65,6 +77,16 @@ before it and read just after.  Nine run over SIFT1M's shape (n =
   at fig9_12's data and parameters (20,000 x 64; HNSW-lite at 5,000, on the
   host), on the card and on the CPU, ids equal but at ties and boundary
   cases; IVF-Flat, E2LSH and IMI-PQ with their class defaults at 1M.
+* ``dryrun_suco``: rank 0's share of the sharded 1B x 128 dry-run at pod1
+  (``repro_torch.launch.dryrun_suco``), for real: 62,500,000 x 8 fp32 points
+  (one subspace) seeded on the card, a (1, 1) mesh at world size 1 over
+  NCCL, ``build_sharded`` (rows 3, 4), a batch of 8 and one of 256 at k = 50
+  (rows 7, 2), then rows 3, 4, 7 and 2 at the phase's own shapes against
+  their plain versions; ``max_memory_allocated`` over the run must lie
+  within 10% of the fake run's prediction for the same program
+  (``dryrun_suco --share``, in a process of its own with no card visible,
+  run after the last timed phase so that it shares the host with no
+  timing; its comparison is the ``dryrun_suco_prediction`` record).
 
 The eighth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
 layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
@@ -1684,11 +1706,26 @@ def best_distance_check(x, c, chunk: int = 32_768) -> dict:
     return dict(points=x.shape[1], best_equal=True, mean_best=float(dmin.double().mean()))
 
 
-def stats_errors(name: str, x, got, want) -> float:
+def stats_errors(name: str, x, got, want, centroids=None, chain: int | None = None,
+                 report: dict | None = None) -> float:
     """Hold a statistics kernel's output against its plain version's:
     assignments and counts equal, sums within 1e-5 * sum |terms| (fp32 sums
     in another order), inertia within 1e-5 relative.  Returns the largest
-    absolute error of the sums."""
+    absolute error of the sums.
+
+    With ``chain`` (the longest run of fp32 additions behind one sum: a
+    block's points and then the blocks) and ``centroids``, the sums and
+    inertia are held instead to their fp64 values over the shared
+    assignments, as a fraction of their terms' magnitudes: the kernel's
+    within the probabilistic bound of fp32 summation (Higham and Mary,
+    2019), 7 sqrt(chain) 2^-24, and the plain version's (a running fp32
+    total over the blocks, whose rounding errors need not cancel) within
+    the worst case, gamma_chain = chain 2^-24 / (1 - chain 2^-24).
+    ``report`` gets each one's largest error over that magnitude.  Past
+    some millions of points the two can part by more than 1e-5 of the
+    terms."""
+    import math
+
     import torch
 
     a, sums, counts, inertia = got
@@ -1696,14 +1733,36 @@ def stats_errors(name: str, x, got, want) -> float:
     k = sums.shape[1]
     if not (torch.equal(a, want[0]) and torch.equal(counts, want[2])):
         raise AssertionError(f"{name}: assignments or counts differ from the plain version")
+    rows = (a.long() + torch.arange(b, device=x.device)[:, None] * k).reshape(-1)
     mag = torch.zeros((b * k, s), dtype=torch.float64, device=x.device)
-    mag.index_add_(0, (a.long() + torch.arange(b, device=x.device)[:, None] * k).reshape(-1),
-                   x.abs().double().reshape(-1, s))
+    mag.index_add_(0, rows, x.abs().double().reshape(-1, s))
+    mag = mag.reshape(b, k, s)
     err = (sums.double() - want[1].double()).abs()
-    if not (err <= 1e-5 * mag.reshape(b, k, s)).all():
-        raise AssertionError(f"{name}: sums outside 1e-5 * sum |terms|")
-    if not ((inertia.double() - want[3].double()).abs() <= 1e-5 * want[3].double()).all():
-        raise AssertionError(f"{name}: inertia outside 1e-5 relative")
+    if chain is None:
+        if not (err <= 1e-5 * mag).all():
+            raise AssertionError(f"{name}: sums outside 1e-5 * sum |terms|")
+        if not ((inertia.double() - want[3].double()).abs() <= 1e-5 * want[3].double()).all():
+            raise AssertionError(f"{name}: inertia outside 1e-5 relative")
+        return float(err.max())
+    u = 2.0**-24
+    tols = dict(kernel=7 * math.sqrt(chain) * u, plain=chain * u / (1 - chain * u))
+    exact = torch.zeros((b * k, s), dtype=torch.float64, device=x.device)
+    exact.index_add_(0, rows, x.double().reshape(-1, s))
+    exact = exact.reshape(b, k, s)
+    c64 = centroids.double()
+    exact_in = torch.stack([((x[i].double() - c64[i][a[i].long()]) ** 2).sum() for i in range(b)])
+    for who, (sm, inert) in (("kernel", (sums, inertia)), ("plain", want[1::2])):
+        tol = tols[who]
+        if report is not None:
+            report[who] = dict(
+                sums=float(((sm.double() - exact).abs() / mag.clamp_min(1e-300)).max()),
+                inertia=float(((inert.double() - exact_in).abs() / exact_in).max()), bound=tol)
+        if not ((sm.double() - exact).abs() <= tol * mag).all():
+            raise AssertionError(f"{name}: the {who} version's sums outside {tol:.3g} * "
+                                 "sum |terms| of their fp64 values")
+        if not ((inert.double() - exact_in).abs() <= tol * exact_in).all():
+            raise AssertionError(f"{name}: the {who} version's inertia outside {tol:.3g} "
+                                 "relative of its fp64 value")
     return float(err.max())
 
 
@@ -2432,11 +2491,21 @@ def sync_warnings(fn) -> int:
     return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
-def sharded_kernel_checks(pool, data, q) -> dict:
-    """Rows 2, 3, 4 and 7 against their plain versions at the sharded path's
-    shapes (config A): the build's (2 Ns, n, h1) half-subspace points with
-    its centroids (rows 3 and 4), and the arguments one query chunk of 32
-    gave the chunk scores (row 7) and the rerank (row 2)."""
+def sharded_kernel_checks(cfg, index, data, q, query, tag: str = "sharded",
+                          lloyd_plain: tuple[int, int] | None = (2, 1),
+                          fp64_sums: bool = False) -> dict:
+    """Rows 2, 3, 4 and 7 against their plain versions at a sharded path's
+    shapes: the build's (2 Ns, n, h1) half-subspace points with its final
+    centroids (rows 3 and 4), and the arguments one query chunk of
+    ``cfg.q_chunk`` queries (``query(q[:q_chunk])``) gave the chunk scores
+    (row 7, one block of the shard) and the rerank (row 2, the chunk's
+    pool).  Integers must be equal, the Lloyd sums within 1e-5 of their
+    terms and the distances within rtol 2e-5; with ``fp64_sums``, the Lloyd
+    sums of each are held instead to their fp64 values (:func:`stats_errors`'
+    ``chain``).  Rows 3 and 4's plain versions are timed over ``lloyd_plain``
+    = (runs, warm-up runs) by CUDA events, or, where it is None, by the one
+    call that checks each (host clock, synchronised at both ends).  The
+    records are named ``<row> (tag)``."""
     import torch
 
     from repro_torch.distributed import engine as eng_mod
@@ -2448,56 +2517,70 @@ def sharded_kernel_checks(pool, data, q) -> dict:
     from repro_torch.kernels.sc_score import ops as score_ops
     from repro_torch.kernels.sc_score.ref import sc_score_cells_ref
 
-    cfg, idx = pool.cfg, pool.index
     ns, s = cfg.n_subspaces, data.shape[1] // cfg.n_subspaces
     a, b, _ = eng_mod._split_local(data, ns, s)
     cb = torch.cat([a, b]).contiguous()
-    c = torch.cat([idx.centroids1, idx.centroids2]).contiguous()
+    c = torch.cat([index.centroids1, index.centroids2]).contiguous()
     del a, b
     bsz, n, h = cb.shape
     k, bn = c.shape[1], cfg.build_block_n
     out = {}
 
+    def plain(fn) -> tuple:
+        if lloyd_plain is not None:
+            return fn(), time_ms(fn, *lloyd_plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
     # the narrow route (a point in registers, the codebook in shared memory)
     # takes the path's h1-dim half-subspaces
     smem = kmeans_kernel.stats_smem_bytes(k, h)
-    if not kmeans_ops._fits(h, smem):
+    if kmeans_ops._stats_wide(h, smem):
         raise AssertionError(f"kmeans_stats takes the wide route at h1 = {h}, k = {k}")
     got = kmeans_ops.kmeans_stats(cb, c, block_n=bn, with_assign=True)
-    err = stats_errors("kmeans_stats (sharded)", cb, got, kmeans_stats_ref(cb, c, block_n=bn))
-    same_bits("kmeans_stats (sharded)", got,
+    chain = bn + -(-n // bn) if fp64_sums else None
+    fp64 = {}
+    want, plain_ms = plain(lambda: kmeans_stats_ref(cb, c, block_n=bn))
+    err = stats_errors(f"kmeans_stats ({tag})", cb, got, want, centroids=c, chain=chain,
+                       report=fp64)
+    del want
+    same_bits(f"kmeans_stats ({tag})", got,
               kmeans_ops.kmeans_stats(cb, c, block_n=bn, with_assign=True))
     bms, by = bound(nbytes(cb, c, *got[1:]), 3.0 * bsz * n * k * h)
-    out["kmeans_stats (sharded)"] = dict(
+    del got
+    out[f"kmeans_stats ({tag})"] = dict(
         max_abs_err=err, **timed(lambda: kmeans_ops.kmeans_stats(cb, c, block_n=bn), 10),
-        plain_ms=time_ms(lambda: kmeans_stats_ref(cb, c, block_n=bn), 2, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[bsz, n, h], k=k, block_n=bn, equal_bits=True, variant="narrow",
-                    smem_bytes=smem))
+                    smem_bytes=smem, fp64_chain=chain, fp64_errors=fp64))
 
     got = kmeans_ops.kmeans_pair_assign_hist(cb, c, block_n=bn)
-    if not all(torch.equal(g, w) for g, w in zip(got, kmeans_pair_assign_hist_ref(cb, c, block_n=bn))):
-        raise AssertionError("kmeans_pair_assign_hist (sharded) differs from the plain version")
-    if not torch.equal(got[0][: bsz // 2] * k + got[0][bsz // 2:], idx.cell_ids):
-        raise AssertionError("the sharded build's cell ids are not its final assignment's")
+    want, plain_ms = plain(lambda: kmeans_pair_assign_hist_ref(cb, c, block_n=bn))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"kmeans_pair_assign_hist ({tag}) differs from the plain version")
+    del want
+    if not torch.equal(got[0][: bsz // 2] * k + got[0][bsz // 2:], index.cell_ids):
+        raise AssertionError(f"the {tag} build's cell ids are not its final assignment's")
     bms, by = bound(nbytes(cb, c, *got), 2.0 * bsz * n * k * h)
-    out["kmeans_pair_assign_hist (sharded)"] = dict(
+    out[f"kmeans_pair_assign_hist ({tag})"] = dict(
         max_abs_err=0.0,
         **timed(lambda: kmeans_ops.kmeans_pair_assign_hist(cb, c, block_n=bn), 10),
-        plain_ms=time_ms(lambda: kmeans_pair_assign_hist_ref(cb, c, block_n=bn), 2, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[bsz, n, h], k=k, block_n=bn))
     del cb, got
 
     qc = q[: cfg.q_chunk]
-    ranks, cuts, cells = first_call(eng_mod, "sc_scores_cells", lambda: pool.query(qc, cfg.k))
-    ids, x_loc, q_blk = first_call(eng_mod, "gather_rerank_block", lambda: pool.query(qc, cfg.k))
+    ranks, cuts, cells = first_call(eng_mod, "sc_scores_cells", lambda: query(qc))
+    ids, x_loc, q_blk = first_call(eng_mod, "gather_rerank_block", lambda: query(qc))
     got = score_ops.sc_scores_cells(ranks, cuts, cells)
     if not torch.equal(got, sc_score_cells_ref(ranks, cuts, cells)):
-        raise AssertionError("sc_score_cells (sharded) differs from the plain version")
+        raise AssertionError(f"sc_score_cells ({tag}) differs from the plain version")
     m, bc = got.shape
     bms, by = bound(nbytes(ranks, cuts, cells, got), 2.0 * ranks.shape[0] * m * bc)
-    out["sc_score_cells (sharded)"] = dict(
+    out[f"sc_score_cells ({tag})"] = dict(
         max_abs_err=0.0, **timed(lambda: score_ops.sc_scores_cells(ranks, cuts, cells), 50),
         plain_ms=time_ms(lambda: sc_score_cells_ref(ranks, cuts, cells), 10),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -2507,11 +2590,11 @@ def sharded_kernel_checks(pool, data, q) -> dict:
     want = gather_rerank_block_ref(ids, x_loc, q_blk)
     err = (got - want).abs()
     if not (err <= 2e-5 * want.abs()).all():
-        raise AssertionError("gather_rerank (sharded) outside rtol 2e-5 of the plain version")
+        raise AssertionError(f"gather_rerank ({tag}) outside rtol 2e-5 of the plain version")
     m, cand = ids.shape
     d = x_loc.shape[1]
     bms, by = bound(nbytes(ids, q_blk, got) + m * cand * d * 4, 3.0 * m * cand * d)
-    out["gather_rerank (sharded)"] = dict(
+    out[f"gather_rerank ({tag})"] = dict(
         max_abs_err=float(err.max()),
         **timed(lambda: gather_ops.gather_rerank_block(ids, x_loc, q_blk), 50),
         plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, x_loc, q_blk), 20),
@@ -2608,7 +2691,8 @@ def sharded_serve_phase(x_np, data, q64, gt, fused_recall: float, seed: int) -> 
         missing = [name for name in SHARDED_KERNELS if launches[name] < 1]
         if missing:
             raise AssertionError(f"kernels never launched on the sharded_serve path: {missing}")
-        checks = sharded_kernel_checks(pool, data, q256)
+        checks = sharded_kernel_checks(pool.cfg, pool.index, data, q256,
+                                       lambda qc: pool.query(qc, pool.cfg.k))
         for name in SHARDED_KERNELS:
             checks[f"{name} (sharded)"]["detail"]["launches"] = launches[name]
         del pool, eng_b
@@ -2616,6 +2700,416 @@ def sharded_serve_phase(x_np, data, q64, gt, fused_recall: float, seed: int) -> 
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     return launches, checks
+
+
+# ---- static_gate: the kernels' real resource use, the H100 table, the merges ----
+
+#: where ``static_gate`` looks for the parent tree to time the fused batches
+#: against (``git archive`` of the parent commit unpacked there); absent in a
+#: plain checkout, and then the phase says so
+PARENT_TREE = ROOT / "build" / "parent"
+FUSED_BATCHES = (1, 8, 64)
+
+
+def res_usage(lib: Path) -> list[dict]:
+    """``cuobjdump -res-usage`` of a built library: per kernel function its
+    registers, static shared memory, stack and local (spill) bytes."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", line)
+        if m and name:
+            reg, stack, shared, local = map(int, m.groups())
+            out.append(dict(function=name, registers=reg, stack=stack, static_smem=shared,
+                            local=local))
+            name = None
+    return out
+
+
+def kernel_of(function: str) -> str | None:
+    """The kernel of a (mangled) function name, as ``_plans.THREADS`` names it."""
+    from repro_torch.kernels import _plans
+
+    hits = [k for k in _plans.THREADS if k in function]
+    return max(hits, key=len) if hits else None
+
+
+def main_path_launches(engine, data, q64, cfg, k: int) -> tuple[list, list]:
+    """The launches of the main path's kernels, planned and made: the fused
+    batch of 64 (rows 1 and 2) and one pass each of the build's Lloyd
+    statistics and paired assignment at its shapes (rows 3 and 4), run once
+    under ``torch.profiler`` and an op trace.  Returns the plans
+    (``_plans.launches`` of the traced operators' arguments) and the kernels
+    the card launched: each port kernel's name, grid, block, shared memory
+    and registers as the profiler's chrome trace gives them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.trace_rules import OpTrace
+    from repro_torch.core.tuning import autotune_build_block_n, device_limits, static_device_limits
+    from repro_torch.kernels import _plans
+    from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
+
+    limits = static_device_limits("h100")
+    n, d = engine.x.shape
+    block_n = cfg.block_n or autotune_build_block_n(
+        n, d, sqrt_k=cfg.sqrt_k, n_subspaces=cfg.n_subspaces, limits=device_limits(engine.x.device))
+    both, c0 = build_stats_inputs(data, engine.index.spec, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, OpTrace() as tr:
+        engine._padded_query(q64, k)  # counts nothing on the engine
+        kmeans_ops.kmeans_stats(both, c0, block_n=block_n)
+        kmeans_ops.kmeans_pair_assign_hist(both, c0, block_n=block_n)
+        torch.cuda.synchronize()
+    del both, c0
+    path = ROOT / "build" / "static_gate_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    made = []
+    for ev in json.loads(path.read_text())["traceEvents"]:
+        kern = kernel_of(ev.get("name", "")) if ev.get("cat") == "kernel" else None
+        if kern is not None:
+            a = ev.get("args", {})
+            made.append(dict(kernel=kern, grid=a.get("grid"), block=a.get("block"),
+                             smem=a.get("shared memory"), registers=a.get("registers per thread")))
+    # the occupancy a one-wave launcher reads, at the registers it launched with
+    registers = {m["kernel"]: m["registers"] for m in made}
+    planned = [ln for e in tr.kernel_ops()
+               for ln in _plans.launches(e.name, e.args, limits, registers)]
+    path.unlink()
+    return planned, made
+
+
+def launch_mismatches(planned: list, made: list, usage: dict) -> list[str]:
+    """Where the card's launches (:func:`main_path_launches`) part from the
+    plans and the libraries' resource use (``usage``: per library the
+    :func:`res_usage` records, with ``kernel``): a kernel, grid or block the
+    plans do not have, or the reverse (a plan's block is ``_plans.THREADS``',
+    so this holds that table to the launches); shared memory other than one
+    of the kernel's static sizes plus the planned dynamic bytes
+    (``cuobjdump`` counts the block's 1 KB reserve in a kernel that uses it,
+    every one here but row 2's, and the profiler never does); or registers
+    no instantiation of the kernel has."""
+    from collections import Counter
+
+    from repro_torch.kernels import _plans
+
+    want = Counter((ln.kernel, tuple(ln.grid), (ln.threads, 1, 1)) for ln in planned)
+    got = Counter((m["kernel"], tuple(m["grid"] or ()), tuple(m["block"] or ())) for m in made)
+    out = [f"planned, not launched: {key} x{c}" for key, c in (want - got).items()]
+    out += [f"launched, not planned: {key} x{c}" for key, c in (got - want).items()]
+    statics, regs = {}, {}
+    for fs in usage.values():
+        for f in fs:
+            statics.setdefault(f["kernel"], set()).add(f["static_smem"])
+            regs.setdefault(f["kernel"], set()).add(f["registers"])
+    dyn = {(ln.kernel, tuple(ln.grid)): ln.smem_bytes for ln in planned}
+    for m in made:
+        kern = m["kernel"]
+        plan = dyn.get((kern, tuple(m["grid"] or ())))
+        static = {st - r for st in statics.get(kern, ())
+                  for r in (0, _plans.RESERVED_SMEM_BYTES) if st >= r}
+        if plan is not None and m["smem"] - plan not in static:
+            out.append(f"{kern} grid {m['grid']}: {m['smem']} B of shared memory, planned "
+                       f"{plan} + static {sorted(statics.get(kern, ()))}")
+        if m["registers"] not in regs.get(kern, ()):
+            out.append(f"{kern}: {m['registers']} registers a thread, cuobjdump "
+                       f"{sorted(regs.get(kern, ()))}")
+    return out
+
+
+def smem_mirrors(cfg, k_cells: int) -> dict:
+    """The Python copies of the sources' shared-memory sizes
+    (``kernels/_plans.py``) against the built libraries' own functions, at
+    the main path's, PQ8x8's and the IVF shapes: they must agree."""
+    import ctypes
+
+    from repro_torch.kernels import _build, _plans
+
+    _I = ctypes.c_int
+    checks = {}
+    for q in (1, 2, 4, 8, 16):
+        for ns in (1, cfg.n_subspaces, 16):
+            got = _build.entry("sc_score", "sc_score_smem_bytes", [_I, _I, _I])(ns, k_cells, q)
+            checks[f"sweep ns={ns} K={k_cells} q={q}"] = (got, _plans.sweep_smem_bytes(ns, k_cells, q))
+    for fn, mirror in (("kmeans_stats_smem_bytes", _plans.stats_smem_bytes),
+                       ("kmeans_pair_smem_bytes", _plans.pair_smem_bytes),
+                       ("kmeans_assign_narrow_smem_bytes", _plans.narrow_smem_bytes)):
+        c_fn = _build.entry("kmeans_assign", fn, [_I, _I])
+        for kk, s in ((cfg.sqrt_k, 8), (64, 4), (256, 16), (50, 16), (1024, 64), (32, 3)):
+            checks[f"{fn} k={kk} s={s}"] = (c_fn(kk, s), mirror(kk, s))
+    bad = {key: v for key, v in checks.items() if v[0] != v[1]}
+    return dict(checked=len(checks), disagree=bad)
+
+
+def fused_merge_times(data, index, q64, k: int, rounds: int = 7) -> dict:
+    """The main path's fused batches of 1 / 8 / 64 under ``merge_impl="sort"``
+    and ``"counting"`` on one engine's data, timed in turns (host clock,
+    each batch ending in a synchronise; median of ``rounds``); their answers
+    must be equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import EnginePolicy, SuCoEngine
+
+    engines = {impl: SuCoEngine(data, index, EnginePolicy(alpha=0.05, beta=0.02, merge_impl=impl),
+                                device=data.device) for impl in ("sort", "counting")}
+    for eng in engines.values():
+        eng.warmup(batch_sizes=FUSED_BATCHES, ks=(k,))
+    out = {}
+    for m in FUSED_BATCHES:
+        lat = {impl: [] for impl in engines}
+        res = {}
+        for _ in range(rounds):
+            for impl, eng in engines.items():
+                t, res[impl] = serve_times(lambda eng=eng: eng.query(q64[:m], k), reps=1)
+                lat[impl] += t
+        for name, a, b in zip(("ids", "dists", "scores"), res["sort"], res["counting"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"m = {m}: the sort and counting merges differ in {name}")
+        out[str(m)] = {impl: dict(median_ms=float(np.median(v)), latency_ms=v)
+                       for impl, v in lat.items()}
+        out[str(m)]["equal_bits"] = True
+    return out
+
+
+def parent_vs_change(rounds: int = 10) -> dict:
+    """The fused batches of 1 / 8 / 64 on :data:`PARENT_TREE` and on this
+    tree, in ``rounds`` pairs of turns (parent, change, change, parent, ...),
+    each a process of ``tools/time_fused.py``; absent a parent tree, says
+    so."""
+    if not (PARENT_TREE / "src" / "repro_torch").is_dir():
+        return dict(status=f"no parent tree at {PARENT_TREE.relative_to(ROOT)}")
+    runs = []
+    order = [("parent", PARENT_TREE / "src"), ("change", ROOT / "src")]
+    for r in range(rounds):
+        for label, src in (order if r % 2 == 0 else order[::-1]):
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "tools" / "time_fused.py"), "--src", str(src),
+                 "--label", label], capture_output=True, text=True, timeout=600, check=True)
+            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return dict(status="ok", runs=runs)
+
+
+def static_gate_phase(engine, data, q64, cfg, k: int) -> dict:
+    """The static gate on the card: each built kernel's real resource use
+    (``cuobjdump -res-usage``) held to the H100 at the main path's launches,
+    those launches as planned (``kernels/_plans.py``) held to the ones the
+    card makes,
+    ``static_device_limits("h100")`` held to the card's properties, the
+    sources' shared-memory sizes held to their Python copies, the fused
+    batches under the sort and the counting merge, and (with a parent tree
+    at ``build/parent``) the fused batches on the parent's tree and this
+    one in turns."""
+    import torch
+
+    from repro_torch.core.tuning import static_device_limits
+    from repro_torch.kernels import _build, _plans
+
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(engine.x.device)
+    lim = static_device_limits("h100")
+    card = dict(fast_bytes=props.L2_cache_size, hbm_bytes=props.total_memory,
+                smem_optin_bytes=props.shared_memory_per_block_optin,
+                n_sm=props.multi_processor_count, regs_per_sm=props.regs_per_multiprocessor,
+                max_threads_per_block=props.max_threads_per_block,
+                smem_per_sm_bytes=props.shared_memory_per_multiprocessor,
+                max_threads_per_sm=props.max_threads_per_multi_processor)
+    table = {key: dict(static=getattr(lim, key), card=v) for key, v in card.items()}
+    usage, breaches = {}, []
+    for name in _build.SOURCES:
+        for f in res_usage(_build.library_path(name)):
+            kern = kernel_of(f["function"])
+            threads = _plans.THREADS.get(kern)
+            f.update(kernel=kern, threads=threads)
+            if threads is None:
+                breaches.append(f"{name}: no thread count for {f['function']}")
+            elif f["registers"] * threads > card["regs_per_sm"]:
+                breaches.append(f"{kern}: {f['registers']} registers x {threads} threads > "
+                                f"{card['regs_per_sm']}")
+            usage.setdefault(name, []).append(f)
+    static_smem = {}
+    for fs in usage.values():
+        for f in fs:
+            static_smem[f["kernel"]] = max(static_smem.get(f["kernel"], 0), f["static_smem"])
+    launches, made = main_path_launches(engine, data, q64[:64], cfg, k)
+    mismatches = launch_mismatches(launches, made, usage)
+    for ln in launches:
+        total = static_smem.get(ln.kernel, 0) + ln.smem_bytes
+        if total > card["smem_optin_bytes"]:
+            breaches.append(f"{ln.kernel}: {total} B of shared memory > "
+                            f"{card['smem_optin_bytes']}")
+        if ln.threads > card["max_threads_per_block"]:
+            breaches.append(f"{ln.kernel}: {ln.threads} threads")
+    mirrors = smem_mirrors(cfg, cfg.sqrt_k ** 2)
+    merges = fused_merge_times(data, engine.index, q64, k)
+    ab = parent_vs_change()
+    smem_at = {}
+    for ln in launches:
+        smem_at[ln.kernel] = max(smem_at.get(ln.kernel, 0), ln.smem_bytes)
+    runs = ab.get("runs", [])
+    rec = dict(phase="static_gate", limits=table,
+               limits_equal=all(v["static"] == v["card"] for v in table.values()),
+               # [kernel, registers, static smem, stack, local (spill) bytes, threads]
+               res_usage={name: [[f["kernel"], f["registers"], f["static_smem"], f["stack"],
+                                  f["local"], f["threads"]] for f in fs]
+                          for name, fs in usage.items()},
+               main_path_dynamic_smem=smem_at, main_path_launches=len(launches),
+               launches_made=len(made), launch_mismatches=mismatches,
+               smem_mirrors=mirrors, breaches=breaches,
+               fused_merge_ms={m: {impl: r[impl]["median_ms"] for impl in ("sort", "counting")}
+                               for m, r in merges.items()},
+               parent_vs_change=dict(
+                   status=ab["status"],
+                   runs=[dict(label=r_["label"], build_seconds=r_["build_seconds"],
+                              median_ms={m: v["median_ms"] for m, v in r_["batches"].items()})
+                         for r_ in runs],
+                   same_answers=len({json.dumps(r_["fingerprint"]) for r_ in runs}) <= 1),
+               nvidia_smi=smi_line(), seconds=time.perf_counter() - t0)
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    (out / "static_gate.json").write_text(json.dumps(dict(
+        rec, res_usage_full=usage, main_path_launches=[ln._asdict() for ln in launches],
+        launches_made=made,
+        fused_merge=merges, parent_vs_change=ab), indent=1))
+    emit(rec)
+    if not rec["limits_equal"]:
+        raise AssertionError(f"static_device_limits('h100') differs from the card: {table}")
+    if breaches:
+        raise AssertionError(f"resource breaches: {breaches}")
+    if mirrors["disagree"]:
+        raise AssertionError(f"shared-memory copies disagree: {mirrors['disagree']}")
+    if mismatches or not made:
+        raise AssertionError(f"the plans part from the card's launches: "
+                             f"{mismatches or 'none made'}")
+    return rec
+
+
+# ---- dryrun_suco: rank 0's share of the 1B x 128 dry-run, for real ------------
+
+DRYRUN_KERNELS = ("kmeans_stats", "kmeans_pair_assign_hist", "sc_score_cells", "gather_rerank")
+DRYRUN_SHARE = ROOT / "build" / "dryrun" / "share.json"
+
+
+def dryrun_suco_phase(seed: int) -> tuple[dict, dict, dict]:
+    """Rank 0's share of the 1B x 128 dry-run cell at pod1, run for real: 62.5M
+    x 8 fp32 points (one subspace) seeded on the card, on a (1, 1) mesh at
+    world size 1 over NCCL, ``build_sharded`` (rows 3, 4), a warm-up batch of 8
+    and a batch of 256 at k = 50 (rows 7, 2).  Then rows 3, 4, 7 and 2 at the
+    phase's own shapes against their plain versions (:func:`sharded_kernel_checks`,
+    records ``<row> (dryrun)``).  Returns (the path's launches, the kernel
+    records, the run's figures for :func:`dryrun_prediction_phase`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.distributed import Mesh, ShardedSuCoEngine, build_sharded
+    from repro_torch.distributed.engine import resolved_query_block_n
+    from repro_torch.launch.dryrun_suco import SHARE_N, suco_config
+
+    dev = torch.device("cuda")
+    cfg = suco_config(n_subspaces=1)
+    d = 8
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", dev.index or 0))
+    try:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((SHARE_N, d), device=dev, generator=g)
+        q = torch.randn((256, d), device=dev, generator=g)
+        mesh = Mesh((1, 1), ("data", "model"))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        index = build_sharded(mesh, x, cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches_build = kernels.launch_counts()
+        eng = ShardedSuCoEngine(mesh, cfg, x, index, device=dev)
+        t0 = time.perf_counter()
+        eng.query(q[:8])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, dists = eng.query(q)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        ok_out = (tuple(ids.shape) == (256, cfg.k) and bool(torch.isfinite(dists).all())
+                  and int(ids.min()) >= 0 and int(ids.max()) < SHARE_N)
+        block_n = resolved_query_block_n(mesh, cfg, SHARE_N, d, device=dev)
+        del ids, dists
+        checks = sharded_kernel_checks(cfg, eng.index, x, q, eng.query, tag="dryrun",
+                                       lloyd_plain=None, fp64_sums=True)
+        for name in DRYRUN_KERNELS:
+            checks[f"{name} (dryrun)"]["detail"]["launches"] = launches[name]
+        del eng, index, x
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    run = dict(n=SHARE_N, d=d, n_subspaces=1, world_size=1, backend="nccl",
+               query_block_n=block_n, build_seconds=build_s, warmup_batch8_seconds=warm_s,
+               batch256_seconds=batch_s, max_memory_allocated=peak,
+               launches_build={name: launches_build[name] for name in DRYRUN_KERNELS},
+               launches={name: launches[name] for name in DRYRUN_KERNELS},
+               answers_ok=ok_out, nvidia_smi=smi_line())
+    emit(dict(phase="dryrun_suco", **run))
+    missing = [name for name in DRYRUN_KERNELS if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the dryrun_suco path: {missing}")
+    if not ok_out:
+        raise AssertionError("the share's batch of 256 gave malformed answers")
+    return launches, checks, run
+
+
+def dryrun_prediction_phase(run: dict) -> None:
+    """The fake run of ``dryrun_suco``'s program (``python -m
+    repro_torch.launch.dryrun_suco --share``, in a process of its own with no
+    card visible), after the last timed phase; the card's
+    ``max_memory_allocated`` over that program (``run``, from
+    :func:`dryrun_suco_phase`) must lie within 10% of its prediction."""
+    import os
+
+    DRYRUN_SHARE.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_SHARE.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_suco", "--share", "--output",
+         str(DRYRUN_SHARE)], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fake share run failed: {proc.stderr[-2000:]}")
+    pred = json.loads(DRYRUN_SHARE.read_text())
+    peak = run["max_memory_allocated"]
+    rel = abs(peak - pred["peak_bytes"]) / pred["peak_bytes"]
+    emit(dict(phase="dryrun_suco_prediction", max_memory_allocated=peak,
+              predicted_peak_bytes=pred["peak_bytes"],
+              predicted_build_peak_bytes=pred["build_peak_bytes"], relative_error=rel,
+              query_block_n=run["query_block_n"], fake_query_block_n=pred["query_block_n"],
+              fake_kernel_calls=pred["cost_analysis"]["kernel_calls"],
+              fake_run_seconds=pred["run_s"], seconds=time.perf_counter() - t0))
+    if rel > 0.10:
+        raise AssertionError(f"max_memory_allocated {peak} lies {rel:.1%} from the prediction "
+                             f"{pred['peak_bytes']}")
+    if pred["query_block_n"] != run["query_block_n"]:
+        raise AssertionError(f"query_block_n {run['query_block_n']} on the card, "
+                             f"{pred['query_block_n']} in the fake run")
 
 
 #: fig9_12's competitors at its own parameters (``benchmarks/fig9_12_competitors.py``):
@@ -3697,6 +4191,9 @@ def main() -> int:
     profiles = {m: profile_batch(lambda m=m: engine.query(q64[:m], k)) for m in (1, 64)}
     emit(dict(phase="profile", **{str(m): p_ for m, p_ in profiles.items()}))
 
+    # 3b. the static gate on the card: resource use, limits, the two merges
+    static_gate_phase(engine, data, q64, cfg, k)
+
     # 4. the dense and streaming query modes over the same index
     launches_by_path = dict(main_path=launches)
     launches_by_path["query_modes"] = query_modes_phase(data, engine.index, q64, answers, k)
@@ -3726,6 +4223,10 @@ def main() -> int:
         x_np, data, q64, gt, rec, args.seed)
     launches_by_path["baselines"] = baselines_phase(x_np, data, q64, gt, args.seed)
 
+    # 9c. rank 0's share of the 1B x 128 sharded dry-run, run for real (the
+    # fake run's prediction of its memory comes after the last timed phase)
+    launches_by_path["dryrun_suco"], dryrun_checks, dryrun_run = dryrun_suco_phase(args.seed)
+
     # 10. the LM stack: RWKV6-1.6B served at full width, then a 2-layer model of
     # the same width on the card and again on the CPU
     lm_cfg = get_config("rwkv6-1.6b")
@@ -3740,6 +4241,7 @@ def main() -> int:
                                       args.seed))
     checks.update(library_checks)
     checks.update(sharded_checks)
+    checks.update(dryrun_checks)
     checks["linear_attn"] = check_linear_attn(dev, args.seed)
     emit(dict(phase="kernel_checks", **{name: rec for name, rec in checks.items()}))
 
@@ -3829,6 +4331,10 @@ def main() -> int:
                          dataclasses.replace(dense_cfg, n_layers=2, local_window=32),
                          phase="lm_cpu_recheck_dense")
 
+    # 17. the dry-run's fake prediction of the dryrun_suco program's memory, on
+    # the host alone: no timed phase runs beside it
+    dryrun_prediction_phase(dryrun_run)
+
     rows = []
     for name, (src, replaces) in SOURCES.items():
         rec_ = checks[name]
@@ -3854,8 +4360,9 @@ def main() -> int:
             for m, p_ in profiles.items():
                 rows[-1]["in_path"][str(m)]["profile"] = compact_in_profile(p_)
         # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
-        # over all n columns ("dense"), row 11 at Zamba2's SSD shape ("ssd")
-        for variant in ("wide", "pq", "dense", "ssd", "sharded"):
+        # over all n columns ("dense"), row 11 at Zamba2's SSD shape ("ssd"),
+        # rows 2, 3, 4, 7 at the sharded path's and the dry-run share's shapes
+        for variant in ("wide", "pq", "dense", "ssd", "sharded", "dryrun"):
             other = checks.get(f"{name} ({variant})")
             if other is None:
                 continue

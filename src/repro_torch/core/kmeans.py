@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.distances import sqdist_rowwise
+from repro_torch.core.spans import loop_span
 from repro_torch.kernels.kmeans_assign.ops import (
     kmeans_assign,
     kmeans_assign_batched,
@@ -237,15 +238,16 @@ def _kmeans_core(
             raise ValueError(f"sample_idx must be {(iters, bn)}, got {tuple(sample_idx.shape)}")
         cnts = torch.zeros((b, k), dtype=torch.float32, device=xs.device)
         for t in range(iters):
-            idx = (sample_idx[t] if sample_idx is not None
-                   else torch.randint(0, n, (bn,), generator=generator))
-            xb = xs[:, idx.to(device=xs.device, dtype=torch.long)].contiguous()  # shared sample
-            _, sums, counts, _ = kmeans_stats(xb, c, block_n=bn)
-            cnts = cnts + counts
-            # Sculley's update aggregated over the sample: per-centroid rate
-            # counts / cnts, c <- c + (sums - counts * c) / cnts
-            c = (c + (sums - counts[..., None] * c) / torch.clamp(cnts, min=1.0)[..., None])
-            c = c.contiguous()
+            with loop_span("kmeans.minibatch_step"):
+                idx = (sample_idx[t] if sample_idx is not None
+                       else torch.randint(0, n, (bn,), generator=generator))
+                xb = xs[:, idx.to(device=xs.device, dtype=torch.long)].contiguous()  # shared sample
+                _, sums, counts, _ = kmeans_stats(xb, c, block_n=bn)
+                cnts = cnts + counts
+                # Sculley's update aggregated over the sample: per-centroid rate
+                # counts / cnts, c <- c + (sums - counts * c) / cnts
+                c = (c + (sums - counts[..., None] * c) / torch.clamp(cnts, min=1.0)[..., None])
+                c = c.contiguous()
         a, inertia, cell_counts = _final_assign(
             xs, c, block_n=bn, need_inertia=True, pair_sqrt_k=pair_sqrt_k
         )
@@ -257,11 +259,12 @@ def _kmeans_core(
     chunk = block_n or (n if cpu else CARD_BLOCK_N)
     inertia = torch.zeros(b, dtype=torch.float32, device=xs.device)
     for _ in range(iters):
-        if block_n == 0 and cpu:
-            c, inertia = _lloyd_step(xs, c)
-        else:
-            _, sums, counts, inertia = kmeans_stats(xs, c, block_n=chunk)
-            c = _update(c, sums, counts)
+        with loop_span("kmeans.lloyd_step"):
+            if block_n == 0 and cpu:
+                c, inertia = _lloyd_step(xs, c)
+            else:
+                _, sums, counts, inertia = kmeans_stats(xs, c, block_n=chunk)
+                c = _update(c, sums, counts)
     a, _, cell_counts = _final_assign(
         xs, c, block_n=chunk, need_inertia=False, pair_sqrt_k=pair_sqrt_k
     )

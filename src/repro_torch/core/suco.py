@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 import tempfile
 import zipfile
@@ -68,6 +69,7 @@ from repro_torch.core.kmeans import kmeans_batched, pair_cell_counts
 from repro_torch.kernels.kmeans_assign.ops import kmeans_stats
 from repro_torch.core.sc_linear import (
     INT32_MAX,
+    _resolve_merge_impl,
     QueryResult,
     candidate_dists,
     candidate_pool_size,
@@ -75,8 +77,9 @@ from repro_torch.core.sc_linear import (
     merge_topk_pool_with_dists,
     rerank,
     rerank_candidates,
-    score_id_key,
+    top_block_positions,
 )
+from repro_torch.core.spans import loop_span
 from repro_torch.core.tuning import (
     TileConfig,
     autotune_build_block_n,
@@ -109,7 +112,18 @@ __all__ = [
     "EnginePolicy",
     "EngineStats",
     "SuCoEngine",
+    "DEFAULT_MERGE_IMPL",
 ]
+
+#: The pool merge of the streaming and fused chunk loops
+#: (``sc_linear.merge_topk_pool``'s ``impl``): the stable sort of the
+#: (score desc, id asc) key.  ``"counting"`` / ``"auto"`` is the reference's
+#: sort-free merge, with equal bits, but ~5 (Ns + 2) more launches a chunk
+#: on a host-bound path: the main path's fused batches of 1 / 8 / 64 took
+#: 12.0 / 19.3 / 31.5 ms under the sort and 38.2 / 54.2 / 98.3 ms under the
+#: counting merge (H100 80GB HBM3, 700 W; ``chip_smoke.py``'s
+#: ``static_gate``, ``PERF.md`` §6).
+DEFAULT_MERGE_IMPL = "sort"
 
 # mode="auto" answers from the dense (m, n) score matrix below this many
 # points and with the single-pass fused query from it on (the JAX package's
@@ -744,6 +758,7 @@ def suco_query_streaming(
     beta: float,
     metric: Metric = "l2",
     block_n: int = 4096,
+    merge_impl: str = DEFAULT_MERGE_IMPL,
 ) -> QueryResult:
     """Algorithm 4 as a streaming query over ``block_n``-point chunks, with
     the same answers as the dense mode and peak memory
@@ -753,9 +768,10 @@ def suco_query_streaming(
     the ``(m, bc)`` scores (the last chunk is a shorter column slice of the
     cell ids, so nothing is padded), deleted points drop to the sentinel
     ``(-1, INT32_MAX)``, and the chunk merges into a carried top pool in
-    (score desc, id asc) order.  After the loop the pool equals the dense
-    top pool exactly, and the exact re-rank returns the dense answers.
-    Nothing is read back to the host.
+    (score desc, id asc) order (``merge_impl``, any of
+    ``sc_linear.MERGE_IMPLS``: the same bits).  After the loop the pool
+    equals the dense top pool exactly, and the exact re-rank returns the
+    dense answers.  Nothing is read back to the host.
     """
     if block_n < 1:
         raise ValueError(f"block_n must be >= 1, got {block_n}")
@@ -769,16 +785,17 @@ def suco_query_streaming(
     pool_s = torch.full((m, pool), -1, dtype=torch.int32, device=dev)
     pool_i = torch.full((m, pool), INT32_MAX, dtype=torch.int32, device=dev)
     for lo in range(0, n, block_n):
-        hi = min(lo + block_n, n)
-        s = sc_scores_cells(ranks, cuts, index.cell_ids[:, lo:hi])
-        ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        if index.tombstone is not None:
-            live = ~index.tombstone[lo:hi]
-            s = torch.where(live[None, :], s, -1)
-            ids = torch.where(live, ids, INT32_MAX)
-        pool_s, pool_i = merge_topk_pool(
-            pool_s, pool_i, s, ids.expand(m, hi - lo), smax=ns
-        )
+        with loop_span("suco.streaming_chunk"):
+            hi = min(lo + block_n, n)
+            s = sc_scores_cells(ranks, cuts, index.cell_ids[:, lo:hi])
+            ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            if index.tombstone is not None:
+                live = ~index.tombstone[lo:hi]
+                s = torch.where(live[None, :], s, -1)
+                ids = torch.where(live, ids, INT32_MAX)
+            pool_s, pool_i = merge_topk_pool(
+                pool_s, pool_i, s, ids.expand(m, hi - lo), impl=merge_impl, smax=ns
+            )
     return rerank_candidates(x, q, pool_i, pool_s, k, metric)
 
 
@@ -792,6 +809,7 @@ def _fused_query(
     beta: float,
     metric: Metric,
     tiles: TileConfig | None,
+    merge_impl: str = DEFAULT_MERGE_IMPL,
 ) -> tuple[QueryResult, int]:
     """:func:`suco_query_fused` plus the number of host synchronisations it
     made (one per chunk: the overflow decision)."""
@@ -817,31 +835,33 @@ def _fused_query(
     slot = torch.arange(cap, dtype=torch.int32, device=dev)
     syncs = 0
     for lo in range(0, n, bn):
-        bc = min(bn, n - lo)
-        keep_b = None if keep is None else keep[lo : lo + bc]
-        thr = pool_s[:, -1].contiguous()  # pool sorted desc: its minimum
-        s, surv_c, surv_s, total = sc_scores_cells_prefilter_compact(
-            ranks, cuts, index.cell_ids[:, lo : lo + bc], thr, bc, keep_b, cap=cap
-        )
-        syncs += 1
-        if bool((total > cap).any()):
-            # Exact overflow fallback: the merged pool can absorb at most
-            # `pool` rows of this chunk, so its own top min(pool, bc) rows
-            # by (score desc, id asc) merge to the same pool as all of it.
-            cols = torch.arange(bc, dtype=torch.int32, device=dev)
-            top = torch.sort(score_id_key(s, cols, ns), dim=1).indices[:, : min(pool, bc)]
-            blk_s = s.gather(1, top)
-            ids_b = cols + lo if keep_b is None else torch.where(keep_b, cols + lo, INT32_MAX)
-            blk_i = ids_b[top]
-            blk_d = torch.where(blk_i == INT32_MAX, float("inf"), candidate_dists(x, q, blk_i, metric))
-        else:
-            live = slot[None, :] < total[:, None]  # survivors score > thr >= -1
-            blk_i = torch.where(live, surv_c + lo, INT32_MAX)
-            blk_s = torch.where(live, surv_s, -1)
-            blk_d = torch.where(live, candidate_dists(x, q, blk_i, metric), float("inf"))
-        pool_s, pool_d, pool_i = merge_topk_pool_with_dists(
-            pool_s, pool_d, pool_i, blk_s, blk_d, blk_i, smax=ns
-        )
+        with loop_span("suco.fused_chunk"):
+            bc = min(bn, n - lo)
+            keep_b = None if keep is None else keep[lo : lo + bc]
+            thr = pool_s[:, -1].contiguous()  # pool sorted desc: its minimum
+            s, surv_c, surv_s, total = sc_scores_cells_prefilter_compact(
+                ranks, cuts, index.cell_ids[:, lo : lo + bc], thr, bc, keep_b, cap=cap
+            )
+            syncs += 1
+            if bool((total > cap).any()):
+                # Exact overflow fallback: the merged pool can absorb at most
+                # `pool` rows of this chunk, so its own top min(pool, bc) rows
+                # by (score desc, id asc) merge to the same pool as all of it.
+                cols = torch.arange(bc, dtype=torch.int32, device=dev)
+                top = top_block_positions(s, cols, min(pool, bc), ns, merge_impl)
+                blk_s = s.gather(1, top)
+                ids_b = cols + lo if keep_b is None else torch.where(keep_b, cols + lo, INT32_MAX)
+                blk_i = ids_b[top]
+                blk_d = torch.where(blk_i == INT32_MAX, float("inf"),
+                                    candidate_dists(x, q, blk_i, metric))
+            else:
+                live = slot[None, :] < total[:, None]  # survivors score > thr >= -1
+                blk_i = torch.where(live, surv_c + lo, INT32_MAX)
+                blk_s = torch.where(live, surv_s, -1)
+                blk_d = torch.where(live, candidate_dists(x, q, blk_i, metric), float("inf"))
+            pool_s, pool_d, pool_i = merge_topk_pool_with_dists(
+                pool_s, pool_d, pool_i, blk_s, blk_d, blk_i, impl=merge_impl, smax=ns
+            )
     # ascending distance, ties to the earlier (score desc, id asc) slot
     pos = torch.sort(pool_d, dim=1, stable=True).indices[:, :k]
     res = QueryResult(pool_i.gather(1, pos), pool_d.gather(1, pos), pool_s.gather(1, pos))
@@ -859,6 +879,7 @@ def suco_query_fused(
     beta: float,
     metric: Metric = "l2",
     tiles: TileConfig | None = None,
+    merge_impl: str = DEFAULT_MERGE_IMPL,
 ) -> QueryResult:
     """Algorithm 4 as the single-pass fused query: score -> prune -> rerank
     -> merge per chunk, on the device ``x`` lies on.
@@ -866,10 +887,13 @@ def suco_query_fused(
     ``x: (n, d)`` float32, ``q: (m, d)``; returns ``QueryResult`` of
     ``(m, k)`` ids (int32), distances and SC-scores (int32).  ``tiles=None``
     autotunes ``(block_n, survivor_cap)`` from the device's memory limits
-    (:func:`repro_torch.core.tuning.autotune_tiles`).
+    (:func:`repro_torch.core.tuning.autotune_tiles`).  ``merge_impl`` picks
+    the pool merge and the overflow fallback's selection
+    (``sc_linear.MERGE_IMPLS``; every one gives the same bits).
     """
     return _fused_query(
-        x, index, q, k=k, alpha=alpha, beta=beta, metric=metric, tiles=tiles
+        x, index, q, k=k, alpha=alpha, beta=beta, metric=metric, tiles=tiles,
+        merge_impl=merge_impl,
     )[0]
 
 
@@ -896,15 +920,16 @@ def _query(
     mode: str,
     block_n: int,
     tiles: TileConfig | None,
+    merge_impl: str = DEFAULT_MERGE_IMPL,
 ) -> tuple[QueryResult, int]:
     """:func:`suco_query` plus the number of host synchronisations it made
     (the fused mode's, one per chunk; the other modes make none)."""
     mode = _resolve_mode(mode, x.shape[0])
     kw = dict(k=k, alpha=alpha, beta=beta, metric=metric)
     if mode == "fused":
-        return _fused_query(x, index, q, tiles=tiles, **kw)
+        return _fused_query(x, index, q, tiles=tiles, merge_impl=merge_impl, **kw)
     if mode == "streaming":
-        return suco_query_streaming(x, index, q, block_n=block_n, **kw), 0
+        return suco_query_streaming(x, index, q, block_n=block_n, merge_impl=merge_impl, **kw), 0
     return _dense_query(x, index, q, **kw), 0
 
 
@@ -921,6 +946,7 @@ def suco_query(
     mode: str = "auto",
     block_n: int = 4096,
     tiles: TileConfig | None = None,
+    merge_impl: str = DEFAULT_MERGE_IMPL,
 ) -> QueryResult:
     """Algorithm 4: k-ANN for a batch ``q: (m, d)`` with the SuCo index, on
     the device ``x`` lies on.
@@ -929,10 +955,12 @@ def suco_query(
     (fused iff ``n >= STREAMING_MIN_N``, else dense).  Every mode returns
     the same answers.  ``block_n`` sizes the streaming mode's chunks; the
     fused mode tiles itself from ``tiles`` (``None`` autotunes).
+    ``merge_impl`` (``"topk"`` | ``"sort"`` | ``"counting"`` | ``"auto"``)
+    picks the chunk loops' pool merge; every one gives the same answers.
     """
     return _query(
         x, index, q, k=k, alpha=alpha, beta=beta, metric=metric, mode=mode,
-        block_n=block_n, tiles=tiles,
+        block_n=block_n, tiles=tiles, merge_impl=merge_impl,
     )[0]
 
 
@@ -1039,7 +1067,8 @@ class EnginePolicy:
     ``"auto"`` resolves once, at engine construction: fused iff the data
     has at least :data:`STREAMING_MIN_N` points, else dense), the streaming
     mode's chunk ``block_n``, the fused query's tiling (``None`` autotunes
-    per padded bucket and ``k``) and the batch buckets.
+    per padded bucket and ``k``), the batch buckets and the chunk loops'
+    pool merge ``merge_impl`` (``sc_linear.MERGE_IMPLS``).
 
     ``traffic`` is a histogram of served batch sizes (:meth:`observe`, fed
     by every engine query) from which :meth:`autoscale_buckets` proposes a
@@ -1058,6 +1087,7 @@ class EnginePolicy:
     block_n: int = 4096
     tiles: TileConfig | None = None
     batch_buckets: tuple[int, ...] = DEFAULT_BATCH_BUCKETS
+    merge_impl: str = DEFAULT_MERGE_IMPL  # the chunk loops' pool merge
     traffic: collections.Counter = dataclasses.field(
         default_factory=collections.Counter, init=False, repr=False, compare=False
     )
@@ -1391,6 +1421,7 @@ class SuCoEngine:
             self.x, self.index, q.contiguous(), k=k, alpha=p.alpha, beta=p.beta,
             metric=p.metric, mode=self._mode, block_n=p.block_n,
             tiles=self.tiles_for(m, k) if self._mode == "fused" else None,
+            merge_impl=p.merge_impl,
         )
         if b != m:
             res = QueryResult(res.ids[:m], res.dists[:m], res.scores[:m])
@@ -1476,3 +1507,202 @@ class SuCoEngine:
             buckets=tuple(sorted(self._buckets_seen)),
             host_syncs=self._syncs,
         )
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+#: Shapes of the gate's traces, the JAX package's (``LINT_QUERY_SHAPES``):
+#: ``n`` well above ``n_subspaces * block_n``, so the streamed peaks (constant
+#: in n) stand clear of the dense (m, n) line.
+LINT_QUERY_SHAPES: Mapping[str, int | float] = {
+    "n": 60_000,
+    "d": 32,
+    "m": 32,
+    "k": 10,
+    "block_n": 2_048,
+    "alpha": 0.05,
+    "beta": 0.02,
+    "n_subspaces": 8,
+    "sqrt_k": 16,
+}
+LINT_BUILD_SHAPES: Mapping[str, int] = {
+    "n": 20_000,
+    "d": 16,
+    "n_subspaces": 4,
+    "sqrt_k": 32,
+    "block_n": 512,
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _lint_problem():
+    s = LINT_QUERY_SHAPES
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((s["n"], s["d"])).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((s["m"], s["d"])).astype(np.float32))
+    cfg = SuCoConfig(n_subspaces=s["n_subspaces"], sqrt_k=s["sqrt_k"], kmeans_iters=2, seed=0)
+    return x, q, build_index(x, cfg)
+
+
+def lint_query_budget_bytes(block_n: int, m: int | None = None) -> int:
+    """``bounded-intermediate`` budget of a streamed query at the gate's
+    shapes, the JAX package's formula: the streaming claim O(m (block_n +
+    pool)) and the index-scale terms every path carries."""
+    s = LINT_QUERY_SHAPES
+    n, d, k = s["n"], s["d"], s["k"]
+    m = s["m"] if m is None else m
+    ns = s["n_subspaces"]
+    cells = s["sqrt_k"] ** 2
+    pool = max(k, int(s["beta"] * n))
+    n_pad = -(-n // block_n) * block_n
+    elems = max(
+        2 * m * (block_n + pool),  # score block + carried pool (the merge's concat)
+        ns * m * block_n,  # a chunk's per-subspace collision gather
+        m * pool * d,  # the rerank's candidate gather
+        ns * n_pad,  # the index's cell ids
+        ns * m * cells,  # the Dynamic-Activation ranks
+    )
+    return 4 * elems
+
+
+def lint_dense_peak_bytes() -> int:
+    """The dense mode's (m, n) score array, the line the streamed peaks stay
+    under."""
+    return 4 * LINT_QUERY_SHAPES["m"] * LINT_QUERY_SHAPES["n"]
+
+
+def _lint_build_budget_bytes() -> int:
+    s = LINT_BUILD_SHAPES
+    n, d, ns, sqrt_k, bn = s["n"], s["d"], s["n_subspaces"], s["sqrt_k"], s["block_n"]
+    h_max = (d // ns + 1) // 2
+    n_pad = -(-n // bn) * bn
+    codebooks = 2 * ns
+    elems = max(
+        codebooks * n_pad * h_max,  # the half-subspace views (O(n d))
+        n * d,  # the permuted input
+        2 * codebooks * bn * max(sqrt_k, h_max),  # a chunk's distances
+        ns * sqrt_k * sqrt_k,  # cell_counts
+    )
+    return 4 * elems
+
+
+def lint_entries(merge_impl: str = DEFAULT_MERGE_IMPL):
+    """Registry hook: the query paths, the engine's per-bucket query and the
+    chunked build, with their invariants.  ``merge_impl`` is the chunk
+    loops' merge the query entries run (the default's entries; the gate
+    also declares ``suco.query_fused_counting``)."""
+    from repro_torch.analysis.registry import TraceEntry
+    from repro_torch.analysis.trace_rules import trace
+    from repro_torch.core.tuning import static_device_limits
+
+    s = LINT_QUERY_SHAPES
+    k, alpha, beta = s["k"], s["alpha"], s["beta"]
+    scan_rules = ("no-scatter-in-scan", "bounded-intermediate", "pinned-accumulator")
+    # tiles pinned to the card's static limits: the gate proves the card's
+    # tiling, and the same budgets, on any host
+    limits = static_device_limits("h100")
+
+    def _tiles(m: int, beta_: float = beta) -> TileConfig:
+        return autotune_tiles(s["n"], s["d"], m, max(k, int(beta_ * s["n"])), limits=limits,
+                              n_subspaces=s["n_subspaces"])
+
+    def _degraded_tiles(m: int) -> TileConfig:
+        return _tiles(m, EnginePolicy(mode="fused").degraded(1).beta)
+
+    def query(impl: str, **kw):
+        def make():
+            x, q, index = _lint_problem()
+            if kw.get("tombstone"):
+                rng = np.random.default_rng(7)
+                index = dataclasses.replace(
+                    index, tombstone=torch.from_numpy(rng.random(s["n"]) < 0.1))
+            mode = kw.get("mode", "fused")
+            return trace(suco_query, x, index, q, k=k, alpha=alpha, beta=beta, mode=mode,
+                         block_n=s["block_n"], tiles=_tiles(s["m"]) if mode == "fused" else None,
+                         merge_impl=impl)
+        return make
+
+    def engine(policy_of):
+        def make():
+            x, q, index = _lint_problem()
+            eng = SuCoEngine(x, index, policy_of(), device="cpu")
+            # one (bucket 8, k) query: 5 queries padded to their bucket
+            return trace(eng._padded_query, q[:batch_bucket(5)], k)
+        return make
+
+    def build_chunked():
+        b = LINT_BUILD_SHAPES
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.standard_normal((b["n"], b["d"])).astype(np.float32))
+        cfg = SuCoConfig(n_subspaces=b["n_subspaces"], sqrt_k=b["sqrt_k"], kmeans_iters=2, seed=0,
+                         build_mode="chunked", block_n=b["block_n"])
+        return trace(build_index, x, cfg)
+
+    sorted_merge = _resolve_merge_impl(merge_impl, torch.int32, 0) != "counting"
+    suppress = ({"no-scatter-in-scan": (
+        f"merge_impl={merge_impl!r}: the chunk loops merge by a stable sort, as fast "
+        "batches need on the card: fused batches of 1 / 8 / 64 took 12.0 / 19.3 / 31.5 ms "
+        "under it and 38.2 / 54.2 / 98.3 ms under the counting merge (H100 80GB HBM3, "
+        "700 W; PERF.md section 6); suco.query_fused_counting proves the sort-free route"
+    )} if sorted_merge else {})
+    b = LINT_BUILD_SHAPES
+    fused_budget = lint_query_budget_bytes(_tiles(s["m"]).block_n)
+    bucket_budget = lint_query_budget_bytes(_tiles(batch_bucket(5)).block_n)
+    entries = [
+        TraceEntry(
+            name="suco.query_streaming", make=query(merge_impl, mode="streaming"),
+            rules=scan_rules, budget_bytes=lint_query_budget_bytes(s["block_n"]),
+            suppress=suppress, note="streaming query: a loop over block_n-point chunks",
+        ),
+        TraceEntry(
+            name="suco.query_fused", make=query(merge_impl), rules=scan_rules,
+            budget_bytes=fused_budget, suppress=suppress,
+            note="single-pass fused query: score / prune / rerank / merge per chunk",
+        ),
+        TraceEntry(
+            name="suco.query_fused_tombstoned", make=query(merge_impl, tombstone=True),
+            rules=scan_rules, budget_bytes=fused_budget, suppress=suppress,
+            note="fused query over a tombstoned index: the mask folds into the compaction",
+        ),
+        TraceEntry(
+            name="suco.query_dense", make=query(merge_impl, mode="dense"),
+            rules=("bounded-intermediate", "pinned-accumulator"),
+            budget_bytes=4 * 2 * s["m"] * s["n"] * s["n_subspaces"],
+            note=("dense mode: materialises (m, n) and sorts it by design, so "
+                  "no-scatter-in-scan is not declared"),
+        ),
+        TraceEntry(
+            name="suco.engine_fused_bucket",
+            make=engine(lambda: EnginePolicy(mode="fused", tiles=_tiles(batch_bucket(5)),
+                                             merge_impl=merge_impl)),
+            rules=scan_rules, budget_bytes=bucket_budget, suppress=suppress,
+            note="one SuCoEngine (bucket, k) query, fused mode",
+        ),
+        TraceEntry(
+            name="suco.engine_degraded_bucket",
+            make=engine(lambda: dataclasses.replace(
+                EnginePolicy(mode="fused", merge_impl=merge_impl).degraded(1),
+                tiles=_degraded_tiles(batch_bucket(5)))),
+            rules=scan_rules,
+            # the full budget bounds the reduced pool too
+            budget_bytes=lint_query_budget_bytes(_degraded_tiles(batch_bucket(5)).block_n),
+            suppress=suppress,
+            note="degradation-ladder level 1: reduced (alpha, beta), the same fused path",
+        ),
+        TraceEntry(
+            name="suco.build_chunked", make=build_chunked, rules=scan_rules,
+            budget_bytes=_lint_build_budget_bytes(),
+            # small codebook-sized scatters are declared; data-sized ones are not
+            scatter_budget_elems=2 * b["n_subspaces"] * b["sqrt_k"] ** 2,
+            note="chunked build: each Lloyd step one statistics pass over the data",
+        ),
+    ]
+    if merge_impl == DEFAULT_MERGE_IMPL and sorted_merge:
+        entries.append(TraceEntry(
+            name="suco.query_fused_counting", make=query("counting"), rules=scan_rules,
+            budget_bytes=fused_budget,
+            note="the fused query with the counting merge: sort- and scatter-free chunks",
+        ))
+    return entries

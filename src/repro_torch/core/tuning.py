@@ -7,6 +7,8 @@ limits come from the device a tensor lives on: on the card,
 budget of one streamed chunk) and the total memory; on the CPU a fixed
 prior stands in.  Nothing is probed or cached on disk, so a result depends
 on the device model and the shape only, and is the same from run to run.
+:func:`static_device_limits` gives a card's limits as constants, with no
+card: the static gate and the dry-run plan against them on any host.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import torch
 
 __all__ = [
     "MemoryLimits",
+    "DeviceLimits",
     "TileConfig",
     "CPU_LIMITS",
+    "H100_LIMITS",
     "device_limits",
+    "static_device_limits",
     "autotune_tiles",
     "autotune_build_block_n",
 ]
@@ -39,9 +44,48 @@ class MemoryLimits:
 CPU_LIMITS = MemoryLimits(fast_bytes=2 * 2**20, hbm_bytes=32 * 2**30)
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceLimits(MemoryLimits):
+    """A card's limits as constants: its memory budget (L2 as ``fast_bytes``,
+    device memory as ``hbm_bytes``) and what a launch may take."""
+
+    smem_optin_bytes: int = 0  # dynamic + static shared memory a block may opt in to
+    n_sm: int = 0
+    regs_per_sm: int = 0
+    max_threads_per_block: int = 0
+    smem_per_sm_bytes: int = 0  # shared memory an SM holds, the blocks' reserve included
+    max_threads_per_sm: int = 0
+
+
+#: NVIDIA H100 80GB HBM3 (SXM), as ``torch.cuda.get_device_properties``
+#: reports it: ``L2_cache_size``, ``total_memory``,
+#: ``shared_memory_per_block_optin``, ``multi_processor_count``,
+#: ``regs_per_multiprocessor``, ``max_threads_per_block``,
+#: ``shared_memory_per_multiprocessor``, ``max_threads_per_multi_processor``.
+H100_LIMITS = DeviceLimits(
+    fast_bytes=52_428_800, hbm_bytes=85_017_493_504, smem_optin_bytes=232_448, n_sm=132,
+    regs_per_sm=65_536, max_threads_per_block=1_024, smem_per_sm_bytes=233_472,
+    max_threads_per_sm=2_048,
+)
+_STATIC = {"h100": H100_LIMITS, "cpu": CPU_LIMITS}
+
+
+def static_device_limits(name: str = "h100") -> MemoryLimits:
+    """The limits of a device model by name (``"h100"``, ``"cpu"``), never
+    read from a device: the counterpart of the JAX package's
+    ``static_backend_limits``.  Lint entries and the dry-run pin their tiles
+    to it, so they prove the card's tiling on any host."""
+    if name not in _STATIC:
+        raise ValueError(f"static_device_limits: unknown device {name!r} (known: {sorted(_STATIC)})")
+    return _STATIC[name]
+
+
 def device_limits(device: torch.device | str) -> MemoryLimits:
     """Memory limits of ``device``: the card's own L2 size and total memory,
-    or :data:`CPU_LIMITS` for the CPU."""
+    :data:`CPU_LIMITS` for the CPU, or a static model by name
+    (:func:`static_device_limits`, e.g. ``"h100"``)."""
+    if isinstance(device, str) and device in _STATIC and device != "cpu":
+        return _STATIC[device]
     device = torch.device(device)
     if device.type == "cpu":
         return CPU_LIMITS
@@ -153,3 +197,36 @@ def autotune_build_block_n(
         _BLOCK_MAX,
     )
     return min(block_n, max(_round_up(n, _BLOCK_QUANTUM), _BLOCK_QUANTUM))
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+
+def lint_entries():
+    """Registry hook: the autotuner's tiles keep their quanta (a 512-multiple
+    ``block_n``, a 64-multiple ``survivor_cap`` no wider than it) under the
+    CPU prior and the H100's limits, at serving-scale, huge-pool and
+    minimum shapes."""
+    from repro_torch.analysis.registry import TileEntry
+
+    sweep = (
+        # (n, d, m, pool, n_subspaces): the JAX package's sweep
+        (50_000, 128, 8, 1_000, 8),
+        (1_000_000, 96, 64, 20_000, 8),
+        (32_768, 16, 1, 33, 4),
+    )
+    configs = tuple(
+        autotune_tiles(n, d, m, pool, n_subspaces=ns, limits=static_device_limits(name))
+        for name in ("cpu", "h100")
+        for (n, d, m, pool, ns) in sweep
+    )
+    return [
+        TileEntry(
+            name="tuning.autotune_tiles",
+            contract={"block_quantum": _BLOCK_QUANTUM, "cap_quantum": _CAP_QUANTUM},
+            tile_configs=configs,
+            note="TileConfig quantisation contract under the CPU and H100 limits",
+        )
+    ]

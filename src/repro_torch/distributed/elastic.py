@@ -34,7 +34,7 @@ def reshard_index(new_mesh, cfg: DistSuCoConfig, index: SuCoIndex | ShardedIndex
 def index_to_host(index: SuCoIndex | ShardedIndex) -> dict:
     """The logical index as host arrays (a checkpoint's payload)."""
     logical = _logical(index)
-    return {name: getattr(logical, name).cpu().numpy()
+    return {name: getattr(logical, name).cpu().numpy()  # host-sync: ok — a checkpoint's copy
             for name in ("centroids1", "centroids2", "cell_ids", "cell_counts")}
 
 

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.core import subspace as sub
 from repro_torch.core.distances import sqdist_rowwise
 from repro_torch.core.sc_linear import INT32_MAX, candidate_pool_size, merge_topk_pool
+from repro_torch.core.spans import loop_span
 from repro_torch.core.suco import (
     DEFAULT_BATCH_BUCKETS,
     SuCoIndex,
@@ -91,7 +92,8 @@ class DistSuCoConfig:
     model_axis: str = "model"
     seed: int = 0
     tuning_backend: str | None = None  # device whose memory limits the block
-    # autotuners plan against ("cuda", "cpu"); None = the data's device.
+    # autotuners plan against ("cuda", "cpu", or a static model such as "h100":
+    # core.tuning.static_device_limits); None = the data's device.
     # Pin it when planning on another device than the one that serves.
 
     @property
@@ -299,11 +301,12 @@ def build_sharded(mesh: Mesh, x, cfg: DistSuCoConfig, *, device=None) -> Sharded
     first = 1.0 if mesh.axis_index(pa) == 0 else 0.0
     c = mesh.psum(cb[:, :sqrt_k, :] * first, pa).contiguous()
     for _ in range(cfg.kmeans_iters):
-        _, sums, cnts, _ = kmeans_stats(cb, c, block_n=chunk)
-        sums = mesh.psum(sums, pa)
-        cnts = mesh.psum(cnts, pa)
-        new = sums / torch.clamp(cnts, min=1.0)[..., None]
-        c = torch.where(cnts[..., None] > 0, new, c).contiguous()
+        with loop_span("sharded.lloyd_step"):
+            _, sums, cnts, _ = kmeans_stats(cb, c, block_n=chunk)
+            sums = mesh.psum(sums, pa)
+            cnts = mesh.psum(cnts, pa)
+            new = sums / torch.clamp(cnts, min=1.0)[..., None]
+            c = torch.where(cnts[..., None] > 0, new, c).contiguous()
     assign, counts = kmeans_pair_assign_hist(cb, c, block_n=chunk)
     cell_ids = (assign[:ns_loc] * sqrt_k + assign[ns_loc:]).contiguous()
     return ShardedIndex(
@@ -367,10 +370,11 @@ def make_query_fn(mesh: Mesh, cfg: DistSuCoConfig, n: int, d: int, mq: int, *, d
         pool_s = torch.full((qc, m_cand), -1, dtype=torch.int32, device=dev)
         pool_i = torch.full((qc, m_cand), INT32_MAX, dtype=torch.int32, device=dev)
         for lo in range(0, n_loc, bn):
-            hi = min(lo + bn, n_loc)
-            scores = summed_scores(ranks, cuts, cell_ids[:, lo:hi])
-            ids = torch.arange(lo, hi, dtype=torch.int32, device=dev).expand(qc, hi - lo)
-            pool_s, pool_i = merge_topk_pool(pool_s, pool_i, scores, ids, smax=smax)
+            with loop_span("sharded.query_block"):
+                hi = min(lo + bn, n_loc)
+                scores = summed_scores(ranks, cuts, cell_ids[:, lo:hi])
+                ids = torch.arange(lo, hi, dtype=torch.int32, device=dev).expand(qc, hi - lo)
+                pool_s, pool_i = merge_topk_pool(pool_s, pool_i, scores, ids, smax=smax)
         return pool_i
 
     def fn(x_loc, c1, c2, cell_ids, counts, q_loc):
@@ -591,7 +595,7 @@ class ShardedSuCoEngine:
         for b in sorted({self.bucket_mq(m) for m in batch_sizes}):
             self._invoke(b, torch.zeros((b, self.d), device=self.device))
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            torch.cuda.current_stream(self.device).synchronize()  # host-sync: ok — warm-up only
         return self.compile_count - before
 
     @property

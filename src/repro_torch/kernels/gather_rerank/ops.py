@@ -14,11 +14,30 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _library
 from repro_torch.kernels._checks import check_tensor, same_device
 from repro_torch.kernels.gather_rerank import kernel
 from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
 
 __all__ = ["gather_rerank_block"]
+
+
+def _cpu(ids, x, q):
+    return gather_rerank_block_ref(ids, x, q)
+
+
+def _cuda(ids, x, q):
+    return kernel.gather_rerank_l2(ids, x, q)
+
+
+def _meta(ids, x, q):
+    return ids.new_empty(ids.shape, dtype=torch.float32)
+
+
+_OP = _library.define(
+    "gather_rerank_block(Tensor ids, Tensor x, Tensor q) -> Tensor", cpu=_cpu, cuda=_cuda,
+    meta=_meta,
+)
 
 
 def gather_rerank_block(
@@ -36,9 +55,35 @@ def gather_rerank_block(
     same_device(cols, x, q)
     if min(n, *cols.shape) < 1:
         raise ValueError(f"need n, m and c >= 1, got {n}/{tuple(cols.shape)}")
-    ids = cols.clamp(0, n - 1).to(torch.int32).contiguous()
-    if x.device.type == "cpu":
-        return gather_rerank_block_ref(ids, x, q)
-    if x.device.type == "cuda":
-        return kernel.gather_rerank_l2(ids, x, q)
-    raise ValueError(f"no gather_rerank route for device {x.device}")
+    _library.route(x.device, "gather_rerank")
+    return _OP(cols.clamp(0, n - 1).to(torch.int32).contiguous(), x, q)
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+
+def lint_entries():
+    from repro_torch.analysis.registry import TileEntry, TraceEntry
+    from repro_torch.analysis.trace_rules import trace
+
+    n, d, mq, mc = 4_096, 128, 8, 64
+
+    def inputs():
+        g = torch.Generator().manual_seed(0)
+        cols = torch.randint(0, n, (mq, mc), generator=g, dtype=torch.int32)
+        return cols, torch.randn((n, d), generator=g), torch.randn((mq, d), generator=g)
+
+    return [
+        TileEntry(name="kernels.gather_rerank.kernel", contract={},
+                  make=lambda: trace(gather_rerank_block, *inputs()),
+                  note="candidate gather + exact squared L2, a warp a candidate"),
+        TraceEntry(
+            name="kernels.gather_rerank.oracle",
+            make=lambda: trace(gather_rerank_block_ref, *inputs()),
+            rules=("bounded-intermediate", "pinned-accumulator"),
+            budget_bytes=4 * 2 * mq * mc * d,
+            note="the plain version of the candidate rerank (the CPU path)",
+        ),
+    ]

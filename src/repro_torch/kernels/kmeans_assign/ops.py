@@ -4,7 +4,10 @@ problem of any width).  Each checks its arguments, then dispatches on the
 device of the tensors it was given.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel (:mod:`.kernel`), and a failed build or launch raises.
+the kernel (:mod:`.kernel`), and a failed build or launch raises: each op
+calls one operator ``torch.ops.repro_torch.<op>``, which dispatches by
+device (:mod:`repro_torch.kernels._library`); the variant is chosen inside
+the ``CUDA`` implementation, so nothing is built before a launch.
 ``block_n`` is the chunk of points: the plain version's memory bound, and
 the points each block of the kernel takes.
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _library
 from repro_torch.kernels._checks import check_tensor, same_device
 from repro_torch.kernels.kmeans_assign import kernel
 from repro_torch.kernels.kmeans_assign.ref import (
@@ -74,6 +78,114 @@ def _fits(s: int, smem: int) -> bool:
     return s <= MAX_DIM and smem <= _SMEM_LIMIT
 
 
+# The route of each batched op at width ``s``, given the narrow block's
+# shared memory as the source lays it out: the CUDA implementations below
+# and the static gate's launch plans (``kernels/_plans.py``) both ask these.
+
+
+def _stats_wide(s: int, smem: int) -> bool:
+    """Whether the Lloyd statistics take the wide route (``smem``: the
+    narrow block's codebook and partial sums)."""
+    return not _fits(s, smem)
+
+
+def _pair_wide(s: int, smem: int) -> bool:
+    """Whether the paired assignment takes the wide route (``smem``: both
+    codebooks and the ``k*k`` histogram)."""
+    return not _fits(s, smem)
+
+
+def _batched_wide(s: int, smem: int) -> bool:
+    """Whether the batched assignment takes the screened route (``smem``:
+    the split codebook and its norms)."""
+    return not _fits(s, smem) or (s > _SCREEN_SLICE and smem > _SMEM_LIMIT // 2)
+
+
+def _i32(like: torch.Tensor, shape) -> torch.Tensor:
+    return like.new_empty(shape, dtype=torch.int32)
+
+
+def _stats_cpu(x, centroids, block_n, with_assign):
+    a, sums, counts, inertia = kmeans_stats_ref(x, centroids, block_n=block_n)
+    return (a if with_assign else _i32(x, (0,))), sums, counts, inertia
+
+
+def _stats_cuda(x, centroids, block_n, with_assign):
+    b, n, s = x.shape
+    k = centroids.shape[1]
+    wide = _stats_wide(s, kernel.stats_smem_bytes(k, s))
+    a, sums, counts, inertia = kernel.kmeans_stats(x, centroids, block_n, with_assign, wide)
+    return (a if with_assign else _i32(x, (0,))), sums, counts, inertia
+
+
+def _stats_meta(x, centroids, block_n, with_assign):
+    b, n, s = x.shape
+    k = centroids.shape[1]
+    return (_i32(x, (b, n) if with_assign else (0,)), x.new_empty((b, k, s)),
+            x.new_empty((b, k)), x.new_empty((b,)))
+
+
+def _pair_cpu(x, centroids, block_n):
+    return kmeans_pair_assign_hist_ref(x, centroids, block_n=block_n)
+
+
+def _pair_cuda(x, centroids, block_n):
+    s, k = x.shape[2], centroids.shape[1]
+    wide = _pair_wide(s, kernel.pair_smem_bytes(k, s))
+    return kernel.kmeans_pair_assign_hist(x, centroids, wide)
+
+
+def _pair_meta(x, centroids, block_n):
+    b, n, _ = x.shape
+    k = centroids.shape[1]
+    return _i32(x, (b, n)), _i32(x, (b // 2, k * k))
+
+
+def _batched_cpu(x, centroids, block_n):
+    return kmeans_assign_batched_ref(x, centroids, block_n=block_n)
+
+
+def _batched_cuda(x, centroids, block_n):
+    s, k = x.shape[2], centroids.shape[1]
+    wide = _batched_wide(s, kernel.narrow_smem_bytes(k, s))
+    return kernel.kmeans_assign_batched(x, centroids, wide)
+
+
+def _batched_meta(x, centroids, block_n):
+    return _i32(x, x.shape[:2])
+
+
+def _assign_cpu(x, centroids):
+    return kmeans_assign_ref(x, centroids)
+
+
+def _assign_cuda(x, centroids):
+    return kernel.kmeans_assign(x, centroids)
+
+
+def _assign_meta(x, centroids):
+    return _i32(x, x.shape[:1])
+
+
+_STATS = _library.define(
+    "kmeans_stats(Tensor x, Tensor centroids, int block_n, bool with_assign)"
+    " -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=_stats_cpu, cuda=_stats_cuda, meta=_stats_meta,
+)
+_PAIR = _library.define(
+    "kmeans_pair_assign_hist(Tensor x, Tensor centroids, int block_n) -> (Tensor, Tensor)",
+    cpu=_pair_cpu, cuda=_pair_cuda, meta=_pair_meta,
+)
+_BATCHED = _library.define(
+    "kmeans_assign_batched(Tensor x, Tensor centroids, int block_n) -> Tensor",
+    cpu=_batched_cpu, cuda=_batched_cuda, meta=_batched_meta,
+)
+_ASSIGN = _library.define(
+    "kmeans_assign(Tensor x, Tensor centroids) -> Tensor",
+    cpu=_assign_cpu, cuda=_assign_cuda, meta=_assign_meta,
+)
+
+
 def kmeans_stats(
     x: torch.Tensor,
     centroids: torch.Tensor,
@@ -85,16 +197,10 @@ def kmeans_stats(
     ``centroids: (B, k, s)`` -> ``(assign (B, n) int32 | None, sums
     (B, k, s) f32, counts (B, k) f32, inertia (B,) f32)``; ``assign`` only
     ``with_assign``."""
-    b, n, s, k = _check(x, centroids, block_n)
-    same_device(x, centroids)
-    if x.device.type == "cpu":
-        a, sums, counts, inertia = kmeans_stats_ref(x, centroids, block_n=block_n)
-        return (a if with_assign else None), sums, counts, inertia
-    if x.device.type == "cuda":
-        # the narrow block's layout is the source's: it states its size
-        wide = not _fits(s, kernel.stats_smem_bytes(k, s))
-        return kernel.kmeans_stats(x, centroids, block_n, with_assign, wide)
-    raise ValueError(f"no kmeans_stats route for device {x.device}")
+    _check(x, centroids, block_n)
+    _library.route(same_device(x, centroids), "kmeans_stats")
+    a, sums, counts, inertia = _STATS(x, centroids, block_n, with_assign)
+    return (a if with_assign else None), sums, counts, inertia
 
 
 def kmeans_pair_assign_hist(
@@ -106,14 +212,8 @@ def kmeans_pair_assign_hist(
     b, n, s, k = _check(x, centroids, block_n)
     if b % 2:
         raise ValueError(f"paired layout needs an even batch, got B={b}")
-    same_device(x, centroids)
-    if x.device.type == "cpu":
-        return kmeans_pair_assign_hist_ref(x, centroids, block_n=block_n)
-    if x.device.type == "cuda":
-        # both codebooks and the k*k histogram, as the source lays them out
-        wide = not _fits(s, kernel.pair_smem_bytes(k, s))
-        return kernel.kmeans_pair_assign_hist(x, centroids, wide)
-    raise ValueError(f"no kmeans_pair_assign_hist route for device {x.device}")
+    _library.route(same_device(x, centroids), "kmeans_pair_assign_hist")
+    return _PAIR(x, centroids, block_n)
 
 
 def kmeans_assign_batched(
@@ -121,16 +221,9 @@ def kmeans_assign_batched(
 ) -> torch.Tensor:
     """Nearest centroid per codebook: ``x: (B, n, s)``, ``centroids:
     (B, k, s)`` -> ``(B, n)`` int32, lowest index on ties."""
-    b, n, s, k = _check(x, centroids, block_n)
-    same_device(x, centroids)
-    if x.device.type == "cpu":
-        return kmeans_assign_batched_ref(x, centroids, block_n=block_n)
-    if x.device.type == "cuda":
-        # the split codebook and its norms, as the source lays them out
-        smem = kernel.narrow_smem_bytes(k, s)
-        wide = not _fits(s, smem) or (s > _SCREEN_SLICE and smem > _SMEM_LIMIT // 2)
-        return kernel.kmeans_assign_batched(x, centroids, wide)
-    raise ValueError(f"no kmeans_assign_batched route for device {x.device}")
+    _check(x, centroids, block_n)
+    _library.route(same_device(x, centroids), "kmeans_assign_batched")
+    return _BATCHED(x, centroids, block_n)
 
 
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -143,9 +236,40 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"centroids must be (k, {s}), got {tuple(centroids.shape)}")
     if min(n, s, k) < 1:
         raise ValueError(f"need n, s and k >= 1, got {n}/{s}/{k}")
-    same_device(x, centroids)
-    if x.device.type == "cpu":
-        return kmeans_assign_ref(x, centroids)
-    if x.device.type == "cuda":
-        return kernel.kmeans_assign(x, centroids)
-    raise ValueError(f"no kmeans_assign route for device {x.device}")
+    _library.route(same_device(x, centroids), "kmeans_assign")
+    return _ASSIGN(x, centroids)
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+
+def lint_entries():
+    from repro_torch.analysis.registry import TileEntry, TraceEntry
+    from repro_torch.analysis.trace_rules import trace
+
+    b, n, s, k, bn = 8, 2_048, 128, 32, 1_024
+
+    def inputs():
+        g = torch.Generator().manual_seed(0)
+        return torch.randn((b, n, s), generator=g), torch.randn((b, k, s), generator=g)
+
+    return [
+        TileEntry(name="kernels.kmeans_assign.batched", contract={},
+                  make=lambda: trace(kmeans_assign_batched, *inputs(), block_n=bn),
+                  note="batched nearest centroid (the screened kernel past 64 dims)"),
+        TileEntry(name="kernels.kmeans_assign.stats", contract={},
+                  make=lambda: trace(kmeans_stats, *inputs(), block_n=bn, with_assign=True),
+                  note="Lloyd statistics: argmins, sums, counts, inertia"),
+        TileEntry(name="kernels.kmeans_assign.pair_hist", contract={},
+                  make=lambda: trace(kmeans_pair_assign_hist, *inputs(), block_n=bn),
+                  note="paired final assignment and the IMI histogram"),
+        TraceEntry(
+            name="kernels.kmeans_assign.oracle",
+            make=lambda: trace(kmeans_stats_ref, *inputs(), block_n=bn),
+            rules=("bounded-intermediate", "pinned-accumulator"),
+            budget_bytes=4 * 2 * b * n * max(k, s),
+            note="the plain version of the Lloyd statistics (the CPU path)",
+        ),
+    ]

@@ -2,7 +2,9 @@
 of the tensors it was given.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel (:mod:`.kernel`), and a failed build or launch raises.  Nothing
+the kernel (:mod:`.kernel`), and a failed build or launch raises: the
+operator ``torch.ops.repro_torch.pairwise_sqdist`` dispatches by device
+(:mod:`repro_torch.kernels._library`).  Nothing
 is padded: the kernel masks its ragged tiles, and rows need only be
 contiguous, so a subspace view ``x[:, a:b]`` of a ``(n, d)`` array is taken
 as it is.
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _library
 from repro_torch.kernels._checks import check_tensor, same_device
 from repro_torch.kernels.pairwise_l2 import kernel
 from repro_torch.kernels.pairwise_l2.ref import pairwise_sqdist_ref
@@ -25,6 +28,22 @@ MAX_POINTS = 2**31 - kernel.POINTS
 #: Most work items of one launch, one block each (:func:`kernel.items`): its
 #: grid's x extent.
 MAX_ITEMS = 2**31 - 1
+
+
+def _cpu(q, x):
+    return pairwise_sqdist_ref(q, x)
+
+
+def _cuda(q, x):
+    return kernel.pairwise_sqdist(q, x)
+
+
+def _meta(q, x):
+    return q.new_empty((q.shape[0], x.shape[0]))
+
+
+_OP = _library.define("pairwise_sqdist(Tensor q, Tensor x) -> Tensor", cpu=_cpu, cuda=_cuda,
+                      meta=_meta)
 
 
 def pairwise_sqdist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -45,8 +64,32 @@ def pairwise_sqdist(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if kernel.items(m, n) > MAX_ITEMS:
         raise ValueError(f"m={m} x n={n} exceeds the kernel's {MAX_ITEMS} work items "
                          f"of {kernel.QUERIES} x {kernel.POINTS}")
-    if q.device.type == "cpu":
-        return pairwise_sqdist_ref(q, x)
-    if q.device.type == "cuda":
-        return kernel.pairwise_sqdist(q, x)
-    raise ValueError(f"no pairwise_sqdist route for device {q.device}")
+    _library.route(q.device, "pairwise_sqdist")
+    return _OP(q, x)
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+
+def lint_entries():
+    from repro_torch.analysis.registry import TileEntry, TraceEntry
+    from repro_torch.analysis.trace_rules import trace
+
+    m, n, d = 256, 512, 256
+
+    def inputs():
+        g = torch.Generator().manual_seed(0)
+        return torch.randn((m, d), generator=g), torch.randn((n, d), generator=g)
+
+    return [
+        TileEntry(name="kernels.pairwise_l2.kernel", contract={},
+                  make=lambda: trace(pairwise_sqdist, *inputs()),
+                  note="pairwise squared L2: 64 queries x 512 points a block"),
+        TraceEntry(
+            name="kernels.pairwise_l2.oracle", make=lambda: trace(pairwise_sqdist_ref, *inputs()),
+            rules=("bounded-intermediate", "pinned-accumulator"), budget_bytes=4 * 2 * m * n,
+            note="the plain version of the pairwise distances",
+        ),
+    ]

@@ -2,7 +2,9 @@
 device of the tensors it was given.
 
 A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor launches
-the kernel (:mod:`.kernel`), and a failed build or launch raises.  The
+the kernel (:mod:`.kernel`), and a failed build or launch raises: each op
+calls one operator ``torch.ops.repro_torch.<op>``, which dispatches by
+device (:mod:`repro_torch.kernels._library`).  The
 JAX package pads every operand to its TPU tiles (padded data rows at a
 distance that never collides, padded queries with cut -1 or ``thr =
 INT32_MAX``, padded dims of zeros) and slices the padding off again; the
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _library
 from repro_torch.kernels._checks import check_tensor, same_device
 from repro_torch.kernels.sc_score import kernel
 from repro_torch.kernels.sc_score.ref import (
@@ -40,6 +43,81 @@ MAX_FUSED_POINTS = 2**31 - kernel.FUSED_POINTS
 #: Most blocks of one launch, one a work item (:func:`kernel.fused_blocks`):
 #: its grid's x extent.
 MAX_FUSED_BLOCKS = 2**31 - 1
+
+
+def _empty(like: torch.Tensor, shape, dtype=torch.int32) -> torch.Tensor:
+    return like.new_empty(shape, dtype=dtype)
+
+
+def _fused_cpu(qs, xs, tau):
+    return sc_score_ref(qs, xs, tau)
+
+
+def _fused_cuda(qs, xs, tau):
+    return kernel.sc_score_fused(qs, xs, tau)
+
+
+def _fused_meta(qs, xs, tau):
+    return _empty(qs, (qs.shape[1], xs.shape[1]))
+
+
+def _cells_cpu(ranks, cuts, cells):
+    return sc_score_cells_ref(ranks, cuts, cells)
+
+
+def _cells_cuda(ranks, cuts, cells):
+    return kernel.sc_score_cells(ranks, cuts, cells)
+
+
+def _cells_meta(ranks, cuts, cells):
+    return _empty(ranks, (ranks.shape[1], cells.shape[1]))
+
+
+def _prefilter_cpu(ranks, cuts, cells, thr):
+    return sc_score_cells_prefilter_ref(ranks, cuts, cells, thr)
+
+
+def _prefilter_cuda(ranks, cuts, cells, thr):
+    return kernel.sc_score_cells_prefilter(ranks, cuts, cells, thr)
+
+
+def _prefilter_meta(ranks, cuts, cells, thr):
+    shape = (ranks.shape[1], cells.shape[1])
+    return _empty(ranks, shape), _empty(ranks, shape, torch.bool)
+
+
+def _compact_cpu(ranks, cuts, cells, thr, limit, keep_cols, cap):
+    return sc_score_cells_prefilter_compact_ref(ranks, cuts, cells, thr, limit, keep_cols, cap=cap)
+
+
+def _compact_cuda(ranks, cuts, cells, thr, limit, keep_cols, cap):
+    return kernel.sc_score_compact(ranks, cuts, cells, thr, limit, keep_cols, cap)
+
+
+def _compact_meta(ranks, cuts, cells, thr, limit, keep_cols, cap):
+    m = ranks.shape[1]
+    return (_empty(ranks, (m, cells.shape[1])), _empty(ranks, (m, cap)),
+            _empty(ranks, (m, cap)), _empty(ranks, (m,)))
+
+
+_FUSED = _library.define(
+    "sc_scores_fused(Tensor qs, Tensor xs, Tensor tau) -> Tensor",
+    cpu=_fused_cpu, cuda=_fused_cuda, meta=_fused_meta,
+)
+_CELLS = _library.define(
+    "sc_scores_cells(Tensor ranks, Tensor cuts, Tensor cells) -> Tensor",
+    cpu=_cells_cpu, cuda=_cells_cuda, meta=_cells_meta,
+)
+_PREFILTER = _library.define(
+    "sc_scores_cells_prefilter(Tensor ranks, Tensor cuts, Tensor cells, Tensor thr)"
+    " -> (Tensor, Tensor)",
+    cpu=_prefilter_cpu, cuda=_prefilter_cuda, meta=_prefilter_meta,
+)
+_COMPACT = _library.define(
+    "sc_scores_cells_prefilter_compact(Tensor ranks, Tensor cuts, Tensor cells, Tensor thr,"
+    " int limit, Tensor? keep_cols, int cap) -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=_compact_cpu, cuda=_compact_cuda, meta=_compact_meta,
+)
 
 
 def _check_cells(ranks, cuts, cells) -> tuple[int, int, int, int]:
@@ -78,11 +156,8 @@ def sc_scores_fused(
     if kernel.fused_blocks(m, n) > MAX_FUSED_BLOCKS:
         raise ValueError(f"m={m} x n={n} exceeds the kernel's {MAX_FUSED_BLOCKS} blocks "
                          f"of {kernel.FUSED_QUERIES} x {kernel.FUSED_POINTS}")
-    if qs.device.type == "cpu":
-        return sc_score_ref(qs, xs, tau)
-    if qs.device.type == "cuda":
-        return kernel.sc_score_fused(qs, xs, tau)
-    raise ValueError(f"no sc_score route for device {qs.device}")
+    _library.route(qs.device, "sc_score")
+    return _FUSED(qs, xs, tau)
 
 
 def sc_scores_cells(
@@ -93,12 +168,8 @@ def sc_scores_cells(
     """Chunked SuCo collision scores ``-> (m, bc)`` int32: point j collides
     with query q in subspace i iff ``ranks[i, q, cells[i, j]] <= cuts[i, q]``."""
     _check_cells(ranks, cuts, cells)
-    dev = same_device(ranks, cuts, cells)
-    if dev.type == "cpu":
-        return sc_score_cells_ref(ranks, cuts, cells)
-    if dev.type == "cuda":
-        return kernel.sc_score_cells(ranks, cuts, cells)
-    raise ValueError(f"no sc_score_cells route for device {dev}")
+    _library.route(same_device(ranks, cuts, cells), "sc_score_cells")
+    return _CELLS(ranks, cuts, cells)
 
 
 def sc_scores_cells_prefilter(
@@ -113,12 +184,8 @@ def sc_scores_cells_prefilter(
     the data, which this op cannot know about."""
     m = _check_cells(ranks, cuts, cells)[1]
     check_tensor("thr", thr, torch.int32, (m,))
-    dev = same_device(ranks, cuts, cells, thr)
-    if dev.type == "cpu":
-        return sc_score_cells_prefilter_ref(ranks, cuts, cells, thr)
-    if dev.type == "cuda":
-        return kernel.sc_score_cells_prefilter(ranks, cuts, cells, thr)
-    raise ValueError(f"no sc_score_cells_prefilter route for device {dev}")
+    _library.route(same_device(ranks, cuts, cells, thr), "sc_score_cells_prefilter")
+    return _PREFILTER(ranks, cuts, cells, thr)
 
 
 def sc_scores_cells_prefilter_compact(
@@ -147,11 +214,82 @@ def sc_scores_cells_prefilter_compact(
     same_device(ranks, cuts, cells, thr, keep_cols)
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
-    limit = int(limit)
-    if ranks.device.type == "cpu":
-        return sc_score_cells_prefilter_compact_ref(
-            ranks, cuts, cells, thr, limit, keep_cols, cap=cap
-        )
-    if ranks.device.type == "cuda":
-        return kernel.sc_score_compact(ranks, cuts, cells, thr, limit, keep_cols, cap)
-    raise ValueError(f"no sc_score route for device {ranks.device}")
+    _library.route(ranks.device, "sc_score")
+    return _COMPACT(ranks, cuts, cells, thr, int(limit), keep_cols, cap)
+
+
+# --------------------------------------------------------------------------
+# Static-gate registry hook (see repro_torch.analysis)
+# --------------------------------------------------------------------------
+
+#: The gate's shapes, the JAX package's: (Ns, m, K, chunk, subspace width).
+_LINT_NS, _LINT_M, _LINT_K, _LINT_BC, _LINT_S = 4, 8, 2_560, 512, 128
+
+
+def lint_entries():
+    from repro_torch.analysis.registry import TileEntry, TraceEntry
+    from repro_torch.analysis.trace_rules import trace
+    from repro_torch.core.spans import loop_span
+
+    ns, m, k_cells, bc, s = _LINT_NS, _LINT_M, _LINT_K, _LINT_BC, _LINT_S
+
+    def inputs(chunks: int = 1):
+        g = torch.Generator().manual_seed(0)
+        ranks = torch.randint(0, k_cells, (ns, m, k_cells), generator=g, dtype=torch.int32)
+        cuts = torch.randint(0, k_cells // 4, (ns, m), generator=g, dtype=torch.int32)
+        cells = torch.randint(0, k_cells, (ns, chunks * bc), generator=g, dtype=torch.int32)
+        thr = torch.randint(-1, ns, (m,), generator=g, dtype=torch.int32)
+        return ranks, cuts, cells, thr
+
+    def make_cells():
+        ranks, cuts, cells, _ = inputs()
+        return trace(sc_scores_cells, ranks, cuts, cells)
+
+    def make_prefilter():
+        ranks, cuts, cells, thr = inputs()
+        return trace(sc_scores_cells_prefilter, ranks, cuts, cells, thr)
+
+    def make_compact():
+        ranks, cuts, cells, thr = inputs()
+        return trace(sc_scores_cells_prefilter_compact, ranks, cuts, cells, thr, bc, cap=128)
+
+    def make_compact_scan():
+        # the compact op as the fused query runs it: once a chunk, in a loop
+        def run():
+            ranks, cuts, cells, thr = inputs(chunks=4)
+            for lo in range(0, 4 * bc, bc):
+                with loop_span("kernels.sc_score.chunk"):
+                    sc_scores_cells_prefilter_compact(ranks, cuts, cells[:, lo:lo + bc], thr, bc,
+                                                      cap=128)
+        return trace(run)
+
+    def make_fused():
+        g = torch.Generator().manual_seed(1)
+        qs, xs = torch.randn((ns, m, s), generator=g), torch.randn((ns, 1_024, s), generator=g)
+        return trace(sc_scores_fused, qs, xs, torch.full((ns, m), float(s)))
+
+    def make_oracle():
+        ranks, cuts, cells, _ = inputs()
+        return trace(sc_score_cells_ref, ranks, cuts, cells)
+
+    return [
+        TileEntry(name="kernels.sc_score.cells", contract={}, make=make_cells,
+                  note="chunk scores: the bitmap pass and the sweep"),
+        TileEntry(name="kernels.sc_score.cells_prefilter", contract={}, make=make_prefilter,
+                  note="chunk scores and the Pareto keep mask in one sweep"),
+        TileEntry(name="kernels.sc_score.cells_prefilter_compact", contract={}, make=make_compact,
+                  note="one chunk of the fused query: scores, survivor counts, compaction"),
+        TraceEntry(
+            name="kernels.sc_score.prefilter_compact_scan", make=make_compact_scan,
+            rules=("no-scatter-in-scan", "pinned-accumulator"),
+            note="the compact op inside a chunk loop: one operator a chunk, no sort or scatter",
+        ),
+        TileEntry(name="kernels.sc_score.fused_distance", contract={}, make=make_fused,
+                  note="SC-Linear's scorer: 3xTF32 screen and plain re-checks"),
+        TraceEntry(
+            name="kernels.sc_score.oracle", make=make_oracle,
+            rules=("bounded-intermediate", "pinned-accumulator"),
+            budget_bytes=4 * 2 * ns * m * max(k_cells, bc),
+            note="the plain version of the chunk scorer (the CPU path)",
+        ),
+    ]

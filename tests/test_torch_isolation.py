@@ -24,7 +24,9 @@ assert {"repro_torch.serve", "repro_torch.serve.ann", "repro_torch.core.theory",
         "repro_torch.distributed.elastic", "repro_torch.baselines",
         "repro_torch.baselines.ivf", "repro_torch.baselines.lsh",
         "repro_torch.baselines.imi_pq", "repro_torch.baselines.rpforest",
-        "repro_torch.baselines.hnsw"} <= set(names), names
+        "repro_torch.baselines.hnsw", "repro_torch.analysis", "repro_torch.analysis.lint",
+        "repro_torch.analysis.trace_rules", "repro_torch.analysis.ast_rules",
+        "repro_torch.launch.dryrun_suco", "repro_torch.launch.op_analysis"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

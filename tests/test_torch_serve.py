@@ -15,7 +15,6 @@ are those of ``tests/test_serve_resilience.py`` and
 the CLI, and the host-sync rule over ``src/repro_torch/serve/``.
 """
 
-import ast
 import dataclasses
 import os
 import re
@@ -32,6 +31,7 @@ from repro.core import suco as jsuco
 from repro.serve import ann as jann
 from repro.serve.chaos import VirtualClock
 
+from repro_torch.analysis.ast_rules import host_syncs
 from repro_torch.core import suco as psuco
 from repro_torch.data import gaussian_mixture, make_dataset, make_queries
 from repro_torch.serve import ann as pann
@@ -529,34 +529,10 @@ def test_cli_prints_the_references_summary():
 
 
 # ---- the host-sync rule ----------------------------------------------------
+# The rule lives in the static gate (``repro_torch.analysis.ast_rules``), which
+# also runs it over ``repro_torch/distributed``; these cases hold it as it was.
 
-SYNC_ATTRS = ("item", "cpu", "numpy", "tolist")
 _OK = re.compile(r"#\s*host-sync: ok — \S")
-
-
-def host_syncs(source: str) -> list[tuple[int, str, bool]]:
-    """``(line, what, annotated)`` for each ``.item()`` / ``.cpu()`` /
-    ``.numpy()`` / ``.tolist()`` call, each ``torch.cuda.synchronize`` and
-    each ``.synchronize()`` call on any other object (a stream, an event) in
-    ``source``; annotated where the line carries ``# host-sync: ok —
-    <reason>``."""
-    lines = source.splitlines()
-    found = []
-    for node in ast.walk(ast.parse(source)):
-        what = None
-        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                and node.func.attr in SYNC_ATTRS):
-            what = f".{node.func.attr}()"
-        elif isinstance(node, ast.Attribute) and ast.unparse(node) == "torch.cuda.synchronize":
-            what = "torch.cuda.synchronize"
-        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-              and node.func.attr == "synchronize"
-              and ast.unparse(node.func) != "torch.cuda.synchronize"):
-            what = ".synchronize()"
-        if what is not None:
-            line = node.end_lineno if isinstance(node, ast.Call) else node.lineno
-            found.append((line, what, bool(_OK.search(lines[line - 1]))))
-    return sorted(found)
 
 
 def test_serve_package_host_syncs_are_annotated():
