@@ -86,7 +86,9 @@ before it and read just after.  Nine run over SIFT1M's shape (n =
   within 10% of the fake run's prediction for the same program
   (``dryrun_suco --share``, in a process of its own with no card visible,
   run after the last timed phase so that it shares the host with no
-  timing; its comparison is the ``dryrun_suco_prediction`` record).
+  timing, beside the LM dry-run's ``--share`` of the ``lm_sharded`` cell;
+  the comparisons are the ``dryrun_suco_prediction`` and
+  ``lm_sharded_prediction`` records).
 
 The eighth, ``lm_serve``, serves RWKV6-1.6B (``get_config("rwkv6-1.6b")``, 24
 layers, d_model 2,048, vocab 65,536, bf16 compute, fp32 master weights drawn
@@ -104,6 +106,16 @@ recompute (48 launches a step), its backward the plain version recomputed
 under autograd.  It reports the step seconds, tokens/s, the losses, the peak
 memory, a profiled step and the forward, backward and optimizer step timed
 alone, and fails unless the loss is finite and falls.
+``lm_sharded`` then trains the same model through the sharded step
+(``make_train_step(mesh=...)``, DTensor) on a (1, 1, 1) ``DeviceMesh``
+over NCCL at world size 1: 3 AdamW steps of the same 8 x 2,048 tokens from
+the same seed, then the same through the unsharded step.  It reports
+whether the losses and params are bit-equal (else the largest differences,
+held to ``lm_train_recheck``'s tolerances, and the first differing op of a
+one-layer forward), the median step seconds both ways, a profiled sharded
+step's idle share, row 11's launches a step (48) and the peak memory,
+which ``lm_sharded_prediction`` sets beside the fake dry-run of the same
+cell at the end and holds within 10% of it.
 ``lm_train_recheck`` runs RWKV6 and granite-3-2b at full width on 2 layers
 in fp32 on the card and on the CPU from the same weights and batch (loss,
 every gradient leaf, the parameters after one AdamW step), and holds row
@@ -292,7 +304,7 @@ PATH_OF = {
 }
 #: the other main paths whose launches a kernel's ``launches`` adds (row 11
 #: runs in the served prefill and in the trainer's forward and recompute)
-ALSO_ON = {"linear_attn": ("lm_train",)}
+ALSO_ON = {"linear_attn": ("lm_train", "lm_sharded")}
 #: the kernels the lifecycle path runs (each reports its launches on its
 #: first path above): Lloyd statistics for the minibatch build and every
 #: insert, the compact and gather kernels for fused queries, the chunk
@@ -326,7 +338,8 @@ LIBRARY = {
 
 def check_launched(path: str, counts: dict) -> None:
     """Fail unless every kernel of ``path`` launched in its run."""
-    missing = [name for name, p in PATH_OF.items() if p == path and counts[name] < 1]
+    missing = [name for name, p in PATH_OF.items()
+               if (p == path or path in ALSO_ON.get(name, ())) and counts[name] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
 
@@ -402,9 +415,13 @@ def device_ms(fn, reps: int, n: int = 5, warmup: int = 2) -> dict:
         fn()
     traces, retakes = [trace() for _ in range(n)], 0
     most = max(sum(k for _, _, k in t) for t in traces)
+    if most < 1:  # every trace lost every kernel: nothing read the device's clock
+        warnings.warn("device_ms: no trace showed a kernel; timed by CUDA events instead")
+        return dict(ms=time_ms(fn, reps), readings=[], events_per_call=0, events_lost=None,
+                    retakes=retakes, clock="cuda_events")
     for i in range(n):
         while sum(k for _, _, k in traces[i]) < most:
-            if retakes == RETAKES or most < 1:
+            if retakes == RETAKES:
                 warnings.warn(f"device_ms: a trace kept missing kernels ({most} a call); "
                               "timed by CUDA events instead")
                 return dict(ms=time_ms(fn, reps), readings=[], events_per_call=most,
@@ -3076,25 +3093,46 @@ def dryrun_suco_phase(seed: int) -> tuple[dict, dict, dict]:
     return launches, checks, run
 
 
-def dryrun_prediction_phase(run: dict) -> None:
-    """The fake run of ``dryrun_suco``'s program (``python -m
-    repro_torch.launch.dryrun_suco --share``, in a process of its own with no
-    card visible), after the last timed phase; the card's
-    ``max_memory_allocated`` over that program (``run``, from
-    :func:`dryrun_suco_phase`) must lie within 10% of its prediction."""
+def dryrun_prediction_phase(run: dict, lm_run: dict) -> None:
+    """The fake runs of two programs, after the last timed phase, in
+    processes of their own started together: ``dryrun_suco``'s share
+    (``python -m repro_torch.launch.dryrun_suco --share``, no card visible),
+    whose prediction the card's ``max_memory_allocated`` over that program
+    (``run``, from :func:`dryrun_suco_phase`) must lie within 10% of; and
+    the ``lm_sharded`` cell (``python -m repro_torch.launch.dryrun --share``:
+    RWKV6-1.6B, 8 x 2,048, a (1, 1, 1) mesh over a fake group, ``meta``
+    shares), whose predicted peak the card's over the sharded steps
+    (``lm_run``, from :func:`lm_sharded_phase`) must lie within 10% of."""
     import os
 
-    DRYRUN_SHARE.parent.mkdir(parents=True, exist_ok=True)
-    DRYRUN_SHARE.unlink(missing_ok=True)
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT / "src"),
-               OMP_NUM_THREADS="1")
+    for path in (DRYRUN_SHARE, LM_SHARE):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun_suco", "--share", "--output",
-         str(DRYRUN_SHARE)], cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise AssertionError(f"the fake share run failed: {proc.stderr[-2000:]}")
+    procs = {
+        "suco": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun_suco", "--share", "--output",
+             str(DRYRUN_SHARE)], cwd=ROOT, env=dict(env, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True),
+        "lm": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--share", "--out",
+             str(LM_SHARE.parent)],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True),
+    }
+    errs = {}
+    try:
+        for name, proc in procs.items():
+            errs[name] = proc.communicate(timeout=900)[1]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"the fake {name} share run failed: {errs[name][-2000:]}")
+    seconds = time.perf_counter() - t0
     pred = json.loads(DRYRUN_SHARE.read_text())
     peak = run["max_memory_allocated"]
     rel = abs(peak - pred["peak_bytes"]) / pred["peak_bytes"]
@@ -3103,7 +3141,23 @@ def dryrun_prediction_phase(run: dict) -> None:
               predicted_build_peak_bytes=pred["build_peak_bytes"], relative_error=rel,
               query_block_n=run["query_block_n"], fake_query_block_n=pred["query_block_n"],
               fake_kernel_calls=pred["cost_analysis"]["kernel_calls"],
-              fake_run_seconds=pred["run_s"], seconds=time.perf_counter() - t0))
+              fake_run_seconds=pred["run_s"], seconds=seconds))
+    lm = json.loads(LM_SHARE.read_text())
+    lm_peak = lm["memory_analysis"]["peak_bytes"]
+    lm_rel = abs(lm_run["max_memory_allocated"] - lm_peak) / lm_peak
+    emit(dict(phase="lm_sharded_prediction", max_memory_allocated=lm_run["max_memory_allocated"],
+              predicted_peak_bytes=lm_peak, relative_error=lm_rel,
+              predicted_argument_bytes=lm["memory_analysis"]["argument_size_in_bytes"],
+              predicted_output_bytes=lm["memory_analysis"]["output_size_in_bytes"],
+              fake_flops=lm["cost_analysis"]["flops"],
+              fake_kernel_calls=lm["cost_analysis"]["kernel_calls"],
+              fake_collectives=lm["collectives"], fake_run_seconds=lm["run_s"],
+              seconds=seconds, nvidia_smi=smi_line()))
+    if lm["status"] != "ok":
+        raise AssertionError(f"the fake lm_sharded cell: {lm}")
+    if lm_rel > 0.10:
+        raise AssertionError(f"lm_sharded's max_memory_allocated {lm_run['max_memory_allocated']} "
+                             f"lies {lm_rel:.1%} from the prediction {lm_peak}")
     if rel > 0.10:
         raise AssertionError(f"max_memory_allocated {peak} lies {rel:.1%} from the prediction "
                              f"{pred['peak_bytes']}")
@@ -3849,6 +3903,214 @@ def lm_train_phase(dev, seed: int, steps: int = 10, global_batch: int = 8,
     return launches
 
 
+#: the sharded step's AdamW steps (and the unsharded step's, the same batches)
+LM_SHARDED_STEPS = 3
+LM_SHARE = ROOT / "build" / "dryrun" / "lm_share.json"
+
+
+def fingerprint_mode(local: bool = False):
+    """A dispatch mode recording a run: per ATen op with a floating output,
+    its name, shape and the output's fp64 sum and sum of squares (``.rows``).
+    ``local=True`` leaves an op on ``DTensor``s to DTensor and records the
+    local ops it runs (the rank's own arithmetic)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Fingerprints(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if local and any(isinstance(a, DTensor) for a in tree_flatten([args, kwargs])[0]):
+                return NotImplemented
+            out = func(*args, **kwargs)
+            if func.namespace == "aten" and not func.is_view:
+                first = next((t for t in tree_flatten(out)[0]
+                              if hasattr(t, "is_floating_point") and t.is_floating_point()
+                              and t.numel()), None)
+                if first is not None:
+                    d = first.detach().double()
+                    self.rows.append((func._opname, tuple(first.shape), d.sum(), (d * d).sum()))
+            return out
+
+    return Fingerprints()
+
+
+def first_differing_op(cfg, mesh, shape, seed: int, batch_np: dict, dev) -> dict:
+    """Where the sharded and the unsharded forward first part: ``cfg`` cut to
+    one layer, the same weights and batch, the loss's forward under a
+    :func:`fingerprint_mode` each way; the plain run's ops matched in
+    order to the sharded run's local ops of the same name and shape (a
+    sharded run adds redistributions); the first pair whose sums differ."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import Model
+    from repro_torch.models.shard_ctx import sharded
+
+    one = dc.replace(cfg, n_layers=1)
+    model = Model(one)
+    master = model.init(torch.Generator(dev).manual_seed(seed + 40))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    with torch.no_grad():
+        plain = fingerprint_mode()
+        with plain:
+            model.loss(master, batch)
+        params = SH.distribute_tree(mesh, SH.param_specs(one, mesh, master), master)
+        dbatch = SH.distribute_tree(mesh, SH.batch_specs(one, mesh, shape, batch), batch)
+        local = fingerprint_mode(local=True)
+        with sharded(mesh), local:
+            model.loss(params, dbatch)
+    j = 0
+    for i, (name, shp, s1, s2) in enumerate(plain.rows):
+        while j < len(local.rows) and local.rows[j][:2] != (name, shp):
+            j += 1
+        if j == len(local.rows):
+            return dict(index=i, op=name, shape=list(shp), unmatched=True)
+        if not (torch.equal(s1, local.rows[j][2]) and torch.equal(s2, local.rows[j][3])):
+            return dict(index=i, op=name, shape=list(shp), plain_sum=float(s1),
+                        sharded_sum=float(local.rows[j][2]))
+        j += 1
+    return dict(index=None, ops=len(plain.rows))
+
+
+def lm_sharded_phase(dev, seed: int, steps: int = LM_SHARDED_STEPS,
+                     lr: float = 3e-4) -> tuple[dict, dict]:
+    """The cell of ``launch.dryrun.share_prediction`` (``SHARE_ARCH`` x
+    ``SHARE_SHAPE`` on a ``SHARE_MESH`` mesh: RWKV6-1.6B at full width, 8 x
+    2,048 tokens a step, (1, 1, 1)) through the sharded train step
+    (``launch.train.build(args, mesh)``: ``make_train_step(mesh=...)``) on a
+    ``(1, 1, 1)`` ``DeviceMesh`` over NCCL at world size 1: the launcher's
+    master from ``seed`` distributed by ``param_specs`` (at one rank each
+    share is the whole tensor), ``steps`` AdamW steps of 8 x 2,048
+    ``SyntheticLM`` tokens, bf16 compute, remat, peak lr 3e-4, then the
+    same master (drawn again from the seed), batches and steps through the
+    unsharded step.
+
+    Reports whether the losses and the final params are bit-equal; if not,
+    the largest differences, held to ``lm_train_recheck``'s tolerances (the
+    loss to rtol 1e-5; the params to 1e-5 but for at most 0.1%, each within
+    2 lr), and the first op of a one-layer forward whose output differs
+    (:func:`first_differing_op`).  Also the step seconds both ways (the
+    first of each includes its warm-up), a profiled sharded step (device
+    idle share), row 11's launches a step (two a layer: the forward and the
+    remat recompute) and the sharded steps' ``max_memory_allocated`` (its
+    prediction, the fake run of the same cell, comes after the last timed
+    phase: :func:`dryrun_prediction_phase`).  Fails if a step fails, a
+    placement changes, row 11 launches otherwise, or the runs part beyond
+    the tolerances.  Returns ``(launches, the record)``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import train as T
+    from repro_torch.launch.dryrun import SHARE_ARCH, SHARE_MESH, SHARE_SHAPE
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train._tree import items
+    from repro_torch.train.optimizer import init_opt_state
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index if dev.index is not None else 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        shape = SHARE_SHAPE
+        mesh = make_mesh(SHARE_MESH, ("pod", "data", "model"), dev.type)
+        args = train_args(arch=SHARE_ARCH, reduced=False, steps=steps,
+                          global_batch=shape.global_batch, seq_len=shape.seq_len, seed=seed,
+                          device=str(dev), lr=lr)
+        cfg, model, step_sharded, data = T.build(args, mesh)
+        step_plain = T.build(args)[2]
+
+        def sharded_batch(step):
+            batch = T.batch_on(data.batch_at(step), dev)
+            return SH.distribute_tree(mesh, SH.batch_specs(cfg, mesh, shape, batch), batch)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_state(model, args, dev, mesh)[1]
+        opt_state = init_opt_state(params)
+        places = {p: tuple(t.placements) for p, t in items(params)}
+        init_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        losses_s, secs_s = [], []
+        for step in range(steps):
+            batch = sharded_batch(step)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_sharded(params, opt_state, batch)
+            losses_s.append(float(metrics["loss"].full_tensor()))  # the launcher's host read
+            secs_s.append(time.perf_counter() - t0)
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        moved = [p for p, t in items(params) if tuple(t.placements) != places[p]]
+        moved += [p for p, t in items(opt_state["mu"]) if tuple(t.placements) != places[p]]
+        prof = profile_batch(lambda: step_sharded(params, opt_state, sharded_batch(steps)),
+                             host_events=False)
+        final = {p: t.to_local() for p, t in items(params)}  # one rank: the whole tensor
+        del params, opt_state, metrics
+        torch.cuda.empty_cache()
+
+        start, params, opt_state = T.init_state(model, args, dev)
+        losses_p, secs_p = [], []
+        for step in range(steps):
+            batch = T.batch_on(data.batch_at(step), dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_plain(params, opt_state, batch)
+            losses_p.append(float(metrics["loss"]))
+            secs_p.append(time.perf_counter() - t0)
+        del opt_state, metrics
+        same = [torch.equal(final[p], t) for p, t in items(params)]
+        worst, far, total = 0.0, 0, 0
+        for p, t in items(params):
+            d = (final[p].float() - t.float()).abs()
+            worst, far, total = max(worst, float(d.max())), far + int((d > 1e-5).sum()), \
+                total + d.numel()
+        bit_equal = all(same) and losses_s == losses_p
+        first = None if bit_equal else first_differing_op(cfg, mesh, shape, seed,
+                                                          data.batch_at(0), dev)
+        del params, final
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    want = 2 * cfg.n_layers
+    per_step = launches["linear_attn"] / steps
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses_s, losses_p))
+    out = dict(phase="lm_sharded", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               mesh=dict(pod=1, data=1, model=1), backend=backend, steps=steps,
+               global_batch=shape.global_batch, seq_len=shape.seq_len, init_seconds=init_s,
+               step_seconds_sharded=secs_s, step_seconds_unsharded=secs_p,
+               step_seconds_median_sharded=float(np.median(secs_s)),
+               step_seconds_median_unsharded=float(np.median(secs_p)),
+               host_cost_ratio=float(np.median(secs_s) / np.median(secs_p)),
+               losses_sharded=losses_s, losses_unsharded=losses_p, bit_equal=bit_equal,
+               params_equal=f"{sum(same)} / {len(same)}", largest_param_diff=worst,
+               params_far=far, params=total, largest_loss_rel_err=loss_err,
+               first_differing_op=first, max_memory_allocated=peak,
+               linear_attn_launches=launches["linear_attn"],
+               linear_attn_launches_per_step=per_step, launches=launches,
+               placements_changed=moved, profile=prof, nvidia_smi=smi_line())
+    emit(out)
+    if moved:
+        raise AssertionError(f"lm_sharded: a step moved these leaves' placements: {moved[:5]}")
+    if per_step != want or any(v for k, v in launches.items() if k != "linear_attn"):
+        raise AssertionError(f"lm_sharded launched {launches}: row 11 should launch {want} "
+                             "times a step (the forward and the remat recompute), no other")
+    check_launched("lm_sharded", launches)
+    if not bit_equal and not (loss_err <= 1e-5 and worst <= 2 * lr + 1e-6
+                              and far <= 1e-3 * total):
+        raise AssertionError(f"lm_sharded: the sharded step parts from the unsharded: {out}")
+    return launches, out
+
+
 def _requiring_grad(tree):
     """``tree``'s leaves detached and recording gradients, as a train step
     takes them."""
@@ -4263,6 +4525,11 @@ def main() -> int:
     # long_500k context.  After the kernel checks, whose traces it could upset
     torch.cuda.empty_cache()
     launches_by_path["lm_train"] = lm_train_phase(dev, args.seed)
+    torch.cuda.empty_cache()
+    # 12c. the same model through the sharded step on a (1, 1, 1) mesh over
+    # NCCL, against the unsharded step on the same seed and batches
+    launches_by_path["lm_sharded"], lm_sharded_run = lm_sharded_phase(dev, args.seed)
+    torch.cuda.empty_cache()
     for arch in ("rwkv6-1.6b", "granite-3-2b"):
         lm_train_recheck_phase(dev, args.seed, arch)
     sc_attention_phase(dev, args.seed)
@@ -4331,9 +4598,10 @@ def main() -> int:
                          dataclasses.replace(dense_cfg, n_layers=2, local_window=32),
                          phase="lm_cpu_recheck_dense")
 
-    # 17. the dry-run's fake prediction of the dryrun_suco program's memory, on
-    # the host alone: no timed phase runs beside it
-    dryrun_prediction_phase(dryrun_run)
+    # 17. the dry-runs' fake predictions of the dryrun_suco program's and the
+    # lm_sharded step's memory, together, on the host alone: no timed phase
+    # runs beside them
+    dryrun_prediction_phase(dryrun_run, lm_sharded_run)
 
     rows = []
     for name, (src, replaces) in SOURCES.items():

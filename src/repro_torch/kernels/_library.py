@@ -15,8 +15,10 @@ operator defined here, with an implementation per dispatch key:
 Dispatch still goes by the tensor's device, now through the dispatcher.
 Every implementation is a function of its ``ops.py`` that looks up the
 plain version or the launch by name when it runs, so a test that
-replaces one of them sees the replacement.  ``linear_attn`` stays a plain
-Python op: the static gate and the dry-run never reach it.
+replaces one of them sees the replacement.  ``linear_attn`` (row 11) is
+an operator too, reached from ``kernels/linear_attn/ops.py``'s launch; its
+CPU implementation is the padded plain version that the op's CPU route
+also calls directly.
 """
 
 from __future__ import annotations

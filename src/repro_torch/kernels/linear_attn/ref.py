@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.placements import constrain
+
 __all__ = ["linear_attn_ref", "linear_attn_chunked"]
 
 _EPS = 1e-6
@@ -86,6 +88,9 @@ def linear_attn_chunked(
     if t % chunk:
         raise ValueError(f"pad T={t} to a multiple of chunk={chunk}")
     nc, c = t // chunk, chunk
+    # shard the merged batch * heads dim over the whole mesh (the identity
+    # outside a sharding context or on plain tensors)
+    q, k, v, w = (constrain(a, "batch_heads", None, None) for a in (q, k, v, w))
     qf = q.float().reshape(bh, nc, c, dk)
     kf = k.float().reshape(bh, nc, c, dk)
     vf = v.float().reshape(bh, nc, c, dv)

@@ -5,10 +5,10 @@ the ``vlm`` family (Llama-3.2-Vision) for serving, the counterpart of
 ``repro.models``."""
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import SHAPES, Model, ShapeSpec
+from repro_torch.models.model import SHAPES, Model, ShapeSpec, input_specs
 from repro_torch.models import backbone, convert, decode, layers, prefill, ssm
 
 __all__ = [
-    "ModelConfig", "Model", "ShapeSpec", "SHAPES",
+    "ModelConfig", "Model", "ShapeSpec", "SHAPES", "input_specs",
     "backbone", "convert", "decode", "prefill", "layers", "ssm",
 ]

@@ -28,6 +28,19 @@ block, Zamba2's tail layers one by one, a Llama-3.2-Vision unit) and
 allocated).  The forward casts the fp32 master's weights to the compute
 dtype at each use, as the reference does on every call, so gradients reach
 the master.
+
+Sharded (``DTensor`` params and batch, under
+:func:`repro_torch.models.shard_ctx.sharded`): the residual stream is
+pinned to ``batch`` at each block's entry and the logits to ``vocab``, as
+the reference's ``constrain`` calls; the places where DTensor's own
+propagation lacks a rule or would change the layout at a cost take an
+explicit step: the embedding lookup (:func:`_sharded_lookup`, a
+``local_map`` over the whole table), the loss's rows pinned to ``batch``
+before each chunk's product and its logsumexp and gold logit over the
+vocab shards (:func:`_lse_gold_sharded`); ``torch.utils.checkpoint``
+recomputes DTensor ops as they are (no partial placement crosses a block
+boundary).  The optimizer's global norm is a sum of per-leaf partial sums
+that DTensor reduces before the ``sqrt``, one all-reduce.
 """
 
 from __future__ import annotations
@@ -37,12 +50,15 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params
+from repro_torch.models.shard_ctx import gather_fsdp
+from repro_torch.placements import constrain, dim_sizes, is_dtensor
 
 __all__ = ["init_params", "init_dense_block", "init_rwkv_block", "init_mamba_block",
            "init_encoder_block", "init_encdec_block", "init_cross_block", "forward_hidden",
@@ -254,7 +270,11 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, pos: int = 0) 
     then added in it, as the reference does; a position past
     ``max_learned_pos`` raises ``IndexError`` (the reference's ``take``
     clamps it, or its slice comes up short)."""
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    table = params["embed"]
+    if is_dtensor(table):
+        x = _sharded_lookup(table, tokens).to(_dtype(cfg))
+    else:
+        x = table[tokens.long()].to(_dtype(cfg))
     if cfg.embed_scale:
         x = x * L._scalar(math.sqrt(cfg.d_model), x)
     if cfg.learned_pos:
@@ -265,6 +285,27 @@ def embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, pos: int = 0) 
         rows = params["dec_pos"][pos:pos + n].to(x.dtype)
         x = x + (rows if tokens.dim() == 2 else rows[0])
     return x
+
+
+def _sharded_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from a ``DTensor`` table: the table
+    whole on every rank (its vocab shards gathered too), each rank looking
+    up its own tokens by the unsharded indexing (``local_map``), its rows'
+    gradient a partial sum over the batch shards.  DTensor's own
+    vocab-sharded lookup gives a masked partial sum, which neither a
+    checkpointed block's recompute nor a partial gradient can take, and
+    its rule for the indexing's backward is missing in some releases."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    rows = [p if p == Shard(0) else Replicate() for p in tokens.placements]
+    grad = [Partial() if p == Shard(0) else Replicate() for p in rows]
+    look = local_map(lambda t, tok: (t[tok.long()],), out_placements=(rows,),
+                     in_placements=(whole, rows), in_grad_placements=(grad, rows),
+                     device_mesh=mesh, redistribute_inputs=True)
+    return look(table, tokens)[0]
 
 
 def memory_tokens(cfg: ModelConfig) -> int | None:
@@ -292,6 +333,7 @@ def encode(cfg: ModelConfig, params: Params, extras: torch.Tensor,
     h = extras.to(dtype) + params["enc_pos"].to(dtype)
 
     def block(h, p):
+        h = constrain(h, "batch", None, None)
         h = h + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], h, cfg), cfg, causal=False)
         return h + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
 
@@ -353,6 +395,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         enc = encode(cfg, params, extras, remat)
 
         def dec_block(x, p, enc):
+            x = constrain(x, "batch", None, None)
             x = x + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg)
             x = x + L.attn_forward(p["cross"], L.apply_norm(p["ln_x"], x, cfg), cfg,
                                    kv_override=enc)
@@ -381,6 +424,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if cfg.family == "hybrid":
         def mamba(x, i):
             p = layer_params(params["blocks"], i)
+            x = constrain(x, "batch", None, None)
             return x + S.mamba2_forward(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
 
         def hybrid_unit(x, u):
@@ -399,6 +443,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     def block(x, i):
         p = layer_params(params["blocks"], i)
+        x = constrain(x, "batch", None, None)  # the residual stream, as the reference pins it
         if cfg.family == "ssm":
             x = x + S.rwkv_time_mix(p["time_mix"], L.apply_norm(p["ln1"], x, cfg), cfg)
             return x + S.rwkv_channel_mix(p["channel_mix"], L.apply_norm(p["ln2"], x, cfg), cfg)
@@ -410,6 +455,16 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return L.apply_norm(params["final_norm"], x, cfg)
 
 
+def _head(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    """The output head ``(D, V)`` in the compute dtype: the tied embedding's
+    transpose or ``lm_head``'s weight, a ``DTensor`` gathered over its fsdp
+    dim (the table before its transpose: a transposed share's gradient is
+    not contiguous)."""
+    if cfg.tie_embeddings:
+        return gather_fsdp(params["embed"].to(_dtype(cfg))).T
+    return gather_fsdp(params["lm_head"]["w"].to(_dtype(cfg)))
+
+
 def logits_for_position(cfg: ModelConfig, params: Params,
                         hidden_last: torch.Tensor) -> torch.Tensor:
     """``(B, D) -> (B, V)`` fp32 logits; the padded vocabulary is -1e30.
@@ -418,8 +473,7 @@ def logits_for_position(cfg: ModelConfig, params: Params,
     (``preferred_element_type``); here the bf16 operands are widened to fp32
     first, which gives the same exact products, summed in fp32."""
     dtype = _dtype(cfg)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    logits = hidden_last.to(dtype).float() @ w.to(dtype).float()
+    logits = hidden_last.to(dtype).float() @ _head(cfg, params).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     mask = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
@@ -433,15 +487,59 @@ def _ce_chunk(cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
     dtype, widened to fp32: exact products summed in fp32), the final
     softcap, the padded vocabulary at -1e30, logsumexp less the gold logit
     where the label is >= 0."""
-    logits = h.float() @ w.float()
+    logits = constrain(h.float() @ w.float(), "batch", None, "vocab")
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     vocab = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
     logits = torch.where(vocab, logits, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        lse, gold = _lse_gold_sharded(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     valid = (labels >= 0).float()
     return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def _lse_gold_sharded(logits: torch.Tensor, labels: torch.Tensor):
+    """``(logsumexp, gold logit)`` of vocab-sharded ``logits`` without
+    gathering them: the max and the sum of exponentials reduce over the
+    vocab shards, and each rank picks the gold logits its shard holds
+    (``local_map``; zero elsewhere, a partial sum over the shards).  With
+    one vocab shard, the unsharded ``logsumexp`` and gather on each rank's
+    rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, places = logits.device_mesh, tuple(logits.placements)
+    rows = tuple(Replicate() if q == Shard(2) else q for q in places)
+    vocab_dims = [d for d, q in enumerate(places) if q == Shard(2)]
+    if math.prod(dim_sizes(mesh)[d] for d in vocab_dims) == 1:
+        # one vocab shard (a mesh of one rank): the unsharded arithmetic
+        def whole(lg, lab):
+            lse = torch.logsumexp(lg, dim=-1)
+            return lse, torch.gather(lg, -1, lab.clamp(min=0)[..., None].long())[..., 0]
+
+        return local_map(whole, out_placements=(rows, rows), in_placements=(places, rows),
+                         device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    gold_places = tuple(Partial() if q == Shard(2) else q for q in places)
+
+    def pick(lg, lab):
+        coord, sizes = mesh.get_coordinate(), dim_sizes(mesh)
+        n, i = 1, 0
+        for d in vocab_dims:
+            n, i = n * sizes[d], i * sizes[d] + coord[d]
+        lo = i * lg.shape[-1]
+        at = lab.clamp(min=0).long() - lo
+        hit = (at >= 0) & (at < lg.shape[-1])
+        got = torch.gather(lg, -1, at.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return (torch.where(hit, got, torch.zeros((), dtype=lg.dtype, device=lg.device)),)
+
+    gold, = local_map(pick, out_placements=(gold_places,), in_placements=(places, rows),
+                      device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return lse, gold
 
 
 def chunked_ce_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
@@ -453,13 +551,16 @@ def chunked_ce_loss(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
     recomputed in the backward; sums in fp32, chunk by chunk in order, as the
     reference's scan."""
     b, s, _ = hidden.shape
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    w = w.to(_dtype(cfg))
+    # rows over the batch axes, whole over the tensor axis, so that each
+    # chunk's product leaves its logits vocab-sharded (DTensor would
+    # otherwise keep rows spread over the tensor axis and gather the head)
+    hidden = constrain(hidden, "batch", None, None)
+    w = _head(cfg, params)
     chunk = min(cfg.vocab_chunk, s)
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
-    hp = F.pad(hidden, (0, 0, 0, pad))
-    lp = F.pad(labels, (0, pad), value=-1)
+    hp = F.pad(hidden, (0, 0, 0, pad)) if pad else hidden
+    lp = F.pad(labels, (0, pad), value=-1) if pad else labels
     part = _remat(lambda h, lab, w: _ce_chunk(cfg, h, lab, w), True)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)

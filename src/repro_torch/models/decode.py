@@ -137,9 +137,9 @@ def _rwkv_decode(cfg: ModelConfig, params: Params, cache: Params,
         xn2 = L.apply_norm(p["ln2"], x, cfg)
         h2, np2 = S.rwkv_channel_mix_decode(p["channel_mix"], xn2, p2, cfg)
         x = x + h2
-        prev1.append(np1.to(p1.dtype))
-        prev2.append(np2.to(p2.dtype))
-        wkv.append(state)
+        prev1.append(L.placed_as(np1.to(p1.dtype), p1))
+        prev2.append(L.placed_as(np2.to(p2.dtype), p2))
+        wkv.append(L.placed_as(state, cache["wkv"][i]))
     return x, dict(cache, prev1=torch.stack(prev1), prev2=torch.stack(prev2),
                    wkv=torch.stack(wkv))
 
@@ -155,8 +155,8 @@ def _hybrid_decode(cfg: ModelConfig, params: Params, cache: Params, x: torch.Ten
         h, nconv, state = S.mamba2_decode(p["mamba"], L.apply_norm(p["ln1"], x, cfg),
                                           cache["conv"][i], cache["ssm"][i], cfg)
         x = x + h
-        conv.append(nconv)
-        ssm.append(state)
+        conv.append(L.placed_as(nconv, cache["conv"][i]))
+        ssm.append(L.placed_as(state, cache["ssm"][i]))
         j = shared_application(cfg, i)
         if j is not None:
             x = _dense_block_decode(params["shared"], x, cache["sk"][j], cache["sv"][j], pos,

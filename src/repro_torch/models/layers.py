@@ -10,6 +10,20 @@ Compute runs in the config dtype (bf16 by default) with fp32
 normalisation statistics.  Initialisers draw on the device of the
 ``torch.Generator`` they are given; ``lead`` prefixes the shapes (the
 stacked layer axis).
+
+Sharded (``DTensor``s, :mod:`repro_torch.models.shard_ctx`): attention's q
+/ k / v / o, the MLP's hidden and the MoE buffers are constrained as the
+reference's, and the identity on plain tensors.  Where DTensor's
+propagation lacks a rule or would pick a costly layout, an explicit step:
+a linear weight is gathered over its fsdp dim at use (``gather_fsdp``); a
+norm takes whole rows (``whole_rows``); a head split the mesh does not
+divide replicates first (``splittable``); GQA K / V whose heads do not
+divide the tensor axis are repeated to the query heads and the softmax
+accumulators laid out as the queries (:func:`flash_attention`); the
+decode's K / V write at ``pos`` goes to the rank holding it
+(:func:`write_seq`), its scores taken with q laid out as the cache; the
+MoE routing, dispatch and combine run on each rank's batch rows through
+``local_map`` (a stable sort, ``searchsorted``, gathers and scatters).
 """
 
 from __future__ import annotations
@@ -20,10 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_ctx import gather_fsdp, splittable, whole_rows
+from repro_torch.placements import constrain, dim_sizes, is_dtensor
 
 __all__ = ["Params", "_dense_init", "linear", "init_linear", "init_norm", "apply_norm",
            "cast_linears", "rope", "init_attention", "flash_attention", "attn_forward",
-           "attn_decode", "init_mlp", "mlp_forward", "init_moe", "moe_capacity",
+           "attn_decode", "write_seq", "put", "placed_as", "init_mlp", "mlp_forward", "init_moe", "moe_capacity",
            "moe_route", "moe_dispatch", "moe_buffer", "moe_experts", "moe_combine",
            "moe_forward"]
 
@@ -46,8 +62,10 @@ def linear(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     The reference casts the fp32 master weight to ``dtype`` on every call.
     The port casts once instead (:func:`cast_linears`, when a model is
     prepared for serving) and keeps that copy; ``.to`` of a weight already
-    in ``dtype`` returns it as it is, so the values are the same."""
-    y = torch.matmul(x, p["w"].to(dtype))
+    in ``dtype`` returns it as it is, so the values are the same.  A
+    ``DTensor`` weight is gathered over its fsdp dim after the cast
+    (:func:`~repro_torch.models.shard_ctx.gather_fsdp`)."""
+    y = torch.matmul(x, gather_fsdp(p["w"].to(dtype)))
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
@@ -94,7 +112,7 @@ def init_norm(
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
+    xf = whole_rows(x).float()
     if cfg.norm == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
         y = xf * torch.rsqrt(var + 1e-6) * p["scale"]
@@ -171,7 +189,7 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, kv_heads: int |
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, -1).transpose(1, 2)  # (B, H, S, h)
+    return splittable(x, -1, n_heads).reshape(b, s, n_heads, -1).transpose(1, 2)  # (B, H, S, h)
 
 
 def _softcap(s: torch.Tensor, cap: float | None, inplace: bool = True) -> torch.Tensor:
@@ -190,7 +208,32 @@ def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
     reference's ``reshape(b, hkv, g, sq, hd)``, i.e. ``repeat_interleave``
     of the KV heads)."""
     b, hq, sq, hd = q.shape
+    q = splittable(q, 1, hkv)
     return q.reshape(b, hkv, (hq // hkv) * sq, hd).float() * (1.0 / math.sqrt(hd))
+
+
+def _kv_heads_as_q(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """A GQA ``DTensor`` K or V whose heads do not divide the mesh dims that
+    shard the queries' heads, or whose queries are sharded by sequence,
+    repeated to one head per query head (each KV head read by its ``G``
+    query heads, as the grouping reads it) and sharded as the queries'
+    heads: the grouping would otherwise have to gather the queries' heads
+    (every rank of the tensor axis computing all of the attention) or merge
+    their sharded sequence into the group dim."""
+    from torch.distributed.tensor import Shard
+
+    hq, hkv = q.shape[1], kv.shape[1]
+    on = [d for d, p in enumerate(q.placements) if p == Shard(1)]
+    n = math.prod(dim_sizes(q.device_mesh)[d] for d in on)
+    by_seq = Shard(2) in q.placements  # the queries' sequence sharded (``qseq``)
+    if hq == hkv or not (by_seq or on and hkv % n):
+        return kv
+    b, _, s, hd = kv.shape
+    kv = kv[:, :, None].expand(b, hkv, hq // hkv, s, hd).reshape(b, hq, s, hd)
+    if not on:
+        return kv
+    return kv.redistribute(kv.device_mesh, [Shard(1) if d in on else p
+                                            for d, p in enumerate(kv.placements)])
 
 
 def flash_attention(
@@ -215,6 +258,8 @@ def flash_attention(
     skipped.  The score passes run in place unless autograd records a
     gradient of ``q``, ``k`` or ``v``, which needs the softcap's ``tanh`` and
     the masked scores as they were; the values are the same."""
+    if is_dtensor(q):
+        k, v = _kv_heads_as_q(q, k), _kv_heads_as_q(q, v)
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -225,8 +270,8 @@ def flash_attention(
     if pad:
         k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
     qpos = q_offset + torch.arange(sq, device=q.device)
-    acc = torch.zeros((b, hkv, g * sq, hd), dtype=torch.float32, device=q.device)
-    m = torch.full((b, hkv, g * sq), -math.inf, dtype=torch.float32, device=q.device)
+    acc = torch.zeros_like(qf)  # (B, Hkv, G*Sq, h) fp32, laid out as the queries
+    m = torch.full_like(qf[..., 0], -math.inf)
     lse = torch.zeros_like(m)
     inplace = not (torch.is_grad_enabled()
                    and (q.requires_grad or k.requires_grad or v.requires_grad))
@@ -267,12 +312,17 @@ def attn_forward(
     q = _split_heads(linear(p["wq"], x, dtype), cfg.n_heads)
     k = _split_heads(linear(p["wk"], src, dtype), cfg.n_kv_heads)
     v = _split_heads(linear(p["wv"], src, dtype), cfg.n_kv_heads)
+    # heads over the tensor axis when divisible, else sequence parallelism
+    q = constrain(q, "batch", ("heads", "qseq"), ("qseq",), None)
+    k = constrain(k, "batch", ("kv_heads",), None, None)
+    v = constrain(v, "batch", ("kv_heads",), None, None)
     if cfg.use_rope and kv_override is None:
         pos = positions if positions is not None else torch.arange(s, device=x.device)
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal and kv_override is None, window=window,
                         softcap=cfg.attn_softcap)
+    o = constrain(o, "batch", ("heads", "qseq"), ("qseq",), None)
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return linear(p["wo"], o, dtype)
 
@@ -306,10 +356,16 @@ def attn_decode(
         posv = torch.full((1,), pos, device=x.device)
         q = rope(q, posv, cfg.rope_theta)
         k1 = rope(k1, posv, cfg.rope_theta)
-    cache_k[:, :, pos] = k1[:, :, 0]
-    cache_v[:, :, pos] = v1[:, :, 0]
+    write_seq(cache_k, pos, k1)
+    write_seq(cache_v, pos, v1)
     hkv = cfg.n_kv_heads
-    s = _softcap(_grouped(q, hkv) @ cache_k.float().transpose(-1, -2), cfg.attn_softcap)
+    qg = _grouped(q, hkv)
+    if is_dtensor(cache_k):  # q laid out as the cache, whole over its sequence
+        from torch.distributed.tensor import Replicate, Shard
+
+        qg = qg.redistribute(cache_k.device_mesh, [Replicate() if p == Shard(2) else p
+                                                   for p in cache_k.placements])
+    s = _softcap(qg @ cache_k.float().transpose(-1, -2), cfg.attn_softcap)
     kpos = torch.arange(smax, device=x.device)
     ok = kpos <= pos
     if window is not None:
@@ -317,6 +373,54 @@ def attn_decode(
     w = torch.softmax(s.masked_fill_(~ok, -1e30), dim=-1)  # (B, Hkv, G, Smax)
     o = (w @ cache_v.float()).reshape(b, 1, cfg.q_dim)
     return linear(p["wo"], o.to(dtype), dtype), cache_k, cache_v
+
+
+def write_seq(cache: torch.Tensor, start: int, new: torch.Tensor) -> None:
+    """``cache[:, :, start:start + n] = new`` in place (``new: (B, H, n,
+    hd)``).  On a ``DTensor`` cache each rank writes its own share of
+    ``new``; where the sequence dim is sharded (a GQA model whose KV heads do
+    not divide the tensor axis, or ``long_500k``) each rank writes the part
+    of ``[start, start + n)`` its block holds (DTensor has no rule for an
+    in-place write into part of a sharded dim)."""
+    n = new.shape[2]
+    if not is_dtensor(cache):
+        if n == 1:  # one decode step's token
+            cache[:, :, start] = new[:, :, 0]
+        else:
+            cache[:, :, start:start + n] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    want = [Replicate() if p == Shard(2) else p for p in cache.placements]
+    local_new = new.redistribute(mesh, want).to_local()
+    coord, sizes = mesh.get_coordinate(), dim_sizes(mesh)
+    blocks, i = 1, 0
+    for d, p in enumerate(cache.placements):
+        if p == Shard(2):
+            blocks, i = blocks * sizes[d], i * sizes[d] + coord[d]
+    size = cache.shape[2] // blocks
+    lo, hi = max(start, i * size), min(start + n, (i + 1) * size)
+    if lo < hi:
+        cache.to_local()[:, :, lo - i * size:hi - i * size] = local_new[:, :, lo - start:hi - start]
+
+
+def placed_as(new: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A decode step's new state laid out as the cache entry it replaces (a
+    ``DTensor``'s placements; a partial sum reduced), so a sharded cache
+    keeps its specs step after step; a plain tensor as it is."""
+    if not is_dtensor(new) or tuple(new.placements) == tuple(like.placements):
+        return new
+    return new.redistribute(like.device_mesh, like.placements)
+
+
+def put(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[...] = src`` in place; a ``DTensor`` ``src`` is first moved to
+    ``dst``'s placements (an in-place copy cannot change them)."""
+    if is_dtensor(dst):
+        dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
+    else:
+        dst[...] = src
 
 
 # -------------------------------- MLPs -------------------------------------
@@ -340,10 +444,12 @@ def mlp_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU, GeGLU (tanh GELU) or the biased GELU MLP, in ``x``'s dtype."""
     dtype = x.dtype
     if cfg.mlp in ("swiglu", "geglu"):
-        gate = linear(p["w_gate"], x, dtype)
+        gate = constrain(linear(p["w_gate"], x, dtype), "batch", None, "ffn")
         act = _silu(gate) if cfg.mlp == "swiglu" else _gelu(gate)
-        return linear(p["w_down"], act * linear(p["w_up"], x, dtype), dtype)
-    return linear(p["w_down"], _gelu(linear(p["w_up"], x, dtype)), dtype)
+        up = constrain(linear(p["w_up"], x, dtype), "batch", None, "ffn")
+        return linear(p["w_down"], act * up, dtype)
+    h = constrain(linear(p["w_up"], x, dtype), "batch", None, "ffn")
+    return linear(p["w_down"], _gelu(h), dtype)
 
 
 # --------------------------------- MoE --------------------------------------
@@ -383,8 +489,12 @@ def moe_route(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     ``jax.lax.top_k`` breaks ties (``torch.topk`` promises no order among
     them)."""
     probs = torch.softmax(linear(p["router"], x, x.dtype).float(), dim=-1)
+    return _top_k(probs, cfg.top_k_experts)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     top_p, top_e = probs.sort(dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[..., :cfg.top_k_experts], top_e[..., :cfg.top_k_experts]
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
     return top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
 
 
@@ -428,11 +538,20 @@ def moe_buffer(x: torch.Tensor, token: torch.Tensor, filled: torch.Tensor) -> to
 def moe_experts(p: Params, h: torch.Tensor) -> torch.Tensor:
     """Each expert's SwiGLU over its rows, ``h: (E, N, D) -> (E, N, D)``,
     as batched products over the experts in ``h``'s dtype: fp32
-    accumulation, one rounding."""
+    accumulation, one rounding.
+
+    Sharded, the expert dim takes the tensor axis past 16 experts (the
+    reference's expert-parallel layout, which this batched layout is), and
+    the rows the batch axes; below that the reference loops over the
+    experts with tokens batch-sharded and ``d_ff`` tensor-parallel, which
+    here is the same constraint without the expert dim."""
     dtype = h.dtype
-    gate = torch.bmm(h, p["w_gate"].to(dtype))
-    up = torch.bmm(h, p["w_up"].to(dtype))
-    return torch.bmm(_silu(gate) * up, p["w_down"].to(dtype))
+    ex = ("expert",) if h.shape[0] > 16 else None
+    h = constrain(h, ex, ("batch",), None)
+    gate = constrain(torch.bmm(h, gather_fsdp(p["w_gate"].to(dtype))), ex, ("batch",), "ffn")
+    up = constrain(torch.bmm(h, gather_fsdp(p["w_up"].to(dtype))), ex, ("batch",), "ffn")
+    out = torch.bmm(_silu(gate) * up, gather_fsdp(p["w_down"].to(dtype)))
+    return constrain(out, ex, ("batch",), None)
 
 
 def moe_combine(out: torch.Tensor, top_p: torch.Tensor, top_e: torch.Tensor,
@@ -465,9 +584,42 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     The reference has two layouts of the experts' products, expert-major
     for E > 16 and a loop over the experts below that, for TPU sharding;
-    both compute what the one batched layout here computes."""
+    both compute what the one batched layout here computes.
+
+    On ``DTensor``s the routing, the dispatch and the combine (a stable
+    sort, ``searchsorted``, gathers and scatters, which DTensor has no rules
+    for) run on each rank's batch rows through ``local_map``; the experts'
+    products are DTensor ops."""
     cap = moe_capacity(cfg, x.shape[1])
+    if is_dtensor(x):
+        return _moe_forward_sharded(p, x, cfg, cap)
     top_p, top_e = moe_route(p, x, cfg)
     token, filled, slot = moe_dispatch(top_e, cfg.n_experts, cap)
     out = moe_experts(p, moe_buffer(x, token, filled))
     return moe_combine(out, top_p, top_e, slot, cap)
+
+
+def _moe_forward_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cap: int) -> torch.Tensor:
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    x = constrain(x, "batch", None, None)
+    probs = torch.softmax(linear(p["router"], x, x.dtype).float(), dim=-1)
+    mesh, rows = x.device_mesh, tuple(x.placements)
+    if any(isinstance(q, Shard) and q.dim != 0 for q in rows):
+        raise ValueError(f"the MoE layer needs its tokens sharded on the batch dim, got {rows}")
+    slots = tuple(Shard(1) if isinstance(q, Shard) else q for q in rows)
+
+    def dispatch(x_l, probs_l):
+        top_p, top_e = _top_k(probs_l, cfg.top_k_experts)
+        token, filled, slot = moe_dispatch(top_e, cfg.n_experts, cap)
+        return moe_buffer(x_l, token, filled), top_p, top_e, slot
+
+    h, top_p, top_e, slot = local_map(dispatch, out_placements=(slots, rows, rows, rows),
+                                      in_placements=(rows, rows), device_mesh=mesh,
+                                      redistribute_inputs=True)(x, probs.redistribute(mesh, rows))
+    out = moe_experts(p, h)
+    combine = local_map(lambda o, tp, te, sl: (moe_combine(o, tp, te, sl, cap),),
+                        out_placements=(rows,), in_placements=(slots, rows, rows, rows),
+                        device_mesh=mesh, redistribute_inputs=True)
+    return combine(out, top_p, top_e, slot)[0]

@@ -26,7 +26,9 @@ Training (``repro_torch.train``) takes the fp32 master as it is:
     loss = model.loss(params, {"tokens": ..., "labels": ...})   # remat on
     shapes = model.param_shapes()          # meta tensors, for a restore
 
-``input_specs`` (a JAX dry-run helper) is not ported.
+``input_specs(cfg, shape)`` gives ``meta`` tensors for every input of a
+dry-run cell (:data:`SHAPES`), the decode cache included: shapes and dtypes,
+no storage (the counterpart of the reference's ``ShapeDtypeStruct``s).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from repro_torch.models import backbone, decode as D, prefill as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, cast_linears
 
-__all__ = ["Model", "ShapeSpec", "SHAPES"]
+__all__ = ["Model", "ShapeSpec", "SHAPES", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +108,38 @@ class Model:
 
     def decode_step(self, params, cache, token, pos):
         return D.decode_step(self.cfg, params, cache, token, pos)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _extras_spec(cfg: ModelConfig, batch: int, dtype: torch.dtype) -> torch.Tensor | None:
+    if cfg.family == "audio":
+        return _meta((batch, cfg.encoder_seq, cfg.d_model), dtype)
+    if cfg.family == "vlm":
+        return _meta((batch, cfg.vision_tokens, cfg.d_model), dtype)
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """``meta`` stand-ins for every model input of the given cell: int32
+    ``tokens`` / ``labels`` ``(B, S)`` (``train``), ``tokens`` (``prefill``),
+    each with the ``audio`` / ``vlm`` family's ``extras`` in the config
+    dtype; ``token (B,)``, ``pos ()`` and the bf16 ``cache`` of ``S``
+    positions (``decode``)."""
+    dtype = getattr(torch, cfg.dtype)
+    b, s = shape.global_batch, shape.seq_len
+    tok = torch.int32
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": _meta((b, s), tok)}
+        if shape.kind == "train":
+            out["labels"] = _meta((b, s), tok)
+        ex = _extras_spec(cfg, b, dtype)
+        if ex is not None:
+            out["extras"] = ex
+        return out
+    if shape.kind == "decode":
+        return {"token": _meta((b,), tok), "pos": _meta((), tok),
+                "cache": D.init_cache(cfg, b, s, torch.bfloat16, "meta")}
+    raise ValueError(shape.kind)

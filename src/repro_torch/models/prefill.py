@@ -52,8 +52,30 @@ from repro_torch.models.backbone import (
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import init_cache
 from repro_torch.models.layers import Params
+from repro_torch.models.shard_ctx import current_mesh, mergeable, splittable
+from repro_torch.placements import constrain, is_dtensor
 
-__all__ = ["prefill"]
+__all__ = ["prefill", "new_cache"]
+
+
+def new_cache(cfg: ModelConfig, b: int, max_seq: int, dtype: torch.dtype,
+              like: torch.Tensor) -> Params:
+    """:func:`~repro_torch.models.decode.init_cache` on ``like``'s device; for
+    a ``DTensor`` ``like``, ``DTensor`` zeros sharded as the reference's
+    ``cache_specs`` fitted to the cache (the mesh of the active
+    :func:`~repro_torch.models.shard_ctx.sharded` context)."""
+    if not is_dtensor(like):
+        return init_cache(cfg, b, max_seq, dtype, like.device)
+    from repro_torch.launch.shardings import cache_specs, fit_tree, zeros_tree
+    from repro_torch.models.model import ShapeSpec
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("a sharded prefill runs in shard_ctx.sharded(mesh)")
+    shapes = init_cache(cfg, b, max_seq, dtype, "meta")
+    specs = fit_tree(cache_specs(cfg, mesh, ShapeSpec("prefill", "decode", max_seq, b)),
+                     shapes, mesh)
+    return zeros_tree(mesh, specs, shapes, like.to_local().device)
 
 
 def prefill(
@@ -115,12 +137,14 @@ def _rwkv_time_mix_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig):
     r, k, v, g, w = S._projections(p, x, S._token_shift(x))
 
     def heads(a):
-        return a.reshape(b, t, h, hd).transpose(1, 2).reshape(b * h, t, hd).contiguous()
+        a = mergeable(splittable(a, -1, h).reshape(b, t, h, hd).transpose(1, 2), 1)
+        return a.reshape(b * h, t, hd).contiguous()
 
     u_b = p["u"].reshape(1, h, hd).to(x.dtype).expand(b, h, hd).reshape(b * h, 1, hd)
     u_b = u_b.contiguous()
     o, state = linear_attention_with_state(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
                                            u_b, shift=1)
+    o, state = splittable(o, 0, b), splittable(state, 0, b)
     return S._group_norm_out(p, o.reshape(b, h, t, hd), g), state.reshape(b, h, hd, hd)
 
 
@@ -129,6 +153,8 @@ def _kv(p: Params, xn: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor |
     dtype = xn.dtype
     k = L._split_heads(L.linear(p["wk"], xn, dtype), cfg.n_kv_heads)
     v = L._split_heads(L.linear(p["wv"], xn, dtype), cfg.n_kv_heads)
+    k = constrain(k, "batch", ("kv_heads",), None, None)  # as attn_forward's
+    v = constrain(v, "batch", ("kv_heads",), None, None)
     if cfg.use_rope and positions is not None:
         k = L.rope(k, positions, cfg.rope_theta)
     return k, v
@@ -138,12 +164,14 @@ def _self_attn_with_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, window: int
     """Self-attention that also returns ``(k, v)`` for the cache."""
     dtype = x.dtype
     b, s, _ = x.shape
-    q = L._split_heads(L.linear(p["wq"], x, dtype), cfg.n_heads)
+    q = constrain(L._split_heads(L.linear(p["wq"], x, dtype), cfg.n_heads),
+                  "batch", ("heads", "qseq"), ("qseq",), None)
     pos = torch.arange(s, device=x.device)
     k, v = _kv(p, x, cfg, positions=pos)
     if cfg.use_rope:
         q = L.rope(q, pos, cfg.rope_theta)
     o = L.flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
+    o = constrain(o, "batch", ("heads", "qseq"), ("qseq",), None)
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return L.linear(p["wo"], o, dtype), k, v
 
@@ -154,8 +182,10 @@ def _cross_attn_with_kv(p: Params, xn: torch.Tensor, mem: torch.Tensor, cfg: Mod
     v)`` for the cache."""
     b, s, _ = xn.shape
     k, v = _kv(p, mem, cfg)
-    q = L._split_heads(L.linear(p["wq"], xn, xn.dtype), cfg.n_heads)
-    o = L.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap)
+    q = constrain(L._split_heads(L.linear(p["wq"], xn, xn.dtype), cfg.n_heads),
+                  "batch", ("heads", "qseq"), ("qseq",), None)
+    o = constrain(L.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap),
+                  "batch", ("heads", "qseq"), ("qseq",), None)
     return L.linear(p["wo"], o.transpose(1, 2).reshape(b, s, cfg.q_dim), xn.dtype), k, v
 
 
@@ -177,12 +207,11 @@ def _dense_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: i
     zero, and each layer's K / V is written into its first ``S`` positions
     (stacking the layers and then padding would hold a second cache)."""
     b, s, _ = x.shape
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, max_seq, cfg.head_dim)
-    cache = {name: torch.zeros(shape, dtype=cache_dtype, device=x.device) for name in "kv"}
+    cache = new_cache(cfg, b, max_seq, cache_dtype, x)
     for i, window in enumerate(_layer_windows(cfg)):
         x, k, v = _dense_block_prefill(layer_params(params["blocks"], i), x, cfg, window)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
+        L.write_seq(cache["k"][i], 0, k)
+        L.write_seq(cache["v"][i], 0, v)
     return x, cache
 
 
@@ -200,10 +229,11 @@ def _mamba2_with_state(p: Params, x: torch.Tensor, cfg: ModelConfig):
     h, n, ph = q.shape[1], q.shape[3], v.shape[3]
 
     def flat(a):
-        return a.reshape(b * h, t, a.shape[-1]).contiguous()
+        return mergeable(a, 1).reshape(b * h, t, a.shape[-1]).contiguous()
 
     u0 = torch.zeros((b * h, 1, n), dtype=x.dtype, device=x.device)
     o, state = linear_attention_with_state(flat(q), flat(k), flat(v), flat(w), u0, shift=0)
+    o, state = splittable(o, 0, b), splittable(state, 0, b)
     return (S._ssd_out(p, o.reshape(b, h, t, ph), v, z, cfg), conv_state,
             state.reshape(b, h, n, ph))
 
@@ -214,18 +244,18 @@ def _hybrid_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, max_seq: 
     ``hybrid_period`` of them; the cache is allocated once and each layer's
     states and each application's K / V are written into it."""
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    cache = new_cache(cfg, b, max_seq, cache_dtype, x)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         y, conv, state = _mamba2_with_state(p["mamba"], L.apply_norm(p["ln1"], x, cfg), cfg)
-        cache["conv"][i] = conv
-        cache["ssm"][i] = state
+        L.put(cache["conv"][i], conv)
+        L.put(cache["ssm"][i], state)
         x = x + y
         j = shared_application(cfg, i)
         if j is not None:
             x, k, v = _dense_block_prefill(params["shared"], x, cfg, None)
-            cache["sk"][j, :, :, :s] = k
-            cache["sv"][j, :, :, :s] = v
+            L.write_seq(cache["sk"][j], 0, k)
+            L.write_seq(cache["sv"][j], 0, v)
     return x, cache
 
 
@@ -236,16 +266,16 @@ def _audio_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, extras: to
     cross-attention's K / V of the encoder's output into ``xk`` / ``xv``."""
     b, s, _ = x.shape
     enc = encode(cfg, params, extras)
-    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    cache = new_cache(cfg, b, max_seq, cache_dtype, x)
     for i in range(cfg.n_layers):
         p = layer_params(params["blocks"], i)
         h, k, v = _self_attn_with_kv(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, None)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
+        L.write_seq(cache["k"][i], 0, k)
+        L.write_seq(cache["v"][i], 0, v)
         x = x + h
         h, xk, xv = _cross_attn_with_kv(p["cross"], L.apply_norm(p["ln_x"], x, cfg), enc, cfg)
-        cache["xk"][i] = xk
-        cache["xv"][i] = xv
+        L.put(cache["xk"][i], xk)
+        L.put(cache["xv"][i], xv)
         x = x + h
         x = x + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
     return x, cache
@@ -258,16 +288,16 @@ def _vlm_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor, extras: torc
     embeddings into ``xk`` / ``xv``."""
     b, s, _ = x.shape
     vision = extras.to(_dtype(cfg))
-    cache = init_cache(cfg, b, max_seq, cache_dtype, x.device)
+    cache = new_cache(cfg, b, max_seq, cache_dtype, x)
     for u in range(cfg.n_layers // cfg.cross_attn_period):
         for j in range(cfg.cross_attn_period - 1):
             i = vlm_self_layer(cfg, u, j)
             x, k, v = _dense_block_prefill(layer_params(params["blocks"], i), x, cfg, None)
-            cache["k"][i, :, :, :s] = k
-            cache["v"][i, :, :, :s] = v
+            L.write_seq(cache["k"][i], 0, k)
+            L.write_seq(cache["v"][i], 0, v)
         c = layer_params(params["cross_blocks"], u)
         h, xk, xv = _cross_attn_with_kv(c["cross"], L.apply_norm(c["ln1"], x, cfg), vision, cfg)
-        cache["xk"][u] = xk
-        cache["xv"][u] = xv
+        L.put(cache["xk"][u], xk)
+        L.put(cache["xv"][u], xv)
         x = gated(c, x, h, cfg)
     return x, cache

@@ -38,6 +38,7 @@ from repro_torch.models.layers import (
     init_norm,
     linear,
 )
+from repro_torch.models.shard_ctx import gather_fsdp, splittable
 
 __all__ = [
     "init_rwkv_time_mix", "rwkv_time_mix", "init_rwkv_channel_mix",
@@ -86,7 +87,7 @@ def _projections(p: Params, x: torch.Tensor, prev: torch.Tensor):
     v = linear(p["wv"], mixed(2), dtype)
     g = linear(p["wg"], mixed(3), dtype)
     # data-dependent decay (the Finch contribution)
-    dd = torch.tanh(mixed(4).float() @ p["w_a"]) @ p["w_b"]
+    dd = torch.tanh(mixed(4).float() @ gather_fsdp(p["w_a"])) @ gather_fsdp(p["w_b"])
     w = torch.exp(-torch.exp(p["w0"] + dd))  # in (0, 1)
     return r, k, v, g, w
 
@@ -111,7 +112,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     r, k, v, g, w = _projections(p, x, _token_shift(x))
 
     def heads(a):
-        return a.reshape(b, t, h, hd).transpose(1, 2)
+        return splittable(a, -1, h).reshape(b, t, h, hd).transpose(1, 2)
 
     o = linear_attention(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
                          u=p["u"].reshape(h, hd).to(x.dtype), mode="rwkv")
@@ -156,10 +157,10 @@ def rwkv_time_mix_decode(
     r, k, v, g, w = _projections(p, x, prev_x)
     u = p["u"].reshape(h, hd)
     sf = state.float()
-    rf, kf, vf = (a.reshape(b, h, hd).float() for a in (r, k, v))
+    rf, kf, vf = (splittable(a, -1, h).reshape(b, h, hd).float() for a in (r, k, v))
     kv = kf[..., :, None] * vf[..., None, :]  # (B, H, hd, hd)
     o = torch.einsum("bhk,bhkv->bhv", rf, sf + u[None, :, :, None] * kv)
-    new_state = w.reshape(b, h, hd)[..., :, None] * sf + kv
+    new_state = splittable(w, -1, h).reshape(b, h, hd)[..., :, None] * sf + kv
     of = o * torch.rsqrt(torch.mean(o * o, dim=-1, keepdim=True) + 1e-6)
     o = of.to(dtype).reshape(b, d)
     return linear(p["wo"], o * _silu(g), dtype), x, new_state.to(state.dtype)
@@ -234,7 +235,7 @@ def _ssd_inputs(p: Params, xconv: torch.Tensor, bmat: torch.Tensor, cmat: torch.
     h, n = cfg.n_heads, cfg.ssm_state
     dtype = xconv.dtype
     dtf, decay = _step_and_decay(p, dt)  # (B, T, H)
-    v = xconv.reshape(b, t, h, inner // h).transpose(1, 2)
+    v = splittable(xconv, -1, h).reshape(b, t, h, inner // h).transpose(1, 2)
     v = v * dtf.transpose(1, 2)[..., None].to(dtype)
     k = bmat[:, None].expand(b, h, t, n)
     q = cmat[:, None].expand(b, h, t, n)
@@ -284,7 +285,7 @@ def mamba2_decode(
     xconv = _silu((hist.float() * kw.float()).sum(1).to(wide))
 
     dtf, decay = _step_and_decay(p, dt)  # (B, H)
-    v = xconv.reshape(b, h, inner // h).float() * dtf[..., None]
+    v = splittable(xconv, -1, h).reshape(b, h, inner // h).float() * dtf[..., None]
     sf = ssm_state.float()
     new_s = (decay[..., None, None] * sf
              + bmat.float()[:, None, :, None] * v[:, :, None, :])  # (B, H, N, P)

@@ -11,6 +11,8 @@ from typing import Callable
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.shard_ctx import sharded
+from repro_torch.placements import is_dtensor
 from repro_torch.train._tree import items, leaves
 from repro_torch.train.optimizer import OptConfig, apply_gradients
 
@@ -35,7 +37,17 @@ def loss_and_grads(model: Model, params: dict, batch: dict, *,
     loss = model.loss(_unflatten(params, live), batch, remat=remat)
     grads = torch.autograd.grad(loss, [live[p] for p in paths], allow_unused=True,
                                 materialize_grads=True)
+    grads = [_like(g, live[p]) for p, g in zip(paths, grads)]
     return loss.detach(), _unflatten(params, dict(zip(paths, grads)))
+
+
+def _like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gradient in its parameter's placements: a replicated
+    parameter's gradient comes out of the batch-sharded backward as a
+    partial sum over the shards, which this reduces (an all-reduce)."""
+    if not is_dtensor(grad) or tuple(grad.placements) == tuple(param.placements):
+        return grad
+    return grad.redistribute(param.device_mesh, param.placements)
 
 
 def make_train_step(
@@ -44,10 +56,18 @@ def make_train_step(
     *,
     micro_steps: int = 1,
     remat: bool = True,
+    mesh=None,
+    act_sharding: bool = True,
 ) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as
     device tensors (the step reads nothing to the host).
+
+    With a ``mesh`` (:mod:`repro_torch.launch.mesh`) the step takes
+    ``DTensor`` params, AdamW moments and batch (:mod:`repro_torch.launch.
+    shardings`) and runs in :func:`repro_torch.models.shard_ctx.sharded`
+    (the logical activation rules unless ``act_sharding=False``); the new
+    params and moments keep their placements.
 
     With ``micro_steps > 1`` the batch is split along axis 0 and the
     micro-batches' ``loss / micro_steps`` and ``grads / micro_steps`` are
@@ -76,7 +96,14 @@ def make_train_step(
         new_params, new_state, metrics = apply_gradients(params, grads, opt_state, opt_cfg)
         return new_params, new_state, dict(metrics, loss=loss)
 
-    return step
+    if mesh is None:
+        return step
+
+    def sharded_step(params, opt_state, batch):
+        with sharded(mesh, act_sharding):
+            return step(params, opt_state, batch)
+
+    return sharded_step
 
 
 def make_eval_step(model: Model, *, remat: bool = False) -> Callable:

@@ -330,8 +330,14 @@ def test_launcher_refuses_a_family_that_needs_extras(arch):
 
 
 def test_launcher_refuses_a_tpu_mesh():
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        launch.build(_args("", mesh="prod"))
+    """A mesh runs only in a world of its size: one process asking for the
+    8-rank debug mesh (or the 256-rank production mesh) is refused before
+    any step, told the world it needs."""
+    for mesh, need in (("debug", 8), ("prod", 256), ("prod2", 512)):
+        with pytest.raises(ValueError, match=f"needs a world of {need} ranks.*has 1"):
+            launch.build(_args("", mesh=mesh))
+        with pytest.raises(ValueError, match=f"needs a world of {need} ranks"):
+            launch.train_once(_args("", mesh=mesh))
 
 
 # ------------------------------- resilience ----------------------------------
