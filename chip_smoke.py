@@ -600,8 +600,6 @@ def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int, seed: int) 
     tolerance.  Returns per-kernel records for the ``kernels`` line."""
     import torch
 
-    from repro_torch.kernels.gather_rerank import ops as gather_ops
-    from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
     from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
     from repro_torch.kernels.kmeans_assign.ref import (
@@ -747,25 +745,86 @@ def check_kernels(dev, data, both, c0, engine, q64, cfg, top_k: int, seed: int) 
                     in_path=in_path, batches_checked=batches, l2_route=l2_rec),
     )
 
-    # gather_rerank: a compaction buffer of candidates per query
+    # gather_rerank: a compaction buffer of candidates per query; and the
+    # baselines' width, d = 64: brute_force's call over fig9_12's 20,000
+    # points (int64 ids, an expanded arange)
     ids = torch.randint(0, n, (m, cap), device=dev, dtype=torch.int32,
                         generator=torch.Generator(dev).manual_seed(1))
-    got = gather_ops.gather_rerank_block(ids, data, q64)
-    want = gather_rerank_block_ref(ids, data, q64)
+    out["gather_rerank"] = rerank_record(ids, data, q64, "main")
+    g64 = torch.Generator(dev).manual_seed(seed + 64)
+    x64 = torch.randn((20_000, 64), device=dev, generator=g64)
+    q30 = torch.randn((30, 64), device=dev, generator=g64)
+    # all pairs: one library call computes the same distances
+    out["gather_rerank (d64)"] = rerank_record(
+        torch.arange(x64.shape[0], device=dev).expand(q30.shape[0], -1), x64, q30, "d64",
+        library=("torch.cdist(donot_use_mm_for_euclid_dist) ** 2",
+                 lambda: torch.cdist(q30, x64, compute_mode="donot_use_mm_for_euclid_dist") ** 2))
+    return out
+
+
+def span_bytes(t) -> int:
+    """The bytes a tensor's elements span in its storage: an expanded view
+    (stride 0) counts its stored elements once."""
+    return (1 + sum((s - 1) * st for s, st in zip(t.shape, t.stride()))) * t.element_size()
+
+
+def rerank_bound(ids, x, q, out) -> tuple[float, str, int]:
+    """Row 2's ``(bound_ms, bound_by, distinct rows)``: the ids as stored,
+    the queries and the output once, and each distinct row the ids name
+    (clipped as the kernel clips them) once from device memory; a row named
+    again adds no bytes (it may come from L2), and each candidate's 3 d
+    flops."""
+    n, d = x.shape
+    distinct = int(ids.clamp(0, n - 1).unique().numel())
+    bms, by = bound(span_bytes(ids) + nbytes(q, out) + distinct * d * 4,
+                    3.0 * ids.numel() * d)
+    return bms, by, distinct
+
+
+def rerank_record(ids, x, q, tag: str, probe: bool = False, library=None) -> dict:
+    """Row 2 at one shape: held to its plain version (rtol 2e-5: both sum
+    the same squares in another order) and to a second launch (equal bits),
+    timed, and its bound (:func:`rerank_bound`); ``library``, ``(name,
+    fn)``, is one PyTorch call that computes the same distances, where
+    there is one (timed only).
+    With ``probe``, the card's rate for scattered 32-byte reads over ``x``
+    at as many reads as candidates (``kernel.scattered_read_probe``,
+    ``csrc/read_probe.cu``: the best of 1, 2, 4 and 8 reads a thread in
+    flight) and the time the distinct rows the ids name take at that rate:
+    what the scattered rows alone take."""
+    import torch
+
+    from repro_torch.kernels.gather_rerank import kernel as gk
+    from repro_torch.kernels.gather_rerank import ops as gather_ops
+    from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
+
+    got = gather_ops.gather_rerank_block(ids, x, q)
+    want = gather_rerank_block_ref(ids, x, q)
     err = (got - want).abs()
     if not (err <= 2e-5 * want.abs()).all():
-        raise AssertionError("gather_rerank outside rtol 2e-5 of the plain version")
-    d = data.shape[1]
-    rows = m * cap * d * 4
-    bms, by = bound(nbytes(ids, q64, got) + rows, 3.0 * m * cap * d)
-    out["gather_rerank"] = dict(
-        max_abs_err=float(err.max()),
-        **timed(lambda: gather_ops.gather_rerank_block(ids, data, q64), 50),
-        plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, data, q64), 20),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(m=m, candidates=cap, d=d),
-    )
-    return out
+        raise AssertionError(f"gather_rerank ({tag}) outside rtol 2e-5 of the plain version")
+    if not torch.equal(got, gather_ops.gather_rerank_block(ids, x, q)):
+        raise AssertionError(f"gather_rerank ({tag}): two launches differ")
+    (m, c), d = ids.shape, x.shape[1]
+    bms, by, distinct = rerank_bound(ids, x, q, got)
+    v = gk.vec(d, x.data_ptr(), q.data_ptr())
+    g, k, _ = gk.plan(d, v)
+    detail = dict(shape=[m, c, d], ids=str(ids.dtype).removeprefix("torch."), equal_bits=True,
+                  group=g, vec=v, per_thread=k, distinct_rows=distinct)
+    if library is not None:
+        detail["library"] = library[0]
+    if probe:
+        ms = {r: device_ms(lambda r=r: gk.scattered_read_probe(x, m * c, r), 50)["ms"]
+              for r in (1, 2, 4, 8)}
+        rate = m * c * 32 / min(ms.values()) / 1e6
+        detail["scattered_read"] = dict(reads=m * c, ms_by_reads_a_thread=ms, gb_per_s=rate,
+                                        distinct_rows_ms_at_rate=distinct * d * 4 / rate / 1e6)
+    return dict(max_abs_err=float(err.max()),
+                **timed(lambda: gather_ops.gather_rerank_block(ids, x, q), 50),
+                plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, x, q), 20),
+                bound_ms=bms, bound_by=by,
+                library_ms=None if library is None else time_ms(library[1], 20),
+                detail=detail)
 
 
 def dist_ops(m: int, n: int, s: int) -> float:
@@ -2526,8 +2585,6 @@ def sharded_kernel_checks(cfg, index, data, q, query, tag: str = "sharded",
     import torch
 
     from repro_torch.distributed import engine as eng_mod
-    from repro_torch.kernels.gather_rerank import ops as gather_ops
-    from repro_torch.kernels.gather_rerank.ref import gather_rerank_block_ref
     from repro_torch.kernels.kmeans_assign import kernel as kmeans_kernel
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
     from repro_torch.kernels.kmeans_assign.ref import kmeans_pair_assign_hist_ref, kmeans_stats_ref
@@ -2603,20 +2660,8 @@ def sharded_kernel_checks(cfg, index, data, q, query, tag: str = "sharded",
         bound_ms=bms, bound_by=by, library_ms=None,
         detail=dict(shape=[ranks.shape[0], m, ranks.shape[2]], block=bc))
 
-    got = gather_ops.gather_rerank_block(ids, x_loc, q_blk)
-    want = gather_rerank_block_ref(ids, x_loc, q_blk)
-    err = (got - want).abs()
-    if not (err <= 2e-5 * want.abs()).all():
-        raise AssertionError(f"gather_rerank ({tag}) outside rtol 2e-5 of the plain version")
-    m, cand = ids.shape
-    d = x_loc.shape[1]
-    bms, by = bound(nbytes(ids, q_blk, got) + m * cand * d * 4, 3.0 * m * cand * d)
-    out[f"gather_rerank ({tag})"] = dict(
-        max_abs_err=float(err.max()),
-        **timed(lambda: gather_ops.gather_rerank_block(ids, x_loc, q_blk), 50),
-        plain_ms=time_ms(lambda: gather_rerank_block_ref(ids, x_loc, q_blk), 20),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        detail=dict(shape=[m, cand, d]))
+    out[f"gather_rerank ({tag})"] = rerank_record(ids, x_loc, q_blk, tag,
+                                                  probe=x_loc.shape[1] == 8)
     return out
 
 
@@ -4621,7 +4666,8 @@ def main() -> int:
                   "rechecks_per_pair", "screen_err_over_margin", "max_screen_err_over_margin",
                   "equal_bits", "instantiations", "fingerprint",
                   "parent_fingerprint", "q", "tile", "bitmap_route", "smem_bytes", "l2_route",
-                  "in_path")
+                  "in_path", "ids", "group", "vec", "per_thread", "distinct_rows",
+                  "scattered_read", "library")
         rows[-1].update({key: rec_["detail"][key] for key in extras
                          if key in rec_.get("detail", {})})
         if name == "sc_score_cells_prefilter_compact":  # its time in the profiled batches
@@ -4629,8 +4675,9 @@ def main() -> int:
                 rows[-1]["in_path"][str(m)]["profile"] = compact_in_profile(p_)
         # rows 3-5 at the IVF shapes ("wide"), row 3 at PQ8x8's ("pq"), row 7
         # over all n columns ("dense"), row 11 at Zamba2's SSD shape ("ssd"),
-        # rows 2, 3, 4, 7 at the sharded path's and the dry-run share's shapes
-        for variant in ("wide", "pq", "dense", "ssd", "sharded", "dryrun"):
+        # rows 2, 3, 4, 7 at the sharded path's and the dry-run share's shapes,
+        # row 2 at the baselines' d = 64 ("d64")
+        for variant in ("wide", "pq", "dense", "ssd", "sharded", "dryrun", "d64"):
             other = checks.get(f"{name} ({variant})")
             if other is None:
                 continue

@@ -45,6 +45,7 @@ THREADS = {
     "kmeans_pair_assign_hist_kernel": 256,
     "kmeans_pair_hist_kernel": 256,
     "linear_attn_kernel": 256,
+    "scattered_read_probe_kernel": 256,
 }
 
 
@@ -164,13 +165,15 @@ def launches(op: str, args: Sequence, limits, registers: Mapping[str, int] | Non
     ``registers`` (a thread's, by kernel) sets the occupancy a launcher that
     sizes its grid to one wave reads; a kernel it does not name is taken at
     255, the most a thread may have: the fewest blocks an SM."""
+    from repro_torch.kernels.gather_rerank import kernel as rerank
     from repro_torch.kernels.kmeans_assign import ops as kmeans_ops
     from repro_torch.kernels.pairwise_l2 import kernel as pairwise
     from repro_torch.kernels.sc_score import kernel as score
 
-    if op == "gather_rerank_block":
-        m, c = args[0].shape
-        return [_launch("gather_rerank_l2_kernel", (_cdiv(m * c * 32, 256), 1, 1), 0)]
+    if op == "gather_rerank_block":  # rows taken as aligned: the widest load d allows
+        (m, c), d = args[0].shape, args[1].shape[1]
+        return [_launch("gather_rerank_l2_kernel", (rerank.blocks(m * c, d, rerank.vec(d)), 1, 1),
+                        0)]
     if op == "pairwise_sqdist":
         m, n = args[0].shape[0], args[1].shape[0]
         return [_launch("pairwise_sqdist_kernel", (pairwise.items(m, n), 1, 1), 0)]

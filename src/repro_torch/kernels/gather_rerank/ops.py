@@ -1,13 +1,15 @@
-"""The candidate rerank of the fused query: exact squared L2 of gathered
-rows.  Checks its arguments, clips the ids, then dispatches on the device
-of the tensors it was given.
+"""The candidate rerank of every query path: exact squared L2 of gathered
+rows.  Checks its arguments, then dispatches on the device of the tensors
+it was given.
 
-Candidate lists carry sentinel ids (``INT32_MAX``) whose distances the
-caller discards; they are clipped into ``[0, n-1]`` here, once, so the
-kernel never reads outside ``x``.  A CPU tensor takes the plain version
-(:mod:`.ref`); a CUDA tensor launches the kernel (:mod:`.kernel`), and a
-failed build or launch raises.  L2 only: the L1 metric stays on plain torch
-in the caller.
+Candidate lists carry sentinel ids (``-1``, ``INT32_MAX``) whose distances
+the caller discards; each route clips the ids into ``[0, n-1]`` itself, as
+it reads them (an int64 id past 2^31 too), so the operator means one thing
+on its CPU, CUDA and Meta routes and no pass over the ids comes before the
+kernel.  The ids go as the caller holds them: int32 or int64, at any
+strides.  A CPU tensor takes the plain version (:mod:`.ref`); a CUDA tensor
+launches the kernel (:mod:`.kernel`), and a failed build or launch raises.
+L2 only: the L1 metric stays on plain torch in the caller.
 """
 
 from __future__ import annotations
@@ -43,8 +45,9 @@ _OP = _library.define(
 def gather_rerank_block(
     cols: torch.Tensor, x: torch.Tensor, q: torch.Tensor
 ) -> torch.Tensor:
-    """``cols: (m, c)`` int32/int64 row ids into ``x: (n, d)`` float32,
-    ``q: (m, d)`` float32 ``-> (m, c)`` float32 exact squared L2."""
+    """``cols: (m, c)`` int32/int64 row ids (any strides; clipped into
+    ``[0, n-1]``) into ``x: (n, d)`` float32, ``q: (m, d)`` float32 ``->
+    (m, c)`` float32 exact squared L2."""
     if cols.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"cols must be int32 or int64, got {cols.dtype}")
     if cols.dim() != 2:
@@ -56,7 +59,7 @@ def gather_rerank_block(
     if min(n, *cols.shape) < 1:
         raise ValueError(f"need n, m and c >= 1, got {n}/{tuple(cols.shape)}")
     _library.route(x.device, "gather_rerank")
-    return _OP(cols.clamp(0, n - 1).to(torch.int32).contiguous(), x, q)
+    return _OP(cols, x, q)
 
 
 # --------------------------------------------------------------------------
@@ -78,7 +81,7 @@ def lint_entries():
     return [
         TileEntry(name="kernels.gather_rerank.kernel", contract={},
                   make=lambda: trace(gather_rerank_block, *inputs()),
-                  note="candidate gather + exact squared L2, a warp a candidate"),
+                  note="candidate gather + exact squared L2, a lane group a candidate"),
         TraceEntry(
             name="kernels.gather_rerank.oracle",
             make=lambda: trace(gather_rerank_block_ref, *inputs()),

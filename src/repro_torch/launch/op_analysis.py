@@ -75,7 +75,9 @@ def kernel_cost(op: str, args, outs) -> tuple[float, float]:
     """``(operations, bytes)`` of one kernel operator call, as ``PERF.md``
     §6's bound column counts them: the fp32 / int32 operations of the
     plain arithmetic, and every input read once and every output written
-    once (the candidate rerank also reads its ``m * c`` rows of ``x``)."""
+    once (the candidate rerank also reads its ``m * c`` rows of ``x``, and
+    its ids count at the dtype the caller holds them in: the kernel reads
+    them as given, with no int32 copy before it)."""
     ins = [a for a in args if isinstance(a, torch.Tensor)]
     moved = sum(_nbytes(t) for t in (*ins, *outs))
     if op in ("sc_scores_cells", "sc_scores_cells_prefilter", "sc_scores_cells_prefilter_compact"):

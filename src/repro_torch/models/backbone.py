@@ -328,14 +328,28 @@ def encode(cfg: ModelConfig, params: Params, extras: torch.Tensor,
     """``audio``: the encoder over ``extras: (B, encoder_seq, D)``: the
     frames and the learned encoder positions each cast to the compute dtype
     and added in it; each layer's non-causal self-attention and MLP (a
-    checkpointed block under ``remat``); the final norm."""
+    checkpointed block under ``remat``); the final norm.
+
+    Rounded as the reference computes when it runs, not as its source
+    reads.  XLA may keep the sum of a fused residual add in excess
+    precision (``xla_allow_excess_precision``, on by default); in the
+    reference's optimised HLO as verified (JAX 0.9, CPU backend, default
+    flags) the encoder layer's attention residual ``h + attn`` reaches the
+    second norm unrounded (fp32) and is rounded to the compute dtype only
+    where it enters the MLP's residual add; the scan's carry, the layer's
+    output, is rounded.  The port does the same: the sum in fp32 for
+    ``ln2``, its rounding for the residual stream.  This follows that
+    compiler's fusion choice, not the reference's source, and another
+    backend or flag may round elsewhere.  In fp32 both are the plain sum."""
     dtype = _dtype(cfg)
     h = extras.to(dtype) + params["enc_pos"].to(dtype)
 
     def block(h, p):
         h = constrain(h, "batch", None, None)
-        h = h + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], h, cfg), cfg, causal=False)
-        return h + L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], h, cfg), cfg)
+        a = h.float() + L.attn_forward(p["attn"], L.apply_norm(p["ln1"], h, cfg), cfg,
+                                       causal=False).float()
+        y = L.mlp_forward(p["mlp"], L.apply_norm(p["ln2"], a, cfg).to(dtype), cfg)
+        return a.to(dtype) + y
 
     block = _remat(block, remat)
     for i in range(cfg.encoder_layers):

@@ -10,7 +10,9 @@ frames plus ``enc_pos``, each encoder layer's two residual adds, the
 encoder's output, the tokens plus ``dec_pos``, each decoder layer's three
 residual adds at prefill and at the first decode step (from the
 reference's cache), and ``xk`` from the reference's encoder output.  Then
-the reference's encoder jitted whole against the same ops run one at a time.
+the reference's encoder jitted whole against the same ops run one at a time,
+and the port's encoder (which rounds as the jitted one does:
+``backbone.encode``) against the jitted one.
 A line gives the share of elements apart and the largest distance.
 
 ``--ratios N`` prints the rule's ratio (the port's distance from the
@@ -149,6 +151,7 @@ def probe(seed: int) -> None:
 
     whole = jax.jit(enc_jit)(jex)
     _cmp("reference encoder: jit whole vs op by op", whole, jenc)
+    _cmp("port's encoder vs the jitted reference's", whole, B.encode(cfg, cp, T(ex).bfloat16()))
     k0 = P._kv(B.layer_params(cp["blocks"], 0)["cross"], _bf(whole), cfg)[0]
     _cmp("xk[0] from the reference's encoder", jc["xk"][0], k0)
 

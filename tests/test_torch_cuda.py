@@ -100,18 +100,53 @@ def test_sc_score_compact_kernel_equals_plain(dev, tomb, cap):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("d", [128, 30])
-def test_gather_rerank_kernel_equals_plain(dev, d):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 30, 32, 64, 128, 130])
+def test_gather_rerank_kernel_equals_plain(dev, d, ids_dtype, offset):
+    """Every lane group and load width: d = 1 to 130, rows 16-byte aligned
+    or (``offset`` 1) x and q views one float off, so the loads narrow to 2
+    or 1 floats; int32 and int64 ids with the sentinels -1, n, INT32_MAX
+    (and 2^40), clipped by the kernel; m * c = 7 * 301, a multiple of no
+    warp's candidates; two launches give equal bits."""
+    from repro_torch.kernels.gather_rerank import kernel as gk
+
     g = _gen(1)
-    n, m, c = 5000, 7, 300
-    x = torch.randn(n, d, generator=g) * 3
-    q = torch.randn(m, d, generator=g) * 3
-    ids = torch.randint(0, n, (m, c), generator=g, dtype=torch.int32)
-    ids[0, 0] = 2**31 - 1  # a sentinel: clipped at the op boundary
-    want = gather_rerank_block_ref(ids.clamp(0, n - 1), x, q)
-    got = gather_ops.gather_rerank_block(ids.to(dev), x.to(dev), q.to(dev))
+    n, m, c = 5000, 7, 301
+    xb = torch.randn(n * d + offset, generator=g) * 3
+    qb = torch.randn(m * d + offset, generator=g) * 3
+    ids = torch.randint(0, n, (m, c), generator=g, dtype=ids_dtype)
+    ids[0, :3] = torch.tensor([2**31 - 1, -1, n])
+    if ids_dtype == torch.int64:
+        ids[1, 5] = 2**40
+    want = gather_rerank_block_ref(ids, xb[offset:].view(n, d), qb[offset:].view(m, d))
+    x, q = xb.to(dev)[offset:].view(n, d), qb.to(dev)[offset:].view(m, d)
+    assert gk.vec(d, x.data_ptr(), q.data_ptr()) == (gk.vec(d) if not offset else 1)
+    before = kernels.launch_counts()["gather_rerank"]
+    got = gather_ops.gather_rerank_block(ids.to(dev), x, q)
+    again = gather_ops.gather_rerank_block(ids.to(dev), x, q)
     torch.cuda.synchronize()
+    assert kernels.launch_counts()["gather_rerank"] == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=0)
+
+
+def test_gather_rerank_kernel_reads_ids_as_given(dev):
+    """Ids as the callers hold them, with no copy: the baselines' expanded
+    ``arange`` (int64, stride 0 over the queries) and a transposed int32
+    view (strides (1, m))."""
+    from repro_torch.kernels.gather_rerank import kernel as gk
+
+    g = _gen(2)
+    n, m, d = 3000, 5, 64
+    x, q = torch.randn(n, d, generator=g), torch.randn(m, d, generator=g)
+    for ids in (torch.arange(n, device=dev).expand(m, -1),
+                torch.randint(-3, n + 3, (n, m), generator=g, dtype=torch.int32).to(dev).t()):
+        assert ids.stride() in ((0, 1), (1, m))
+        want = gather_rerank_block_ref(ids.cpu(), x, q)
+        got = gk.gather_rerank_l2(ids, x.to(dev), q.to(dev))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=0)
 
 
 def _blobs(seed, b, n, k, s):
@@ -1572,7 +1607,8 @@ def test_hybrid_model_on_the_card_equals_the_cpu(dev):
     5) in fp32: prefill into an fp32 cache launches row 11 once a layer, in
     SSD mode, and a decode step launches nothing; two decode steps write the
     shared K / V in place; the logits and every cache array equal the CPU's;
-    the card's server gives the CPU server's greedy tokens."""
+    ``forward_hidden`` on both devices within a float64-derived bound of the
+    float64 value; the card's server gives the CPU server's greedy tokens."""
     import dataclasses
 
     from repro_torch.configs import reduced_config
@@ -1603,15 +1639,44 @@ def test_hybrid_model_on_the_card_equals_the_cpu(dev):
     assert cache_c["sk"].data_ptr() == ptr
     for name in ("conv", "ssm", "sk", "sv"):
         torch.testing.assert_close(cache_c[name].cpu(), cache_p[name], rtol=1e-3, atol=2e-4)
-    hc = backbone.forward_hidden(cfg, card, toks.to(dev))
-    torch.testing.assert_close(hc.cpu(), backbone.forward_hidden(cfg, params, toks),
-                               rtol=1e-3, atol=2e-4)
+    # The forward over all 2 x 70 positions is ill-conditioned at some of
+    # them: two fp32 evaluations lie up to ~7e-4 apart, past rtol 1e-3 /
+    # atol 2e-4, a tolerance finer than fp32 there.  Each device is held to
+    # a float64 evaluation within a bound derived from the CPU's per-layer
+    # rounding alone, and the card's per-layer rounding to at most twice the
+    # CPU's (``_hybrid_fp64.device_faults``; a card fault of 1e-4 in row 11
+    # fails it: ``test_hybrid_fp64_check_fails_a_card_fault``).
+    from _hybrid_fp64 import cpu_reference, device_faults
+
+    ref = cpu_reference(cfg, params, toks)
+    assert device_faults(cfg, params, toks, "cpu", ref) == []
+    assert device_faults(cfg, params, toks, dev, ref) == []
     prompts = toks[:, :24].numpy()
     got = serve.Server(model, card, 2, 37).run(
         [serve.Request(i, prompts[i]) for i in range(2)], 12)
     want = serve.Server(model, params, 2, 37).run(
         [serve.Request(i, prompts[i]) for i in range(2)], 12)
     assert [r.generated for r in got] == [r.generated for r in want]
+
+
+@pytest.mark.parametrize("heads", ["all", "one"])
+def test_hybrid_fp64_check_fails_a_card_fault(dev, monkeypatch, heads):
+    """The check of ``test_hybrid_model_on_the_card_equals_the_cpu`` fails a
+    fault on the card alone: row 11's output in layer 3, all heads or head
+    0, scaled by 1 + 1e-4 on the card (the bound comes from the CPU, which
+    the fault does not reach)."""
+    import itertools
+
+    from _hybrid_fp64 import cpu_reference, device_faults, inputs, planted_fault
+
+    from repro_torch.models import ssm as S
+
+    cfg, params, toks = inputs()
+    ref = cpu_reference(cfg, params, toks)
+    monkeypatch.setattr(S, "linear_attention", planted_fault(
+        S.linear_attention, cfg, heads, itertools.count()))
+    faults = device_faults(cfg, params, toks, dev, ref)
+    assert any(f.startswith("forward") for f in faults), faults
 
 
 @pytest.mark.parametrize("n_experts,top_k", [(8, 2), (32, 4)])

@@ -303,3 +303,49 @@ def test_short_prompt_then_decode_matches_forward(t):
     assert cache["conv"].shape[2] == k1 and (rows < k1) == (t < k1)
     assert not cache["conv"][:, :, :max(k1 - t, 0)].any()
     _close(cache["conv"][:, :, k1 - rows:], jcache["conv"], TOL)
+
+
+def test_fp64_bound_holds_the_fp32_forward_and_fails_a_mutated_model():
+    """The bound ``tests/test_torch_cuda.py::test_hybrid_model_on_the_card_equals_the_cpu``
+    holds the card and the CPU to (``_hybrid_fp64.fp64_bound``: each layer's
+    own fp32 rounding on the CPU, doubled, pushed through the rest of the
+    model in float64, 6 standard deviations), on that test's weights and tokens: the
+    CPU's fp32 ``forward_hidden`` lies within it, though not within the
+    test's former ``rtol=1e-3, atol=2e-4`` of the float64 value (a
+    tolerance finer than fp32 here); a model whose one layer's output
+    projection is scaled by 1 + 1e-4, or whose last layer has no D skip,
+    does not."""
+    from _hybrid_fp64 import fp64_bound, inputs, tree
+
+    cfg, params, toks = inputs()
+    y64, bound = fp64_bound(cfg, params, toks)
+    err = (backbone.forward_hidden(cfg, params, toks).double() - y64).abs()
+    assert (err <= bound).all()
+    assert (err > 2e-4 + 1e-3 * y64.abs()).any()
+    for mutate in (lambda p: p["blocks"]["mamba"]["w_out"]["w"][3].mul_(1 + 1e-4),
+                   lambda p: p["blocks"]["mamba"]["d_skip"][cfg.n_layers - 1].zero_()):
+        bad = tree(params, lambda a: a.clone())
+        mutate(bad)
+        assert ((backbone.forward_hidden(cfg, bad, toks).double() - y64).abs() > bound).any()
+
+
+@pytest.mark.parametrize("heads", ["all", "one"])
+def test_device_faults_flags_a_planted_row11_fault(monkeypatch, heads):
+    """``_hybrid_fp64.device_faults``, which the card test runs, on the CPU
+    as the device under test: nothing on the clean model; with row 11's
+    output in layer 3 scaled by 1 + 1e-4 after the reference was taken (all
+    heads, or head 0), the forward lies past the bound, and for one head
+    the layer's own rounding is past twice the CPU's too."""
+    import itertools
+
+    from _hybrid_fp64 import cpu_reference, device_faults, inputs, planted_fault
+
+    cfg, params, toks = inputs()
+    ref = cpu_reference(cfg, params, toks)
+    assert device_faults(cfg, params, toks, "cpu", ref) == []
+    monkeypatch.setattr(S, "linear_attention", planted_fault(
+        S.linear_attention, cfg, heads, itertools.count()))
+    faults = device_faults(cfg, params, toks, "cpu", ref)
+    assert any(f.startswith("forward") for f in faults), faults
+    if heads == "one":
+        assert any(f.startswith("mamba3:") for f in faults), faults

@@ -358,20 +358,57 @@ def test_pairwise_sqdist_refuses_shapes_past_its_limits(monkeypatch, limit, valu
     assert pairwise_ops.pairwise_sqdist(*fits).shape == (fits[0].shape[0], fits[1].shape[0])
 
 
-@pytest.mark.parametrize("d", [32, 30])
-def test_gather_rerank_matches_jax(d):
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 30, 32, 64, 128, 130])
+def test_gather_rerank_matches_jax(d, ids_dtype):
+    """Every load width and lane group the kernel picks (d = 1 to 130), ids
+    int32 and int64 with the lists' sentinels (-1, n, INT32_MAX; 2^40 in
+    int64), each clipped into [0, n-1] by the op.  The JAX package's ids
+    are int32 (it runs without x64), so it is given INT32_MAX where the
+    port gets 2^40: both mean a row past the end."""
     rng = np.random.default_rng(d)
     n, m, c = 500, 4, 37
     x = rng.normal(size=(n, d)).astype(np.float32) * 3
     q = rng.normal(size=(m, d)).astype(np.float32) * 3
-    cols = rng.integers(0, n, size=(m, c)).astype(np.int32)
+    cols = rng.integers(0, n, size=(m, c)).astype(ids_dtype)
     cols[0, :3] = [INT32_MAX, -1, n]  # sentinels are clipped at the op boundary
-    want = np.asarray(j_gather(jnp.asarray(cols), jnp.asarray(x), jnp.asarray(q), impl="jnp"))
+    if ids_dtype == np.int64:
+        cols[1, 5] = 2**40
+    jcols = np.clip(cols, -1, INT32_MAX).astype(np.int32)
+    want = np.asarray(j_gather(jnp.asarray(jcols), jnp.asarray(x), jnp.asarray(q), impl="jnp"))
     got = gather_ops.gather_rerank_block(T(cols), T(x), T(q))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5)
-    got64 = gather_ops.gather_rerank_block(T(cols).long(), T(x), T(q))
-    np.testing.assert_array_equal(got64.numpy(), got.numpy())
+    got32 = gather_ops.gather_rerank_block(T(jcols), T(x), T(q))
+    np.testing.assert_array_equal(got.numpy(), got32.numpy())
+
+
+@pytest.mark.parametrize("d,ptrs,v,g", [
+    (1, (0, 0), 1, 1), (2, (0, 0), 2, 1), (8, (0, 0), 4, 2), (30, (0, 0), 2, 16),
+    (64, (0, 0), 4, 16), (128, (0, 0), 4, 32), (130, (0, 0), 2, 32),
+    (128, (4, 0), 1, 32), (128, (8, 16), 2, 32), (8, (16, 20), 1, 8)])
+def test_gather_rerank_plan_picks_load_width_and_lane_group(d, ptrs, v, g):
+    """Row 2's launch rule on the CPU: the widest load the rows' alignment
+    and d allow, a group of the power of two at or above d / V lanes (at
+    most 32) a candidate, K candidates a thread, the grid over m * c; the
+    source's block size and K; the plans' grid equal."""
+    import re
+
+    from repro_torch.core.tuning import static_device_limits
+    from repro_torch.kernels import _plans
+    from repro_torch.kernels.gather_rerank import kernel as gk
+
+    assert gk.vec(d, *ptrs) == v and gk.group(d, v) == g
+    src = (_build.CSRC / "gather_rerank.cu").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == gk.THREADS
+    assert int(re.search(r"constexpr int kPerThread = (\d+);", src).group(1)) == gk.PER_THREAD
+    assert gk.plan(d, v) == (g, gk.PER_THREAD, gk.THREADS // g * gk.PER_THREAD)
+    for m, c in ((64, 4_352), (8, 187_500), (1, 1)):
+        assert gk.blocks(m * c, d, v) == -(-m * c // gk.plan(d, v)[2])
+    ids, x = torch.zeros((8, 187_500), dtype=torch.int32), torch.zeros((1, d))
+    plans = _plans.launches("gather_rerank_block", (ids, x, x), static_device_limits("h100"))
+    assert plans == [_plans.Launch("gather_rerank_l2_kernel",
+                                   (gk.blocks(8 * 187_500, d, gk.vec(d)), 1, 1), 256, 0)]
 
 
 def _separated(seed, b, n, k, s):
